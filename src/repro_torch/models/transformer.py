@@ -1,0 +1,148 @@
+"""Model assembly for the dense decoder.
+
+Port of the dense slice of ``repro/models/transformer.py``.  Parameters
+keep the reference's layout — ``layer_stacks[g]`` holds one scan group of
+same-kind layers with a leading layer dimension — so the weight bridge is
+an identity rename; layers loop in Python where the reference scans.
+Other families (MoE, SSM, hybrid, enc-dec, VLM) raise: they are later
+items of ROADMAP.md Queue A.  The reference's ``shard_activation`` is the
+identity without a device mesh, and the one-card port has none.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import attention, init_attention
+from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm)
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Kind of every decoder layer, in order."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only); see "
+            f"ROADMAP.md Queue A (MoE, SSM/hybrid, enc-dec/VLM items)")
+    if cfg.mlp_activation != "swiglu" or cfg.mlp_bias:
+        raise NotImplementedError("dense layers are ported with a bias-free "
+                                  "swiglu MLP only")
+    return ["dense"] * cfg.n_layers
+
+
+def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """Consecutive same-kind layer runs → (kind, count) groups."""
+    groups: list[tuple[str, int]] = []
+    for k in _layer_kinds(cfg):
+        if groups and groups[-1][0] == k:
+            groups[-1] = (k, groups[-1][1] + 1)
+        else:
+            groups.append((k, 1))
+    return groups
+
+
+def _init_layers(cfg: ModelConfig, n: int, generator, dtype, device) -> dict:
+    """``n`` dense layers stacked along a leading layer dimension (each
+    weight's fan-in is its shape[-2], so every layer gets the reference's
+    per-layer scale)."""
+    D = cfg.d_model
+    kw = dict(dtype=dtype, device=device, lead=(n,))
+    return {"ln1": init_rmsnorm(D, **kw),
+            "attn": init_attention(generator, cfg.attn, D, **kw),
+            "ln2": init_rmsnorm(D, **kw),
+            "mlp": init_mlp(generator, D, cfg.d_ff, **kw)}
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                *, device: DeviceLike = None) -> dict:
+    """Random parameters in the reference's layout, on ``device`` (the CUDA
+    device by default).  ``generator`` (seed 0 on ``device`` if None)
+    plays the role of the reference's PRNG key; the draws differ from
+    JAX's, so cross-package tests bridge JAX's weights instead."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dt = _dtype(cfg)
+    params: dict = {
+        "embed": init_embedding(generator, cfg.padded_vocab, cfg.d_model, dt,
+                                dev),
+        "final_norm": init_rmsnorm(cfg.d_model, dt, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_lm_head(generator, cfg.d_model,
+                                         cfg.padded_vocab, dt, dev)
+    params["layer_stacks"] = [_init_layers(cfg, n, generator, dt, dev)
+                              for _, n in layer_groups(cfg)]
+    return params
+
+
+def _apply_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, meta: dict,
+                 impl: str, gw=None, capspec=None):
+    """One dense layer.  Returns (x, captures).  gw: this layer's gateway
+    ancestor KV ({"attn": {k, v}}) or None; capspec: cut name →
+    {path_idx} positions whose post-rope K/V to capture."""
+    eps = cfg.norm_eps
+    caps: dict = {}
+    cap_idx = None if capspec is None else \
+        {n: s["path_idx"] for n, s in capspec.items()}
+    egw = (gw or {}).get("attn")
+    if egw is not None:
+        egw = {**egw, "pos": meta["anc_pos"], "valid": meta.get("anc_valid")}
+    a = attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
+                  pos_ids=meta["pos_ids"], kv_last=meta["kv_last"],
+                  impl=impl, extra_kv=egw, capture_idx=cap_idx)
+    if cap_idx is not None:
+        a, caps["attn"] = a
+    x = x + a
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps), cfg.mlp_activation)
+    return x, caps
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked group (every leaf indexed on dim 0)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack_caps(per_layer: list):
+    """[per-layer capture trees] → one tree with a leading layer dim."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: _stack_caps([c[k] for c in per_layer]) for k in first}
+    return torch.stack(per_layer)
+
+
+def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
+                      capspecs: Optional[dict], impl: str):
+    """One DFS forward with gateway inputs and captures (the session's
+    parallel prefill).
+
+    gw_in: None or {"g{i}": {"attn": {k, v}}} with a leading layer dim per
+    group; ``batch["anc_pos"]``/``["anc_valid"]`` give the ancestors'
+    positions and validity.  Returns (hidden, captures), the captures
+    stacked per group like ``gw_in`` (dense layers have no aux loss).
+    """
+    meta = {k: batch[k] for k in ("pos_ids", "kv_last", "anc_pos",
+                                  "anc_valid") if k in batch}
+    x = embed(params["embed"], batch["tokens"])
+    gw_in = gw_in or {}
+    caps_all: dict = {}
+    for gi, (stacked, (_, n)) in enumerate(
+            zip(params["layer_stacks"], layer_groups(cfg))):
+        gw = gw_in.get(f"g{gi}")
+        caps = []
+        for li in range(n):
+            x, c = _apply_layer(cfg, _layer(stacked, li), x, meta, impl,
+                                None if gw is None else _layer(gw, li),
+                                capspecs)
+            caps.append(c)
+        caps_all[f"g{gi}"] = _stack_caps(caps) if capspecs else {}
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), caps_all
