@@ -5,36 +5,61 @@
                                    # card with sm_90a (H100) and nvcc
 
 Phases, each of which ends the run non-zero if it fails:
-  1. build  — nvcc the tree-attention kernel from the repo's .cu source.
-  2. kernel — hold the kernel against its plain PyTorch version on the card,
-              computed in f32 from the same inputs (o and lse at 1e-4; a
-              bf16 o within its rounding: 2^-7 of it plus 2e-2 of its
-              row's rms), and a bf16 kernel also against the plain version
-              run in bf16 (2e-2), on packed branching trees, MHA/GQA/MQA, padding keys, gateway ancestors, windows,
-              prefill_attention, every head dim, a packed agentic row and
-              the serving path's two shapes; prints block-skip fractions.
-  3. serve  — Qwen2-1.5B at full width, random bf16 weights: 4 rollout
-              groups (prompt 1024, K=8, 64 new tokens) and one multi-turn
-              agentic session (prefill → fork(8) → 32 steps → a 200-token
-              tool-output prefill on all branches → 32 steps).  Launch
-              counts are reset just before and read just after.
-  4. parity — replay the multi-turn session with the plain attention,
-              teacher-forced: 4 layers in f32 (≤ 1e-4 max-rel) and all 28
-              layers in bf16 (relative L2 ≤ 3e-2).
-  5. timing — the kernel, its plain version and one library call
-              (scaled_dot_product_attention with the dense mask) at the
-              serving path's two shapes, beside the H100's bound.
+  1. build      — nvcc the three kernel sources (tree-attention forward, dq,
+                  dk/dv) in parallel, one process each.
+  2. kernel     — hold the forward kernel against its plain PyTorch version
+                  on the card, computed in f32 from the same inputs (o and
+                  lse at 1e-4; a bf16 o within its rounding: 2^-7 of it plus
+                  2e-2 of its row's rms), and a bf16 kernel also against the
+                  plain version run in bf16 (2e-2), on packed branching
+                  trees, MHA/GQA/MQA, padding keys, gateway ancestors,
+                  windows, prefill_attention, every head dim, a packed
+                  agentic row and the serving path's two shapes; prints
+                  block-skip fractions.
+  3. bwd kernel — the dq and dk/dv kernels against the plain backward in f32
+                  on the same (q, k, v, o, lse, do): f32 at 1e-4; bf16 at
+                  relative L2 ≤ 1e-2 per output and every element within
+                  5e-2 + 5e-2·|ref|.  The forward's cases plus the training
+                  shape T; two launches must be bit-identical, invisible
+                  keys get exactly zero dk/dv.
+  4. serve      — Qwen2-1.5B at full width, random bf16 weights: 4 rollout
+                  groups (prompt 1024, K=8, 64 new tokens) and one
+                  multi-turn agentic session (prefill → fork(8) → 32 steps →
+                  a 200-token tool-output prefill on all branches → 32
+                  steps).  Launch counts are reset just before and read just
+                  after.
+  5. parity     — replay the multi-turn session with the plain attention,
+                  teacher-forced: 4 layers in f32 (≤ 1e-4 max-rel) and all
+                  28 layers in bf16 (relative L2 ≤ 3e-2).
+  6. train      — Qwen2-1.5B at full width in bf16 through
+                  ``TreeTrainEngine.step`` with the kernels: 4 SFT steps on
+                  agentic trees and 2 RL steps on GRPO trees, 2 rows of
+                  4096; each step launches each kernel once per layer and
+                  syncs the host once.  Then one tree-vs-baseline step
+                  comparison on the same trees.  Counts are reset just
+                  before and read just after.
+  7. train parity — (a) 4 layers f32, kernel vs plain attention: loss 1e-5
+                  relative, grads max-rel 1e-4; (b) the same through the
+                  kernels, tree vs per-branch baseline (Eq. 5), same limits;
+                  (c) 28 layers bf16, kernel vs plain: loss 1e-2 relative,
+                  gradient relative L2 5e-2.
+  8. timing     — each kernel, its plain version and one library call, at
+                  the serving path's two shapes (forward) and at the
+                  training shape T (all three), beside the H100's bound.
 
-The line before the last names the card and its power limit; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2.
+The line before the last names the card and its power limit; the one before
+it lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -44,21 +69,41 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.packing import pack_linear_paths, pack_trees  # noqa: E402
 from repro_torch.core.tree import serialize_tree  # noqa: E402
+from repro_torch.data.loader import LoaderConfig, tree_stream  # noqa: E402
 from repro_torch.data.synthetic import agentic_tree, random_tree  # noqa: E402
+from repro_torch.device import flatten_tree  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
-from repro_torch.kernels.ref import tree_attention_ref_ext  # noqa: E402
-from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
+from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
+                                     tree_attention_ref_ext)
+from repro_torch.models.model import init_params, prepare_batch  # noqa: E402
 from repro_torch.serve.rollout import (RolloutConfig, rollout_group,  # noqa: E402
                                        sample_tokens)
 from repro_torch.serve.session import DecodeSession  # noqa: E402
+from repro_torch.train.engine import (ExecutionPlan, PackedExec,  # noqa: E402
+                                      TreeTrainEngine)
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         init_opt_state)
+from repro_torch.train.planner import plans  # noqa: E402
+from repro_torch.train.train_step import value_and_grad  # noqa: E402
 
 BIG = 1 << 30
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL_F32 = 1e-4                # f32 sums in another order on the card
 TOL_BF16_PLAIN = 2e-2         # against the plain version run in bf16
+TOL_BWD_L2 = 1e-2             # bf16 backward: relative L2 per output
+TOL_BWD_ELEM = 5e-2           # bf16 backward: 5e-2 + 5e-2·|ref| per element
+SOURCES = (ta.SOURCE, *tab.SOURCES)
+KERNELS = {"tree_attention_fwd": ta.tree_attention,
+           "tree_attention_bwd_dq": tab.bwd_dq,
+           "tree_attention_bwd_dkv": tab.bwd_dkv}
+# the training phase: 2 rows of 4096, 4 agentic trees per generator batch
+TRAIN_ROWS, TRAIN_SEQ, SFT_STEPS, RL_STEPS = 2, 4096, 4, 2
+TRAIN_GEN = dict(num_turns=3, turn_len_range=(64, 256))
 DEV = "cuda"
 CARD = ""
 
@@ -74,6 +119,19 @@ class Failed(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise Failed(msg)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
 
 
 # --------------------------------------------------------------------------
@@ -125,8 +183,9 @@ def gateway(kv_main, pos_main, A: int, pad_rows):
     return kl, pos_q, pos_k
 
 
-def kernel_cases():
-    """(name, dtype, q, k, v, kv_last, q_off, window, pos_q, pos_k)."""
+def kernel_cases(train_kv_last=None):
+    """(name, dtype, q, k, v, kv_last, q_off, window, pos_q, pos_k).  With
+    ``train_kv_last`` the training shape T (its real kv_last) comes last."""
     rng = np.random.default_rng(0)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
@@ -169,6 +228,10 @@ def kernel_cases():
     add("path: tool prefill S=200 q_off=1056 bf16", bf16, 8, 200, 12, 2, 128,
         np.concatenate([np.full((8, 1056), BIG), np.full((8, 200), 1255)],
                        1), q_off=1056)
+    if train_kv_last is not None:
+        B, S = train_kv_last.shape
+        add(f"train shape T (B={B}, S={S}) bf16", bf16, B, S, 12, 2, 128,
+            train_kv_last)
     return cases
 
 
@@ -237,6 +300,37 @@ def hold(tag: str, o, ref32, lse=None, lse32=None, o_bf16=None,
     return e
 
 
+def hold_bwd(tag: str, got, want) -> dict:
+    """Check dq/dk/dv of the backward kernels against the plain backward in
+    f32: f32 outputs within 1e-4 (atol and rtol); bf16 outputs at relative
+    L2 ≤ 1e-2 each and every element within 5e-2 + 5e-2·|ref| (the
+    reference's bf16 bar, tests/test_kernels_bwd.py:235).  Logs the errors
+    and returns each output's max abs error, by name."""
+    ok, errs, parts = True, {}, []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if a.dtype == torch.float32:
+            good, e = close(a, b, TOL_F32)
+            parts.append(f"{name} {e:.3e}")
+        else:
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            e = float(err.max())
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            good = (bool(torch.isfinite(a).all()) and rel <= TOL_BWD_L2
+                    and bool((err <= TOL_BWD_ELEM + TOL_BWD_ELEM
+                              * b.abs()).all()))
+            parts.append(f"{name} {e:.3e} (rel L2 {rel:.2e})")
+        ok = ok and good
+        errs[name] = e
+    tol = (f"tol {TOL_F32:g}" if got[0].dtype == torch.float32 else
+           f"tol rel L2 {TOL_BWD_L2:g}, {TOL_BWD_ELEM:g} + "
+           f"{TOL_BWD_ELEM:g}|ref|")
+    log(f"bwd kernels vs plain (f32): {tag}: max_abs_err "
+        f"{', '.join(parts)} ({tol})")
+    check(ok, f"backward kernels disagree with plain on {tag}")
+    return errs
+
+
 def skip_fraction(kl, S, q_off, window, pq, pk) -> float:
     B = kl.shape[0]
     kl, pq, pk = (None if t is None else t.cpu().numpy() for t in (kl, pq, pk))
@@ -253,17 +347,21 @@ def skip_fraction(kl, S, q_off, window, pq, pk) -> float:
 
 def phase_build() -> float:
     t0 = time.perf_counter()
-    lib = build.build(ta.SOURCE)
-    dt = time.perf_counter() - t0
-    log_txt = lib.with_suffix(".log").read_text()
-    regs = [int(w) for line in log_txt.splitlines() if "Used" in line
-            for w in [line.split("Used")[1].split()[0]]]
-    spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
-                 for line in log_txt.splitlines() if "spill stores" in line)
-    log(f"build: nvcc {' '.join(build.NVCC_FLAGS)} {ta.SOURCE} -> "
-        f"{lib.name} in {dt:.2f} s; {len(regs)} kernel instances, "
-        f"max {max(regs)} registers, {spills} bytes spill stores in all")
-    return dt
+    built = build.build_all(SOURCES)
+    total = time.perf_counter() - t0
+    for src, (lib, dt) in built.items():
+        log_txt = lib.with_suffix(".log").read_text()
+        regs = [int(w) for line in log_txt.splitlines() if "Used" in line
+                for w in [line.split("Used")[1].split()[0]]]
+        spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
+                     for line in log_txt.splitlines()
+                     if "spill stores" in line)
+        log(f"build: {src} -> {lib.name} in {dt:.2f} s; {len(regs)} kernel "
+            f"instances, max {max(regs)} registers, {spills} bytes spill "
+            f"stores in all")
+    log(f"build: {len(SOURCES)} sources, one nvcc {' '.join(build.NVCC_FLAGS)}"
+        f" each, all started together: {total:.2f} s in all")
+    return total
 
 
 def phase_kernel() -> float:
@@ -314,6 +412,47 @@ def phase_kernel() -> float:
                                           refs(True), refs(False)):
                 worst = max(worst, hold(f"prefill_attention {tag} {dt}",
                                         out, r32, o_bf16=rdt))
+    return worst
+
+
+def phase_bwd_kernel(train_kv_last) -> dict:
+    """The dq and dk/dv kernels on the forward's cases and the training
+    shape T, from the forward kernel's own o and lse.  Returns each
+    kernel's largest max abs error over the cases: dq's for the dq kernel,
+    dk's and dv's for the dk/dv kernel."""
+    worst = {"dq": 0.0, "dkv": 0.0}
+    rng = np.random.default_rng(4)
+    with torch.inference_mode():
+        for name, dt, q, k, v, kl, q_off, window, pq, pk in kernel_cases(
+                train_kv_last):
+            kw = dict(q_off=q_off, window=window, pos_q=pq, pos_k=pk)
+            sc = q.shape[-1] ** -0.5
+            do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
+            o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
+                                       **kw)
+            got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+            again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+            torch.cuda.synchronize()
+            want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                          o.float(), lse, do.float(), sc, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            dead = kl < 0                   # keys no query sees
+            zero = not bool(got[1][dead].any()) and not bool(got[2][dead].any())
+            skip = skip_fraction(kl, q.shape[1], q_off, window, pq, pk)
+            anc = ""
+            if q_off:
+                a_max = float(got[1][:, :q_off].float().abs().max())
+                anc = f", ancestor dk max |.| {a_max:.3e}"
+                check(a_max > 0, f"{name}: ancestor dk is all zero")
+            errs = hold_bwd(
+                f"{name} (block-skip fraction {skip:.3f}; two launches "
+                f"bit-identical {same}; invisible keys' dk/dv exactly 0 "
+                f"{zero}{anc})", got, want)
+            worst["dq"] = max(worst["dq"], errs["dq"])
+            worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+            check(same, f"{name}: two launches of the backward differ")
+            check(zero, f"{name}: invisible keys got nonzero dk/dv")
+            del got, again, want
     return worst
 
 
@@ -370,7 +509,7 @@ def phase_serve(cfg, params):
     rc = RolloutConfig(k=8, prompt_len=1024, max_new=64, temperature=1.0)
     gen = torch.Generator(DEV).manual_seed(1)
     rng = np.random.default_rng(7)
-    ta.tree_attention.launches = 0
+    reset_launches()
     n_prefill = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -390,17 +529,20 @@ def phase_serve(cfg, params):
         t_groups = time.perf_counter() - t0
         calls, logits, tm = multiturn(cfg, params, "kernel", gen)
         n_prefill += 2
-    launches = ta.tree_attention.launches
+    counts = launch_counts()
+    launches = counts["tree_attention_fwd"]
     log(f"serve: 4 rollout groups (prompt {rc.prompt_len}, k {rc.k}, "
         f"max_new {rc.max_new}) in {t_groups:.3f} s; multi-turn session: "
         f"prefill {tm['prefill_tok'] / tm['prefill_s']:.1f} tokens/s "
         f"({tm['prefill_tok']} tokens in {tm['prefill_s']:.4f} s), decode "
         f"{tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
         f"({tm['decode_tok']} tokens in {tm['decode_s']:.4f} s)")
-    log(f"serve: tree_attention kernel launches {launches} = "
-        f"{cfg.n_layers} layers x {n_prefill} parallel prefills")
+    log(f"serve: kernel launches {counts} (forward = {cfg.n_layers} layers "
+        f"x {n_prefill} parallel prefills; no backward)")
     check(launches == cfg.n_layers * n_prefill,
           f"kernel launches {launches} != {cfg.n_layers} x {n_prefill}")
+    check(counts["tree_attention_bwd_dq"] == counts["tree_attention_bwd_dkv"]
+          == 0, "serving launched a backward kernel")
     return calls, logits, launches
 
 
@@ -436,6 +578,242 @@ def phase_parity(cfg_full, params_full, calls, logits):
     del p4
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def train_plans(cfg, kind: str, loss_mode: str, n: int):
+    """The first ``n`` non-empty plans of the launcher's planner."""
+    lc = LoaderConfig(seq_len=TRAIN_SEQ, batch_rows=TRAIN_ROWS,
+                      trees_per_batch=4, kind=kind, loss_mode=loss_mode,
+                      seed=0, gen_kwargs=TRAIN_GEN)
+    out, dropped = [], 0
+    for plan in plans(cfg, lc, 8 * n, device=DEV):
+        if plan.is_empty:
+            dropped += plan.dropped
+            continue
+        plan.dropped += dropped
+        dropped = 0
+        out.append(plan)
+        if len(out) == n:
+            return out
+    raise Failed(f"the planner gave fewer than {n} {kind} plans")
+
+
+def row_trees(cfg, S: int, scan: int = 64):
+    """The first trees of the agentic stream (first fit, in stream order,
+    over its first ``scan`` trees) whose unique tokens fit one row of S,
+    and no path of which is longer than S."""
+    lc = LoaderConfig(seq_len=TRAIN_SEQ, trees_per_batch=4, seed=0,
+                      gen_kwargs=TRAIN_GEN)
+    trees, used = [], 0
+    for batch in tree_stream(cfg, lc, scan // 4):
+        for t in batch:
+            n = serialize_tree(t).n
+            if used + n <= S and max(len(p["tokens"])
+                                     for p in t.linearize_paths()) <= S:
+                trees.append(t)
+                used += n
+    return trees
+
+
+def tree_and_baseline(cfg, trees, S: int):
+    """The trees packed into one row of S (tree mode) and their linearized
+    paths into as many rows of S as they need (baseline)."""
+    tb = pack_trees([serialize_tree(t) for t in trees], S, batch_size=1)
+    bb = pack_linear_paths([t.linearize_paths() for t in trees], S)
+    return (prepare_batch(cfg, tb, device=DEV),
+            prepare_batch(cfg, bb, device=DEV))
+
+
+def count_hidden_syncs(engine, fn):
+    """Run ``fn`` with PyTorch's CUDA sync debugging on everywhere except
+    inside ``engine._sync`` (the engine's one counted transfer).  Returns
+    (fn's result, the messages of the synchronizing calls made elsewhere)."""
+    sync = engine._sync
+
+    def counted(vec):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return sync(vec)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    engine._sync = counted
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            engine._sync = sync
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def phase_train(cfg, sft, rl):
+    """Full-width training through the kernels, then tree vs baseline."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    opt_state = init_opt_state(params)
+    n_steps = len(sft) + len(rl)
+    # the engine's default attention (impl="kernel"), as a user gets it
+    engine = TreeTrainEngine(cfg, OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=n_steps))
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} heads "
+        f"{cfg.attn.n_heads}/{cfg.attn.n_kv_heads} hd {cfg.attn.head_dim} "
+        f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f} B params + fp32 AdamW "
+        f"state: {torch.cuda.memory_allocated() / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_launches()
+    times, per_tok, dropped, unique = [], [], 0, 0
+    for i, (mode, plan) in enumerate([("sep_avg", p) for p in sft]
+                                     + [("rl", p) for p in rl]):
+        before = launch_counts()
+        t1 = time.perf_counter()
+        if i == 1:      # audit one step for transfers besides _sync
+            (params, opt_state, m), hidden = count_hidden_syncs(
+                engine, lambda: engine.step(params, opt_state, plan))
+        else:
+            params, opt_state, m = engine.step(params, opt_state, plan)
+        dt = time.perf_counter() - t1
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        dropped += plan.dropped
+        unique += plan.unique_tokens
+        if i:
+            times.append(dt)
+            per_tok.append(plan.unique_tokens / dt)
+        log(f"train step {i} ({mode}): loss {m['loss']:.4f} nll/tok "
+            f"{m['nll']:.4f} grad_norm {m['grad_norm']:.3f} lr {m['lr']:.3e}"
+            f"; {plan.num_trees} trees, {plan.unique_tokens} unique tokens "
+            f"in {plan.packed.cells} cells, {plan.dropped} trees dropped; "
+            f"{dt:.3f} s ({plan.unique_tokens / dt:.0f} unique tokens/s); "
+            f"launches this step {delta}; host syncs {engine.host_syncs}")
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"train step {i}: non-finite loss or grad norm")
+        check(all(d == cfg.n_layers for d in delta.values()),
+              f"train step {i}: launches {delta}, want {cfg.n_layers} each")
+        check(engine.host_syncs == i + 1,
+              f"train step {i}: {engine.host_syncs} host syncs")
+    counts = launch_counts()
+    log(f"train: step 1 under torch.cuda.set_sync_debug_mode('warn') (off "
+        f"inside the engine's _sync): {len(hidden)} other synchronizing "
+        f"calls{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}")
+    check(not hidden, "a train step synchronized outside _sync")
+    step_s = statistics.median(times)
+    log(f"train: {n_steps} steps ({len(sft)} sep_avg on agentic trees, "
+        f"{len(rl)} rl on GRPO trees), {TRAIN_ROWS} rows x {TRAIN_SEQ}: "
+        f"step {step_s:.3f} s median after the first (all: "
+        f"{', '.join(f'{t:.3f}' for t in times)}), "
+        f"{statistics.median(per_tok):.0f} unique tokens/s median, "
+        f"{unique} unique tokens, {dropped} trees dropped, "
+        f"{engine.host_syncs} host syncs / {n_steps} steps, peak "
+        f"{peak_gb():.2f} GB; launches {counts}")
+
+    # tree vs per-branch baseline on the same trees, rows of 2048
+    trees = row_trees(cfg, 2048)
+    bt, bb = tree_and_baseline(cfg, trees, 2048)
+    del opt_state
+    res = {}
+    for name, batch in (("tree", bt), ("baseline", bb)):
+        opt = init_opt_state(params)
+        eng = TreeTrainEngine(cfg, OptimizerConfig(
+            lr=3e-4, warmup_steps=2, total_steps=4))
+        plan = ExecutionPlan(packed=PackedExec(
+            inputs=batch, tokens=int(batch["valid"].sum()),
+            cells=batch["tokens"].numel()), num_trees=len(trees))
+        torch.cuda.reset_peak_memory_stats()
+        ts = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            params, opt, m = eng.step(params, opt, plan)
+            ts.append(time.perf_counter() - t1)
+            check(math.isfinite(m["loss"]), f"{name} step: non-finite loss")
+        res[name] = (statistics.median(ts[1:]), plan.unique_tokens,
+                     tuple(batch["tokens"].shape), peak_gb())
+        del opt
+    (t_t, n_t, sh_t, pk_t), (t_b, n_b, sh_b, pk_b) = res["tree"], \
+        res["baseline"]
+    log(f"train: tree vs per-branch baseline on the same {len(trees)} trees "
+        f"(rows of 2048, full width, {cfg.dtype}, kernels, AdamW included): "
+        f"tree {n_t} tokens in {sh_t[0]} row(s), step {t_t:.3f} s, peak "
+        f"{pk_t:.2f} GB; baseline {n_b} tokens in {sh_b[0]} row(s), step "
+        f"{t_b:.3f} s, peak {pk_b:.2f} GB; {n_b / n_t:.3f} flat tokens per "
+        f"unique token, step time ratio baseline/tree {t_b / t_t:.3f} "
+        f"(median of 2 after one warm-up step each)")
+    return params, counts, step_s
+
+
+def grads_rel(ga, gb):
+    """(max over leaves of max|a − b| / max|b|, that leaf, relative L2 of
+    the whole flattened gradient, the leaf with the largest relative L2)."""
+    worst, wleaf, num, den, l2w, l2leaf = 0.0, "", 0.0, 0.0, 0.0, ""
+    for (path, a), (_, b) in zip(flatten_tree(ga), flatten_tree(gb)):
+        a, b = a.float(), b.float()
+        d = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        n2, d2 = float((a - b).pow(2).sum()), float(b.pow(2).sum())
+        num, den = num + n2, den + d2
+        name = "/".join(map(str, path))
+        if d > worst:
+            worst, wleaf = d, name
+        if d2 > 0 and math.sqrt(n2 / d2) > l2w:
+            l2w, l2leaf = math.sqrt(n2 / d2), name
+    return worst, wleaf, math.sqrt(num / den), f"{l2leaf} {l2w:.3e}"
+
+
+def phase_train_parity(cfg, params):
+    """(a) 4 layers f32 kernel vs plain; (b) 4 layers f32 tree vs baseline
+    through the kernels; (c) 28 layers bf16 kernel vs plain."""
+    cfg4 = cfg.replace(n_layers=4, dtype="float32")
+    p4 = init_params(cfg4, torch.Generator(DEV).manual_seed(0))
+    trees = row_trees(cfg4, 2048)
+    bt, bb = tree_and_baseline(cfg4, trees, 2048)
+    lk, _, gk = value_and_grad(cfg4, p4, bt, "kernel")
+    lr, _, gr = value_and_grad(cfg4, p4, bt, "ref")
+    e_loss = abs(float(lk) - float(lr)) / abs(float(lr))
+    e_g, leaf, l2, _ = grads_rel(gk, gr)
+    log(f"train parity (a): 4 layers f32, one packed row of 2048 "
+        f"({len(trees)} trees, {int(bt['valid'].sum())} tokens), kernel vs "
+        f"plain attention: loss {float(lk):.6f} vs {float(lr):.6f}, relative "
+        f"error {e_loss:.3e} (limit 1e-5); grads max-rel {e_g:.3e} at {leaf} "
+        f"(limit 1e-4), relative L2 {l2:.3e}")
+    del gr
+    lb, _, gb = value_and_grad(cfg4, p4, bb, "kernel")
+    e_loss_b = abs(float(lk) - float(lb)) / abs(float(lb))
+    e_g_b, leaf_b, l2_b, _ = grads_rel(gk, gb)
+    log(f"train parity (b): 4 layers f32 through the kernels, tree (1 row) "
+        f"vs per-branch baseline ({bb['tokens'].shape[0]} rows of 2048, "
+        f"{int(bb['valid'].sum())} tokens): loss {float(lk):.6f} vs "
+        f"{float(lb):.6f}, relative error {e_loss_b:.3e} (limit 1e-5); "
+        f"grads max-rel {e_g_b:.3e} at {leaf_b} (limit 1e-4), relative L2 "
+        f"{l2_b:.3e}")
+    del p4, gk, gb
+    trees = row_trees(cfg, 1024)
+    bt, _ = tree_and_baseline(cfg, trees, 1024)
+    lk2, _, gk2 = value_and_grad(cfg, params, bt, "kernel")
+    lr2, _, gr2 = value_and_grad(cfg, params, bt, "ref")
+    e_loss_c = abs(float(lk2) - float(lr2)) / abs(float(lr2))
+    e_g_c, leaf_c, l2_c, l2leaf_c = grads_rel(gk2, gr2)
+    log(f"train parity (c): {cfg.n_layers} layers bf16, one packed row of "
+        f"1024 ({len(trees)} trees, {int(bt['valid'].sum())} tokens), kernel "
+        f"vs plain attention: loss {float(lk2):.6f} vs {float(lr2):.6f}, "
+        f"relative error {e_loss_c:.3e} (limit 1e-2); relative L2 of the "
+        f"flattened gradient {l2_c:.3e} (limit 5e-2); worst leaf by relative "
+        f"L2 {l2leaf_c}; max-rel {e_g_c:.3e} at {leaf_c}")
+    del gk2, gr2
+    check(e_loss <= 1e-5 and e_g <= 1e-4, "train parity (a)")
+    check(e_loss_b <= 1e-5 and e_g_b <= 1e-4, "train parity (b)")
+    check(e_loss_c <= 1e-2 and l2_c <= 5e-2, "train parity (c)")
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
 def time_ms(fn, reps=20, warm=3) -> float:
     for _ in range(warm):
         fn()
@@ -451,11 +829,26 @@ def time_ms(fn, reps=20, warm=3) -> float:
     return statistics.median(ts)
 
 
-def phase_timing():
+def dense_mask(kl, S: int, q_off: int) -> torch.Tensor:
+    """[B, 1, S, Skv] bool: the tree mask, for the library yardstick and
+    for counting visible pairs."""
+    Skv = kl.shape[1]
+    i = q_off + torch.arange(S, device=DEV)
+    return ((torch.arange(Skv, device=DEV)[None, :] <= i[:, None])
+            & (kl[:, None, :] >= i[None, :, None]))[:, None]
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_timing_serve():
+    """The forward kernel at the serving path's two shapes."""
     rng = np.random.default_rng(9)
     shapes = [("prefill S=1024 q_off=0", 1, 1024, 0),
               ("tool prefill S=200 q_off=1056", 8, 200, 1056)]
-    out = []
     with torch.inference_mode():
         for name, B, S, q_off in shapes:
             H, Kh, hd, dt = 12, 2, 128, torch.bfloat16
@@ -464,10 +857,7 @@ def phase_timing():
             kl = i32(np.concatenate([np.full((B, q_off), BIG),
                                      np.full((B, S), Skv - 1)], 1))
             sc = hd ** -0.5
-            mask = ((torch.arange(Skv, device=DEV)[None, :]
-                     <= q_off + torch.arange(S, device=DEV)[:, None])
-                    & (kl[:, None, :] >= q_off
-                       + torch.arange(S, device=DEV)[None, :, None]))[:, None]
+            mask = dense_mask(kl, S, q_off)
             # the yardstick gets K/V expanded to every query head (outside
             # the timed call) so any of PyTorch's masked backends can run
             qt = q.transpose(1, 2).contiguous()
@@ -476,28 +866,94 @@ def phase_timing():
             lib = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=sc)
             kern = lambda: ta.tree_attention(q, k, v, kl, sc, q_off=q_off)
-            plain = lambda: tree_attention_ref_ext(q, k, v, kl, sc,
-                                                   q_off=q_off)
+            plain_f = lambda: tree_attention_ref_ext(q, k, v, kl, sc,
+                                                     q_off=q_off)
             e_lib = float((lib().transpose(1, 2).float()
                            - kern().float()).abs().max())
-            ms_k, ms_p, ms_l = time_ms(kern), time_ms(plain), time_ms(lib)
+            ms_k, ms_p, ms_l = time_ms(kern), time_ms(plain_f), time_ms(lib)
             # the work the function needs: 2·hd for q·k and 2·hd for p·v on
             # each visible (query, key) pair of every head
             flops = 4 * hd * H * int(mask.sum())
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + kl.numel() * 4
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-            bound = max(t_ops, t_bytes) * 1e3
-            by = "operations" if t_ops >= t_bytes else "bytes"
-            log(f"timing {name} (B={B}, H=12, Kh=2, hd=128, bf16, CUDA "
-                f"events, median of 20 after 3 warm-up): kernel {ms_k:.4f} "
-                f"ms, plain {ms_p:.4f} ms, sdpa (dense bool mask) "
-                f"{ms_l:.4f} ms, bound {bound:.4f} ms by {by} "
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
+                + kl.numel() * 4
+            bnd, by = bound(flops, nbytes)
+            log(f"timing forward, {name} (B={B}, H=12, Kh=2, hd=128, bf16, "
+                f"CUDA events, median of 20 after 3 warm-up): kernel "
+                f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, sdpa (dense bool mask) "
+                f"{ms_l:.4f} ms, bound {bnd:.4f} ms by {by} "
                 f"({flops / 1e9:.3f} GFLOP on visible pairs, "
-                f"{nbytes / 1e6:.3f} MB); "
-                f"kernel at {flops / ms_k / 1e9:.1f} TFLOP/s; sdpa vs kernel "
+                f"{nbytes / 1e6:.3f} MB); kernel at "
+                f"{flops / ms_k / 1e9:.1f} TFLOP/s; sdpa vs kernel "
                 f"max_abs_err {e_lib:.3e}")
-            out.append(dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
-                            bound_ms=bound, bound_by=by))
+
+
+def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
+    """All three kernels at the training shape T (the first train step's
+    packed rows and their real kv_last), with bounds on visible pairs."""
+    rng = np.random.default_rng(10)
+    B, S = train_kv_last.shape
+    H, Kh, hd, dt = 12, 2, 128, torch.bfloat16
+    kl = i32(train_kv_last)
+    q, k, v = qkv(rng, B, S, S, H, Kh, hd, dt)
+    do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
+    sc = hd ** -0.5
+    out = {}
+    with torch.inference_mode():
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
+        dl = tab.delta(o, do)
+        pairs = int(dense_mask(kl, S, 0).sum())
+        fwd = lambda: ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
+        dq = lambda: tab.bwd_dq(q, k, v, kl, lse, dl, do, sc)
+        dkv = lambda: tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc)
+        ms = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv),
+              "delta": time_ms(lambda: tab.delta(o, do))}
+        ms["plain_fwd"] = time_ms(lambda: tree_attention_ref_ext(
+            q, k, v, kl, sc, return_lse=True))
+        ms["plain_bwd"] = time_ms(lambda: tree_attention_bwd_ref(
+            q, k, v, kl, o, lse, do, sc))
+    mask = dense_mask(kl, S, 0)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
+              .contiguous().requires_grad_(True) for t in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    ms["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), attn_mask=mask, scale=sc))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sc)
+    ms["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    del ot, qt, kt, vt, mask
+    io = 2 * (q.numel() + k.numel() + v.numel())      # bf16 q, k, v
+    meta = kl.numel() * 4
+    rows = 2 * B * H * S * 4                           # lse and Δ, f32
+    spec = {"fwd": (4, io + 2 * q.numel() + meta + B * H * S * 4),
+            "dq": (6, io + 4 * q.numel() + meta + rows),
+            "dkv": (8, io + 2 * q.numel() + 4 * k.numel() + meta + rows)}
+    bwd_sum = ms["dq"] + ms["dkv"]
+    for key, (per_pair, nbytes) in spec.items():
+        flops = per_pair * hd * H * pairs
+        bnd, by = bound(flops, nbytes)
+        plain_ms = ms["plain_fwd"] if key == "fwd" else ms["plain_bwd"]
+        lib_ms = ms["lib_fwd"] if key == "fwd" else ms["lib_bwd"]
+        out[key] = dict(ms=ms[key], plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bnd, bound_by=by)
+        what = "forward" if key == "fwd" else "backward (dq, dk, dv)"
+        log(f"timing {key} at T (B={B}, S={S}, H=12, Kh=2, hd=128, bf16, "
+            f"real kv_last, {pairs} visible pairs; CUDA events, median of 20 "
+            f"after 3 warm-up): kernel {ms[key]:.4f} ms, bound {bnd:.4f} ms "
+            f"by {by} ({per_pair}·hd·H FLOPs per visible pair = "
+            f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.3f} MB), kernel at "
+            f"{flops / ms[key] / 1e9:.1f} TFLOP/s; plain {what} "
+            f"{plain_ms:.4f} ms; sdpa {what} (dense bool mask, K/V expanded) "
+            f"{lib_ms:.4f} ms")
+    log(f"timing at T: backward kernels dq + dk/dv {bwd_sum:.4f} ms (plus "
+        f"the wrapper's Δ reduction {ms['delta']:.4f} ms); plain backward "
+        f"{ms['plain_bwd']:.4f} ms; sdpa backward {ms['lib_bwd']:.4f} ms "
+        f"(kernels / sdpa {bwd_sum / ms['lib_bwd']:.2f}x); forward kernel / "
+        f"sdpa forward {ms['fwd'] / ms['lib_fwd']:.2f}x")
+    att = n_layers * (ms["fwd"] + bwd_sum) / 1e3
+    log(f"timing: attention share of a train step: {n_layers} x (fwd + dq + "
+        f"dk/dv) = {att:.3f} s of the {step_s:.3f} s median step "
+        f"({100 * att / step_s:.1f}%)")
     return out
 
 
@@ -514,10 +970,25 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t_start = time.perf_counter()
-    phase_build()
-    worst = phase_kernel()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s, peak memory "
+            f"{peak_gb():.2f} GB")
+        return out
 
     cfg = get_config("qwen2_1p5b")
+    sft = train_plans(cfg, "agentic", "sep_avg", SFT_STEPS)
+    rl = train_plans(cfg, "grpo", "rl", RL_STEPS)
+    kl_t = sft[0].packed.inputs["kv_last"].cpu().numpy()
+    timed("build", phase_build)
+    worst_fwd = timed("kernel", phase_kernel)
+    worst_bwd = timed("bwd kernel", phase_bwd_kernel, kl_t)
+
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
     torch.cuda.synchronize()
@@ -527,16 +998,41 @@ def main() -> int:
         f"{cfg.attn.head_dim} {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B "
         f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB, random "
         f"weights in {time.perf_counter() - t0:.2f} s")
-    calls, logits, launches = phase_serve(cfg, params)
-    phase_parity(cfg, params, calls, logits)
+    calls, logits, serve_launches = timed("serve", phase_serve, cfg, params)
+    timed("parity", phase_parity, cfg, params, calls, logits)
     del params, logits
-    timing = phase_timing()[0]
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    entry = dict(name="tree_attention_fwd", route="cuda",
-                 source="src/repro_torch/kernels/csrc/tree_attention_fwd.cu",
-                 replaces="src/repro/kernels/tree_attention.py:112",
-                 launches=launches, max_abs_err=worst, **timing)
-    print(json.dumps({"kernels": [entry]}))
+    torch.cuda.empty_cache()
+
+    params, counts, step_s = timed("train", phase_train, cfg, sft, rl)
+    timed("train parity", phase_train_parity, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    timed("timing", phase_timing_serve)
+    timing = timed("timing T", phase_timing_train, kl_t, step_s,
+                   cfg.n_layers)
+    log(f"total {time.perf_counter() - t_start:.1f} s; phases "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [("tree_attention_fwd", "fwd", "tree_attention_fwd.cu",
+             "src/repro/kernels/tree_attention.py:112", worst_fwd),
+            ("tree_attention_bwd_dq", "dq", "tree_attention_bwd_dq.cu",
+             "src/repro/kernels/tree_attention_bwd.py:75", worst_bwd["dq"]),
+            ("tree_attention_bwd_dkv", "dkv", "tree_attention_bwd_dkv.cu",
+             "src/repro/kernels/tree_attention_bwd.py:177",
+             worst_bwd["dkv"])]
+    entries = []
+    for name, key, file, replaces, err in rows:
+        e = dict(name=name, route="cuda", source=src + file,
+                 replaces=replaces, launches=counts[name], max_abs_err=err,
+                 **timing[key])
+        e["shape"] = "T: the first train step's rows, bf16, hd 128"
+        if key == "fwd":
+            e["launches_serve"] = serve_launches
+        else:
+            e["plain_and_library_compute"] = "dq, dk and dv together"
+        entries.append(e)
+    print(json.dumps({"kernels": entries}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""Copies of the reference's JAX-free tree format (core/tree.py)."""
+"""Copies of the reference's JAX-free tree format (core/tree.py) and
+packed-row packing (core/packing.py)."""

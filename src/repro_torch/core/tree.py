@@ -1,8 +1,9 @@
 """Trajectory trees and DFS serialization (paper §3.1–3.2).
 
-A copy of the serving slice's part of ``repro/core/tree.py``: the port
-imports nothing of the reference package, and ``tests/test_torch_serve.py``
-holds this copy against the original on random and agentic trees.
+A copy of the parts of ``repro/core/tree.py`` that serving and packed
+training use: the port imports nothing of the reference package, and
+``tests/test_torch_serve.py`` and ``tests/test_torch_train.py`` hold this
+copy against the original on random, agentic and GRPO trees.
 
 A trajectory tree is a rooted tree whose nodes hold token segments; each
 root-to-leaf path is one trajectory.  DFS serialization lays every token
@@ -64,6 +65,19 @@ class TrajectoryTree:
     def num_leaves(self) -> int:
         return sum(1 for n in self.nodes() if not n.children)
 
+    def num_nodes(self) -> int:
+        return sum(1 for _ in self.nodes())
+
+    def max_path_tokens(self) -> int:
+        def rec(n: TreeNode) -> int:
+            return n.size + (max((rec(c) for c in n.children), default=0))
+        return rec(self.root)
+
+    def por(self) -> float:
+        """Potential Overlap Ratio — Eq. (12)."""
+        flat = self.flat_tokens()
+        return 1.0 - self.num_unique_tokens() / flat if flat else 0.0
+
     def paths(self) -> list[list[TreeNode]]:
         """All root-to-leaf node paths (one per leaf), in DFS leaf order."""
         out: list[list[TreeNode]] = []
@@ -81,6 +95,25 @@ class TrajectoryTree:
     def flat_tokens(self) -> int:
         """Token count of the per-branch serialization (prefixes repeated)."""
         return sum(sum(n.size for n in path) for path in self.paths())
+
+    def linearize_paths(self) -> list[dict[str, np.ndarray]]:
+        """Per-branch baseline: one linear sequence per root-to-leaf path,
+        each carrying ``branch_adv`` — the leaf's per-branch RL advantage
+        (1.0 when unset) — for the baseline packer's 'rl' weights."""
+        seqs = []
+        for path in self.paths():
+            toks = np.concatenate([n.tokens for n in path])
+            trained = np.concatenate([n.trained for n in path])
+            adv = (np.concatenate([
+                n.advantage if n.advantage is not None
+                else np.ones(n.size, np.float32) for n in path]))
+            leaf = path[-1]
+            seqs.append(dict(tokens=toks, trained=trained, advantage=adv,
+                             pos_ids=np.arange(toks.shape[0],
+                                               dtype=np.int32),
+                             branch_adv=float(leaf.branch_adv)
+                             if leaf.branch_adv is not None else 1.0))
+        return seqs
 
 
 @dataclass

@@ -1,8 +1,10 @@
 """Synthetic trajectory trees and the GRPO group baseline.
 
-A copy of the serving slice's part of ``repro/data/synthetic.py``; the
-same ``np.random.Generator`` gives the same trees as the reference (held
-against it in ``tests/test_torch_serve.py``).
+A copy of the parts of ``repro/data/synthetic.py`` that serving and packed
+training use; the same ``np.random.Generator`` gives the same trees as the
+reference (held against it in ``tests/test_torch_serve.py`` and
+``tests/test_torch_train.py``).  The ``chain``, ``por`` and ``template``
+generators are not copied yet.
 """
 from __future__ import annotations
 
@@ -83,3 +85,58 @@ def group_normalized_advantages(rewards, normalize: bool = True
     (``normalize=False`` passes raw rewards through)."""
     r = np.asarray(rewards, np.float64)
     return (r - r.mean()) / (r.std() + 1e-6) if normalize else r
+
+
+def assign_branch_advantages(tree: TrajectoryTree, rewards, *,
+                             normalize: bool = True) -> np.ndarray:
+    """Attach GRPO-style per-branch advantages to a tree's leaves:
+    ``rewards[k]`` is the reward of the k-th root-to-leaf trajectory in
+    DFS leaf order; with ``normalize`` the group baseline is applied.
+    Returns the advantages."""
+    leaves = [p[-1] for p in tree.paths()]
+    r = np.asarray(rewards, np.float64)
+    assert r.shape == (len(leaves),), (r.shape, len(leaves))
+    adv = group_normalized_advantages(r, normalize)
+    for leaf, a in zip(leaves, adv):
+        leaf.branch_adv = float(a)
+    return adv.astype(np.float32)
+
+
+def grpo_tree(
+    rng: np.random.Generator,
+    *,
+    vocab_size: int = 32000,
+    num_turns: int = 6,
+    turn_len_range: tuple[int, int] = (64, 512),
+    tool_branch_prob: float = 0.4,
+    think_branch_prob: float = 0.3,
+    max_parallel_tools: int = 4,
+    reward_scale: float = 1.0,
+) -> TrajectoryTree:
+    """RL model-update workload: an agentic rollout tree whose branches
+    carry group-normalized GRPO advantages (train with loss_mode="rl")."""
+    t = agentic_tree(rng, vocab_size=vocab_size, num_turns=num_turns,
+                     turn_len_range=turn_len_range,
+                     tool_branch_prob=tool_branch_prob,
+                     think_branch_prob=think_branch_prob,
+                     max_parallel_tools=max_parallel_tools)
+    rewards = rng.normal(scale=reward_scale, size=t.num_leaves())
+    assign_branch_advantages(t, rewards)
+    return t
+
+
+_GENERATORS = {"random": random_tree, "agentic": agentic_tree,
+               "grpo": grpo_tree}
+_NOT_PORTED = {"chain": "ROADMAP.md Queue A item 3 (planner)",
+               "por": "ROADMAP.md Queue A item 3 (planner)",
+               "template": "ROADMAP.md Queue A item 3 (planner: grafting)"}
+
+
+def trees_for_batch(seed: int, *, n_trees: int, kind: str = "random",
+                    **kw) -> list[TrajectoryTree]:
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"tree kind {kind!r} is not ported yet; see {_NOT_PORTED[kind]}")
+    rng = np.random.default_rng(seed)
+    gen = _GENERATORS[kind]
+    return [gen(rng, **kw) for _ in range(n_trees)]

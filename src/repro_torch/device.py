@@ -28,3 +28,36 @@ def map_tree(fn, tree):
         return type(tree)(map_tree(fn, v) for v in tree)
     return fn(tree)
 
+
+def flatten_tree(tree, path: tuple = ()) -> list[tuple[tuple, object]]:
+    """(key path, leaf) pairs of a nested dict/list/tuple in JAX's pytree
+    order (dict keys sorted, sequences in order), so sums over leaves and
+    checkpoint keys follow the reference."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in flatten_tree(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in flatten_tree(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in flatten_tree(tree)]
+
+
+def unflatten_like(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` (in ``tree_leaves``
+    order)."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            out = {k: rebuild(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}          # keep the dict's order
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v) for v in t)
+        return next(it)
+
+    return rebuild(tree)
+

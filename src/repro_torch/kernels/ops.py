@@ -1,14 +1,17 @@
 """Public tree-attention ops, dispatched by the device of the tensors.
 
 Port of ``repro/kernels/ops.py``.  A tensor on the CPU goes to the plain
-version (``kernels/ref.py``, a dense masked softmax); a tensor on a CUDA
-device goes to the hand-written kernel (``kernels/tree_attention.py``),
-which launches or raises — nothing falls back from one to the other.
+versions (``kernels/ref.py``: a dense masked softmax and its backward); a
+tensor on a CUDA device goes to the hand-written kernels
+(``kernels/tree_attention.py`` forward, ``kernels/tree_attention_bwd.py``
+backward), which launch or raise — nothing falls back from one to the
+other.  ``TreeAttention`` is the reference's ``custom_vjp`` (:55-89): its
+forward saves only the O(S) residuals (q, k, v, kv_last, pos, o, lse) and
+its backward recomputes p from ``lse``.
 
 The reference pads an awkward Skv to the TPU sublane multiple and fits
-block sizes that divide S; the CUDA kernel masks ragged tails itself, so
-neither step exists here.  There is no gradient yet: the backward kernels
-come with the training slice, and the op raises if asked for one.
+block sizes that divide S; the CUDA kernels mask ragged tails themselves,
+so neither step exists here.
 """
 from __future__ import annotations
 
@@ -16,10 +19,51 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import tree_attention as _kernel
-from repro_torch.kernels.ref import tree_attention_ref_ext
+from repro_torch.kernels import tree_attention as _fwd_kernel
+from repro_torch.kernels import tree_attention_bwd as _bwd_kernel
+from repro_torch.kernels.ref import (tree_attention_bwd_ref,
+                                     tree_attention_ref_ext)
 
 BIG = 1 << 30          # kv_last of an always-visible ancestor key
+
+
+def _forward(q, k, v, kv_last, scale, q_off, window, pos_q, pos_k,
+             save_residuals):
+    if q.device.type == "cpu":
+        return tree_attention_ref_ext(q, k, v, kv_last, scale, q_off=q_off,
+                                      window=window, pos_q=pos_q,
+                                      pos_k=pos_k, return_lse=save_residuals)
+    if q.device.type == "cuda":
+        return _fwd_kernel.tree_attention(
+            q, k, v, kv_last, scale, q_off=q_off, window=window, pos_q=pos_q,
+            pos_k=pos_k, save_residuals=save_residuals)
+    raise ValueError(f"tree_attention has no path for device {q.device}")
+
+
+class TreeAttention(torch.autograd.Function):
+    """Differentiable in q, k, v; dk/dv cover the full Skv, so the ancestor
+    rows' cotangents flow back through the caller's concatenation."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_last, pos_q, pos_k, scale, q_off, window):
+        o, lse = _forward(q, k, v, kv_last, scale, q_off, window, pos_q,
+                          pos_k, True)
+        ctx.save_for_backward(q, k, v, kv_last, pos_q, pos_k, o, lse)
+        ctx.scale, ctx.q_off, ctx.window = scale, q_off, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_last, pos_q, pos_k, o, lse = ctx.saved_tensors
+        kw = dict(q_off=ctx.q_off, window=ctx.window, pos_q=pos_q,
+                  pos_k=pos_k)
+        if q.device.type == "cpu":
+            dq, dk, dv = tree_attention_bwd_ref(q, k, v, kv_last, o, lse, do,
+                                                ctx.scale, **kw)
+        else:
+            dq, dk, dv = _bwd_kernel.tree_attention_bwd(
+                q, k, v, kv_last, o, lse, do.contiguous(), ctx.scale, **kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def tree_attention(q, k, v, kv_last, scale: float, *, q_off: int = 0,
@@ -30,28 +74,22 @@ def tree_attention(q, k, v, kv_last, scale: float, *, q_off: int = 0,
     """Tree attention.  q: [B,S,H,hd]; k/v: [B,Skv,Kh,hd] with Skv ≥
     q_off + S (``q_off`` ancestor keys front-concatenated); kv_last:
     [B,Skv].  ``window`` adds the sliding-window term over positions pos_q
-    [B,S] / pos_k [B,Skv].  With ``save_residuals`` also returns lse
-    [B,H,S] f32.  Unlike the reference it takes no ``block_q``/``block_k``:
-    the CUDA kernel's tile is fixed at 64×64."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("tree_attention has no backward yet: its backward "
-                           "kernels come with the training slice")
+    [B,S] / pos_k [B,Skv].  Differentiable in q, k, v (the k/v cotangents
+    cover the ancestor rows too).  With ``save_residuals`` it returns (o,
+    lse [B,H,S] f32) instead, recording no gradient.  Unlike the reference
+    it takes no ``block_q``/``block_k``: the CUDA kernels' tiles are fixed."""
     if window is None:
         pos_q = pos_k = None
     else:
-        pos_q, pos_k = pos_q.to(torch.int32), pos_k.to(torch.int32)
-    kv_last = kv_last.to(torch.int32)
-    if q.device.type == "cpu":
-        return tree_attention_ref_ext(q, k, v, kv_last, scale, q_off=q_off,
-                                      window=window, pos_q=pos_q,
-                                      pos_k=pos_k, return_lse=save_residuals)
-    if q.device.type == "cuda":
-        return _kernel.tree_attention(
-            q, k, v, kv_last.contiguous(), scale, q_off=q_off, window=window,
-            pos_q=None if pos_q is None else pos_q.contiguous(),
-            pos_k=None if pos_k is None else pos_k.contiguous(),
-            save_residuals=save_residuals)
-    raise ValueError(f"tree_attention has no path for device {q.device}")
+        pos_q = pos_q.to(torch.int32).contiguous()
+        pos_k = pos_k.to(torch.int32).contiguous()
+    kv_last = kv_last.to(torch.int32).contiguous()
+    if not save_residuals and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return TreeAttention.apply(q, k, v, kv_last, pos_q, pos_k, scale,
+                                   q_off, window)
+    return _forward(q, k, v, kv_last, scale, q_off, window, pos_q, pos_k,
+                    save_residuals)
 
 
 def prefill_attention(q, k, v, scale: float, *,

@@ -108,9 +108,10 @@ def _check(q, k, v, kv_last, q_off, window, pos_q, pos_k):
         raise ValueError("tree_attention kernel: every input must lie on the "
                          "same CUDA device")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("tree_attention has no backward yet: its backward "
-                           "kernels come with the training slice; call it "
-                           "under torch.inference_mode() or no_grad()")
+        raise RuntimeError("the raw tree_attention kernel wrapper records no "
+                           "gradient: call repro_torch.kernels.ops."
+                           "tree_attention, whose autograd node runs the "
+                           "backward kernels")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"tree_attention kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"

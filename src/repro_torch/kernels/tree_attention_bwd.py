@@ -1,0 +1,167 @@
+"""Tree flash-attention backward on Hopper: the ctypes wrappers of the CUDA
+kernels ``csrc/tree_attention_bwd_dq.cu`` and ``csrc/tree_attention_bwd_dkv.cu``.
+
+Replace the Pallas TPU kernels ``repro/kernels/tree_attention_bwd.py::
+_bwd_dq`` (``pallas_call`` :162) and ``::_bwd_dkv`` (``pallas_call`` :278),
+and ``tree_attention_bwd`` (:306) is their entry point here too.  Flash-style
+recomputation: the forward saved only ``lse`` [B,H,S]; with
+Δ = rowsum(dO∘O) [B,H,S] f32 (a torch reduction, as the reference computes
+it outside its kernels, :331) the kernels regenerate p = exp(s − lse) tile by
+tile under the forward's mask and block-skip rule:
+
+  - ``bwd_dq``: one CUDA block per (64-query tile, head, batch) loops over
+    the key tiles and writes dq once;
+  - ``bwd_dkv``: one CUDA block per (key tile, kv head, batch) loops over
+    the G query heads of its group and the query tiles, and writes dk and
+    dv once, over the full Skv (ancestor rows [0, q_off) included) — the
+    in-program GQA reduction, with no atomics.
+
+Bound on the H100: per visible pair and query head the dq kernel does about
+6·hd FLOPs and the dk/dv kernel 8·hd (the forward 4·hd), so at hd 128 all
+three are bound by the tensor cores (989 TFLOP/s bf16), not by memory.
+These first kernels are simple (WMMA through shared memory for bf16, fp32
+FMA for f32, no TMA/wgmma/pipelining) and far from that bound; PERF.md keeps
+their measured times.
+
+On the card each wrapper launches its kernel or raises: it never falls back.
+``ops.TreeAttention`` routes a CPU tensor to the plain version
+(``kernels/ref.py::tree_attention_bwd_ref``) instead.  ``bwd_dq.launches``
+and ``bwd_dkv.launches`` count launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.tree_attention import _DTYPES, HEAD_DIMS
+
+SOURCES = ("tree_attention_bwd_dq.cu", "tree_attention_bwd_dkv.cu")
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _library(source: str, entry: str, n_out: int) -> ctypes.CDLL:
+    if source not in _libs:
+        lib = build.load(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * (9 + n_out) + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = getattr(lib, entry + "_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[source] = lib
+    return _libs[source]
+
+
+def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Δ = Σ_d do·o in f32, [B,S,H,hd] → [B,H,S] (the reference's :331)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k):
+    tensors = [q, k, v, kv_last, o, lse, do] + (
+        [pos_q, pos_k] if window is not None else [])
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("tree_attention backward kernels: every input must "
+                         "lie on the same CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError(f"tree_attention backward takes float32 or bfloat16 "
+                        f"q/k/v/o/do of one dtype, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}/{o.dtype}/{do.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be [B,S,H,hd] and k/v [B,Skv,Kh,hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or Kh == 0 or H % Kh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (need H % Kh == 0)")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be shaped like q {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"lse must be float32 {(B, H, S)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"tree_attention backward has no instance for head "
+                         f"dim {hd}; built for {HEAD_DIMS}")
+    if S == 0 or q_off < 0 or Skv < q_off + S:
+        raise ValueError(f"need S > 0 and Skv ≥ q_off + S, got S={S}, "
+                         f"q_off={q_off}, Skv={Skv}")
+    meta = [(kv_last, (B, Skv), "kv_last")]
+    if window is not None:
+        meta += [(pos_q, (B, S), "pos_q"), (pos_k, (B, Skv), "pos_k")]
+    for t, shape, name in meta:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("tree_attention backward kernels take contiguous "
+                         "tensors")
+
+
+def _launch(source, entry, outs, q, k, v, kv_last, lse, dl, do, scale, q_off,
+            window, pos_q, pos_k):
+    B, S, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    lib = _library(source, entry, len(outs))
+    windowed = window is not None
+    ptr = lambda t: t.data_ptr()
+    err = getattr(lib, entry)(
+        ptr(q), ptr(k), ptr(v), ptr(kv_last),
+        ptr(pos_q) if windowed else None, ptr(pos_k) if windowed else None,
+        ptr(lse), ptr(dl), ptr(do), *(ptr(t) for t in outs),
+        B, S, Skv, H, Kh, hd, _DTYPES[q.dtype], float(scale), int(q_off),
+        int(window) if windowed else 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: "
+                           + getattr(lib, entry + "_error_string")(err)
+                           .decode())
+
+
+def bwd_dq(q, k, v, kv_last, lse, dl, do, scale: float, *, q_off: int = 0,
+           window: Optional[int] = None, pos_q=None, pos_k=None):
+    """Launch the dq kernel (inputs already checked, ``dl`` = Δ)."""
+    dq = torch.empty_like(q)
+    _launch(SOURCES[0], "tree_attention_bwd_dq", (dq,), q, k, v, kv_last, lse,
+            dl, do, scale, q_off, window, pos_q, pos_k)
+    bwd_dq.launches += 1
+    return dq
+
+
+def bwd_dkv(q, k, v, kv_last, lse, dl, do, scale: float, *, q_off: int = 0,
+            window: Optional[int] = None, pos_q=None, pos_k=None):
+    """Launch the dk/dv kernel (inputs already checked, ``dl`` = Δ)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(SOURCES[1], "tree_attention_bwd_dkv", (dk, dv), q, k, v, kv_last,
+            lse, dl, do, scale, q_off, window, pos_q, pos_k)
+    bwd_dkv.launches += 1
+    return dk, dv
+
+
+bwd_dq.launches = 0
+bwd_dkv.launches = 0
+
+
+def tree_attention_bwd(q, k, v, kv_last, o, lse, do, scale: float, *,
+                       q_off: int = 0, window: Optional[int] = None,
+                       pos_q: Optional[torch.Tensor] = None,
+                       pos_k: Optional[torch.Tensor] = None):
+    """dq, dk, dv of tree attention through the two CUDA kernels.
+
+    q/o/do: [B,S,H,hd]; k/v: [B,Skv,Kh,hd]; kv_last: [B,Skv] int32; lse
+    [B,H,S] f32 from the forward's ``save_residuals``; with ``window``,
+    pos_q [B,S] and pos_k [B,Skv] int32.  Returns (dq, dk, dv) in the
+    inputs' dtype; dk/dv cover the full Skv, ancestor rows included."""
+    _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k)
+    dl = delta(o, do)
+    kw = dict(q_off=q_off, window=window, pos_q=pos_q, pos_k=pos_k)
+    dq = bwd_dq(q, k, v, kv_last, lse, dl, do, scale, **kw)
+    dk, dv = bwd_dkv(q, k, v, kv_last, lse, dl, do, scale, **kw)
+    return dq, dk, dv

@@ -88,7 +88,7 @@ def _attend_ref(q, k, v, bias, scale):
 
 def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
               pos_ids: torch.Tensor, kv_last: torch.Tensor,
-              impl: str = "ref", extra_kv: Optional[dict] = None,
+              impl: str = "kernel", extra_kv: Optional[dict] = None,
               capture_idx: Optional[dict] = None):
     """Full-sequence (prefill) self-attention.  x: [B, S, D].
 

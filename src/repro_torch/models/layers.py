@@ -75,7 +75,9 @@ def init_embedding(generator, vocab: int, d_model: int, dtype=torch.float32,
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    # F.embedding, not table[tokens]: its CPU backward is deterministic, as
+    # the reference's is (the indexing backward accumulates across threads)
+    return F.embedding(tokens, params["table"])
 
 
 def logits_from_hidden(emb_params: dict, head_params: Optional[dict],

@@ -1,12 +1,15 @@
 """Model assembly for the dense decoder.
 
-Port of the dense slice of ``repro/models/transformer.py``.  Parameters
-keep the reference's layout — ``layer_stacks[g]`` holds one scan group of
-same-kind layers with a leading layer dimension — so the weight bridge is
-an identity rename; layers loop in Python where the reference scans.
-Other families (MoE, SSM, hybrid, enc-dec, VLM) raise: they are later
-items of ROADMAP.md Queue A.  The reference's ``shard_activation`` is the
-identity without a device mesh, and the one-card port has none.
+Port of the dense slice of ``repro/models/transformer.py``: ``init_params``,
+``forward`` (:316), ``loss_and_metrics`` (:520) and the session's
+``partition_forward``.  Parameters keep the reference's layout —
+``layer_stacks[g]`` holds one scan group of same-kind layers with a leading
+layer dimension — so the weight bridge is an identity rename; layers loop
+in Python where the reference scans.  Other families (MoE, SSM, hybrid,
+enc-dec, VLM) raise: they are later items of ROADMAP.md Queue A, as is
+``remat="full"`` (item 8).  The reference's ``shard_activation`` and
+``shard_logits`` are the identity without a device mesh, and the one-card
+port has none.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
-                                       init_mlp, init_rmsnorm, mlp, rmsnorm)
+                                       init_mlp, init_rmsnorm,
+                                       logits_from_hidden, mlp, rmsnorm)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -146,3 +150,43 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
             caps.append(c)
         caps_all[f"g{gi}"] = _stack_caps(caps) if capspecs else {}
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caps_all
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict,
+            impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hidden [B, S, D] post-final-norm, aux_loss).  Dense layers
+    have no aux loss, so aux is a zero f32 scalar on the hidden's device."""
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet; see ROADMAP.md Queue A "
+            f"item 8")
+    meta = {k: batch[k] for k in ("pos_ids", "kv_last")}
+    x = embed(params["embed"], batch["tokens"])
+    for stacked, (_, n) in zip(params["layer_stacks"], layer_groups(cfg)):
+        for li in range(n):
+            x, _ = _apply_layer(cfg, _layer(stacked, li), x, meta, impl)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_and_metrics(cfg: ModelConfig, params: dict, batch: dict,
+                     impl: str = "kernel") -> tuple[torch.Tensor, dict]:
+    """Tree loss (Eq. 4): Σ_t λ_t · CE(logits[prev(t)], token_t) / #trees.
+    The metrics stay tensors on the device (no host transfer)."""
+    hidden, aux = forward(cfg, params, batch, impl)
+    prev = batch["prev_idx"]
+    w = torch.where(prev >= 0, batch["weight"], 0.0)
+    idx = prev.clamp_min(0).long()[..., None]
+    h_prev = torch.gather(hidden, 1, idx.expand(-1, -1, hidden.shape[-1]))
+    logits = logits_from_hidden(params["embed"], params.get("lm_head"),
+                                h_prev)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, batch["tokens"].long()[..., None])[..., 0]
+    nll = lse - lab
+    nll_sum = torch.sum(w * nll)
+    weight_sum = torch.sum(w)
+    loss = nll_sum / float(batch.get("num_trees", 1))
+    metrics = {"loss": loss, "aux_loss": aux, "weight_sum": weight_sum,
+               "nll_sum": nll_sum,
+               "token_nll_mean": nll_sum / torch.clamp(weight_sum, min=1e-9)}
+    return loss + aux, metrics

@@ -1,0 +1,213 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips on a machine without a CUDA
+device (the kernels have no CPU mode).  The file imports neither jax nor
+the JAX package, so it runs on the GPU machine as it is:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 at 1e-4 (atol and rtol; the card sums in another order).
+bf16 against the plain version computed in f32 from the same bf16 inputs:
+the forward's o within 2^-7·|ref| + 2e-2·(row rms) and its lse at 1e-4;
+the backward's dq/dk/dv at relative L2 ≤ 1e-2 each and every element within
+5e-2 + 5e-2·|ref| (the reference's bf16 bar, tests/test_kernels_bwd.py:235).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.packing import pack_trees  # noqa: E402
+from repro_torch.core.tree import serialize_tree  # noqa: E402
+from repro_torch.data.synthetic import trees_for_batch  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import tree_attention as ta  # noqa: E402
+from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
+from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
+                                     tree_attention_ref_ext)
+
+pytestmark = pytest.mark.cuda
+BIG = 1 << 30
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 plain versions
+    build.build_all([ta.SOURCE, *tab.SOURCES])        # one nvcc per source
+    return torch.device("cuda")
+
+
+def _tree_meta(seed: int, B: int, S: int):
+    """(kv_last, pos_ids) of packed random trees, rows ~3/4 full."""
+    trees = trees_for_batch(seed, n_trees=8 * B, kind="random",
+                            seg_len_range=(1, 12), max_depth=3)
+    sers, used = [], 0
+    for t in trees:
+        s = serialize_tree(t)
+        if used + s.n <= B * S * 3 // 4 and s.n <= S:
+            sers.append(s)
+            used += s.n
+    tb = pack_trees(sers, S, batch_size=B)
+    return tb.kv_last, tb.pos_ids
+
+
+def _gateway_meta(seed, B, S, A, pad_rows):
+    kl, pos = _tree_meta(seed, B, S)
+    anc = np.full((B, A), BIG, np.int64)
+    for r, p in enumerate(pad_rows):
+        anc[r, :p] = -1
+    kl_all = np.concatenate([anc, np.where(kl >= 0, kl + A, -1)], 1)
+    pos_q = pos + A
+    pos_k = np.concatenate([np.tile(np.arange(A), (B, 1)), pos_q], 1)
+    return kl_all, pos_q, pos_k
+
+
+def _case(name):
+    """(B, S, H, Kh, hd, kv_last, q_off, window, pos_q, pos_k) as numpy."""
+    if name in ("mha", "gqa", "mqa"):
+        B, S, H, Kh, hd = {"mha": (1, 64, 4, 4, 16), "gqa": (2, 128, 4, 2, 16),
+                           "mqa": (1, 128, 8, 1, 32)}[name]
+        return (B, S, H, Kh, hd, _tree_meta(S + H, B, S)[0], 0, None, None,
+                None)
+    if name == "padding":
+        kl = np.full((1, 64), -1, np.int32)
+        kl[0, :16] = 15
+        return 1, 64, 2, 2, 16, kl, 0, None, None, None
+    if name in ("gateway32", "gateway20"):
+        A, pad = {"gateway32": (32, (0, 7)), "gateway20": (20, (5, 0))}[name]
+        kl, _, _ = _gateway_meta(5, 2, 64, A, pad)
+        return 2, 64, 4, 2, 16, kl, A, None, None, None
+    if name == "window":
+        kl, pos = _tree_meta(11, 2, 128)
+        return 2, 128, 4, 4, 16, kl, 0, 8, pos, pos
+    if name == "gateway_window":
+        kl, pq, pk = _gateway_meta(7, 2, 200, 32, (4, 11))
+        return 2, 200, 12, 2, 128, kl, 32, 12, pq, pk
+    if name == "packed_gqa_hd128":
+        kl, _ = _tree_meta(13, 2, 1000)
+        return 2, 1000, 12, 2, 128, kl, 0, None, None, None
+    raise KeyError(name)
+
+
+CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20", "window",
+         "gateway_window", "packed_gqa_hd128"]
+
+
+def _inputs(name, dtype, dev, hd=None):
+    B, S, H, Kh, hd0, kl, q_off, window, pq, pk = _case(name)
+    hd = hd or hd0
+    rng = np.random.default_rng(CASES.index(name))
+    Skv = kl.shape[1]
+    mk = lambda *s: torch.tensor(rng.normal(size=s), dtype=dtype, device=dev)
+    i32 = lambda a: None if a is None else torch.as_tensor(
+        np.asarray(a), dtype=torch.int32, device=dev)
+    return (mk(B, S, H, hd), mk(B, Skv, Kh, hd), mk(B, Skv, Kh, hd),
+            i32(kl), dict(q_off=q_off, window=window, pos_q=i32(pq),
+                          pos_k=i32(pk)), mk(B, S, H, hd))
+
+
+def _hold_bwd(got, want, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all()), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
+        else:
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            assert rel <= 1e-2, (name, rel)
+            assert bool(((a - b).abs() <= 5e-2 + 5e-2 * b.abs()).all()), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_kernel_matches_plain(dev, name, dtype):
+    """The forward: lse at 1e-4 in both dtypes (the kernel keeps fp32
+    logits); a bf16 o within its own rounding and that of P."""
+    dt = getattr(torch, dtype)
+    q, k, v, kl, kw, _ = _inputs(name, dt, dev)
+    sc = q.shape[-1] ** -0.5
+    before = ta.tree_attention.launches
+    with torch.inference_mode():
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True, **kw)
+        ro, rl = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                        sc, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ta.tree_attention.launches == before + 1
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+    else:
+        err = (o.float() - ro).abs()
+        rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
+        assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_bwd_kernels_match_plain(dev, name, dtype):
+    """dq/dk/dv of the two backward kernels against the plain backward in
+    f32 on the same (q, k, v, o, lse, do); two launches are bit-identical."""
+    dt = getattr(torch, dtype)
+    q, k, v, kl, kw, do = _inputs(name, dt, dev)
+    sc = q.shape[-1] ** -0.5
+    with torch.inference_mode():
+        o32, lse = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                          sc, return_lse=True, **kw)
+        o = o32.to(dt).contiguous()     # the einsum's o is a view
+        n_dq, n_dkv = tab.bwd_dq.launches, tab.bwd_dkv.launches
+        got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                      o.float(), lse, do.float(), sc, **kw)
+    torch.cuda.synchronize()
+    assert tab.bwd_dq.launches == n_dq + 2
+    assert tab.bwd_dkv.launches == n_dkv + 2
+    _hold_bwd(got, want, dt)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if name == "padding":                   # invisible keys: exactly zero
+        assert not bool(got[1][0, 16:].any()) and not bool(got[2][0, 16:].any())
+    if name.startswith("gateway"):          # ancestor cotangents are real
+        A = kw["q_off"]
+        assert float(got[1][:, :A].float().abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", ta.HEAD_DIMS)
+def test_cuda_bwd_every_head_dim(dev, hd, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v, kl, kw, do = _inputs("gateway20", dt, dev, hd=hd)
+    sc = hd ** -0.5
+    with torch.inference_mode():
+        o32, lse = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                          sc, return_lse=True, **kw)
+        o = o32.to(dt).contiguous()     # the einsum's o is a view
+        got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                      o.float(), lse, do.float(), sc, **kw)
+    torch.cuda.synchronize()
+    _hold_bwd(got, want, dt)
+
+
+def test_cuda_op_gradient_runs_the_kernels(dev):
+    """ops.tree_attention's autograd node: forward kernel with residuals,
+    then both backward kernels, one launch each; grads match the plain
+    path's autograd in f32."""
+    q, k, v, kl, kw, do = _inputs("gateway_window", torch.float32, dev)
+    sc = q.shape[-1] ** -0.5
+    counts = (ta.tree_attention.launches, tab.bwd_dq.launches,
+              tab.bwd_dkv.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = ops.tree_attention(*leaves, kl, sc, **kw)
+    g = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (ta.tree_attention.launches, tab.bwd_dq.launches,
+            tab.bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ro = tree_attention_ref_ext(*ref_leaves, kl, sc, **kw)
+    rg = torch.autograd.grad(ro, ref_leaves, do)
+    for a, b in zip(g, rg):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

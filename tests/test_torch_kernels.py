@@ -3,9 +3,9 @@
 On the CPU ``repro_torch.kernels.ops.tree_attention`` runs its plain
 version; the JAX side runs its Pallas kernel in interpret mode.  Same
 inputs (numpy, from a seed) go to both; tolerance 2e-5 in f32, the
-reference's own kernel tolerance (tests/test_kernels.py).  The tests marked
-``cuda`` hold the CUDA kernel against the plain version on the card and
-skip on a machine without one.
+reference's own kernel tolerance (tests/test_kernels.py).  The CUDA
+kernels are held against their plain versions on the card by
+``tests/test_torch_cuda.py``, which imports no jax and so runs there.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +17,6 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import tree_attention as jta  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
-from repro_torch.kernels.ref import tree_attention_ref_ext  # noqa: E402
 from test_kernels import _gateway_meta, _tree_meta  # noqa: E402
 
 TOL = 2e-5
@@ -154,44 +153,3 @@ def test_prefill_attention_matches_jax(ctx):
     o = ops.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), hd ** -0.5, **kw_t)
     np.testing.assert_allclose(o.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
-
-
-# ---------------------------------------------------------------------------
-# on the card: the CUDA kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", CASES)
-def test_cuda_kernel_matches_plain(name, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    """The plain version runs in f32 from the same (bf16-rounded) inputs:
-    lse at 1e-4 in both dtypes (the kernel keeps fp32 logits); a bf16 o
-    within its own rounding and that of P (2^-7 of it plus 2e-2 of its
-    row's rms over hd)."""
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version
-    dt = getattr(torch, dtype)
-    q, k, v, kl, q_off, window, pq, pk, _, _ = _case(name)
-    t = lambda a, d=None: None if a is None else torch.as_tensor(
-        np.asarray(a), device="cuda", dtype=d)
-    qt, kt, vt = t(q, dt), t(k, dt), t(v, dt)
-    kw = dict(q_off=q_off, window=window, pos_q=t(pq, torch.int32),
-              pos_k=t(pk, torch.int32))
-    before = ta.tree_attention.launches
-    with torch.inference_mode():
-        o, lse = ta.tree_attention(qt, kt, vt, t(kl, torch.int32),
-                                   q.shape[-1] ** -0.5, save_residuals=True,
-                                   **kw)
-        ro, rl = tree_attention_ref_ext(
-            qt.float(), kt.float(), vt.float(), t(kl, torch.int32),
-            q.shape[-1] ** -0.5, return_lse=True, **kw)
-    torch.cuda.synchronize()
-    assert ta.tree_attention.launches == before + 1
-    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
-    if dtype == "float32":
-        torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
-    else:
-        err = (o.float() - ro).abs()
-        rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
-        assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
