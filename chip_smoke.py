@@ -6,7 +6,8 @@
 
 Phases, each of which ends the run non-zero if it fails:
   1. build      — nvcc the three kernel sources (tree-attention forward, dq,
-                  dk/dv) in parallel, one process each.
+                  dk/dv) in parallel, one process each; print every kernel
+                  instance's registers and spills from ptxas's report.
   2. kernel     — hold the forward kernel against its plain PyTorch version
                   on the card, computed in f32 from the same inputs (o and
                   lse at 1e-4; a bf16 o within its rounding: 2^-7 of it plus
@@ -44,8 +45,10 @@ Phases, each of which ends the run non-zero if it fails:
                   (c) 28 layers bf16, kernel vs plain: loss 1e-2 relative,
                   gradient relative L2 5e-2.
   8. timing     — each kernel, its plain version and one library call, at
-                  the serving path's two shapes (forward) and at the
-                  training shape T (all three), beside the H100's bound.
+                  the serving path's two shapes A and B (forward) and at
+                  the training shape T (all three), beside the H100's bound
+                  and as a percentage of it; kernel and library call also
+                  as device time, replayed from a CUDA graph.
 
 The line before the last names the card and its power limit; the one before
 it lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -345,20 +348,72 @@ def skip_fraction(kl, S, q_off, window, pq, pk) -> float:
 # phases
 # --------------------------------------------------------------------------
 
+def ptxas_report(log_txt: str, sass: dict = None):
+    """[(kernel instance, registers, spill store bytes, spill load bytes,
+    wgmma and TMA-load instructions in its SASS or None)] from ``nvcc
+    -Xptxas -v`` output, names demangled where c++filt exists."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log_txt.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            w = line.replace(",", " ").split()
+            spills = (int(w[w.index("spill") - 2]),
+                      int(w[len(w) - 1 - w[::-1].index("spill") - 2]))
+        elif "Used" in line and "registers" in line and name:
+            rows.append((name, int(line.split("Used")[1].split()[0]),
+                         *spills, (sass or {}).get(name)))
+            name, spills = None, (0, 0)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                     .removeprefix("void "), *r[1:])
+                    for n, r in zip(names, rows)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return rows
+
+
+def sass_counts(lib: Path) -> dict:
+    """{mangled kernel name: (wgmma, TMA load) instruction counts} in the
+    library's SASS (HGMMA and UTMALDG), from cuobjdump beside nvcc; empty
+    where cuobjdump is missing."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out[name] = [0, 0]
+        elif name is not None:
+            out[name][0] += "HGMMA" in line
+            out[name][1] += "UTMALDG" in line
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_build() -> float:
     t0 = time.perf_counter()
     built = build.build_all(SOURCES)
     total = time.perf_counter() - t0
     for src, (lib, dt) in built.items():
-        log_txt = lib.with_suffix(".log").read_text()
-        regs = [int(w) for line in log_txt.splitlines() if "Used" in line
-                for w in [line.split("Used")[1].split()[0]]]
-        spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
-                     for line in log_txt.splitlines()
-                     if "spill stores" in line)
-        log(f"build: {src} -> {lib.name} in {dt:.2f} s; {len(regs)} kernel "
-            f"instances, max {max(regs)} registers, {spills} bytes spill "
-            f"stores in all")
+        rows = ptxas_report(lib.with_suffix(".log").read_text(),
+                            sass_counts(lib))
+        log(f"build: {src} -> {lib.name} in {dt:.2f} s; {len(rows)} kernel "
+            f"instances, max {max(r[1] for r in rows)} registers, "
+            f"{sum(r[2] for r in rows)} bytes spill stores in all")
+        for name, regs, st, ld, sass in rows:
+            ins = ("" if sass is None else
+                   f"; SASS: {sass[0]} HGMMA (wgmma), {sass[1]} UTMALDG (TMA)")
+            log(f"build:   {name}: {regs} registers, {st} bytes spill stores, "
+                f"{ld} bytes spill loads{ins}")
     log(f"build: {len(SOURCES)} sources, one nvcc {' '.join(build.NVCC_FLAGS)}"
         f" each, all started together: {total:.2f} s in all")
     return total
@@ -448,6 +503,13 @@ def phase_bwd_kernel(train_kv_last) -> dict:
                 f"{name} (block-skip fraction {skip:.3f}; two launches "
                 f"bit-identical {same}; invisible keys' dk/dv exactly 0 "
                 f"{zero}{anc})", got, want)
+            if dt == torch.bfloat16 and q.shape[-1] in ta.HOPPER_HEAD_DIMS:
+                # the dk/dv launch's schedule pass against its plain version
+                order = tab.dkv_order(kl, q.shape[1], q_off)
+                check(torch.equal(order, tab.dkv_schedule(kl, q.shape[1],
+                                                          q_off)[2]),
+                      f"{name}: the dk/dv schedule differs from its plain "
+                      f"version")
             worst["dq"] = max(worst["dq"], errs["dq"])
             worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
             check(same, f"{name}: two launches of the backward differ")
@@ -829,6 +891,44 @@ def time_ms(fn, reps=20, warm=3) -> float:
     return statistics.median(ts)
 
 
+def graph_ms(fn, reps=20):
+    """Device time of one call: CUDA events around the replay of a CUDA
+    graph holding ``reps`` calls (median of 5 replays, divided by
+    ``reps``), so the host's launch overhead, which ``time_ms`` includes
+    whenever a call's device work is shorter than its host work, is not in
+    it.  None where the call cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        log(f"timing: CUDA graph capture failed ({e}); no device time")
+        torch.cuda.synchronize()
+        return None
+    ts = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(ts)
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def dense_mask(kl, S: int, q_off: int) -> torch.Tensor:
     """[B, 1, S, Skv] bool: the tree mask, for the library yardstick and
     for counting visible pairs."""
@@ -844,13 +944,15 @@ def bound(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def phase_timing_serve():
-    """The forward kernel at the serving path's two shapes."""
+def phase_timing_serve() -> dict:
+    """The forward kernel at the serving path's two shapes, A and B; returns
+    {shape: its kernel, plain, library and bound times}."""
     rng = np.random.default_rng(9)
-    shapes = [("prefill S=1024 q_off=0", 1, 1024, 0),
-              ("tool prefill S=200 q_off=1056", 8, 200, 1056)]
+    shapes = [("A", "prefill S=1024 q_off=0", 1, 1024, 0),
+              ("B", "tool prefill S=200 q_off=1056", 8, 200, 1056)]
+    out = {}
     with torch.inference_mode():
-        for name, B, S, q_off in shapes:
+        for tag, name, B, S, q_off in shapes:
             H, Kh, hd, dt = 12, 2, 128, torch.bfloat16
             Skv = q_off + S
             q, k, v = qkv(rng, B, S, Skv, H, Kh, hd, dt)
@@ -871,20 +973,29 @@ def phase_timing_serve():
             e_lib = float((lib().transpose(1, 2).float()
                            - kern().float()).abs().max())
             ms_k, ms_p, ms_l = time_ms(kern), time_ms(plain_f), time_ms(lib)
+            dev_k, dev_l = graph_ms(kern), graph_ms(lib)
             # the work the function needs: 2·hd for q·k and 2·hd for p·v on
             # each visible (query, key) pair of every head
             flops = 4 * hd * H * int(mask.sum())
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
                 + kl.numel() * 4
             bnd, by = bound(flops, nbytes)
-            log(f"timing forward, {name} (B={B}, H=12, Kh=2, hd=128, bf16, "
-                f"CUDA events, median of 20 after 3 warm-up): kernel "
+            out[tag] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                            bound_ms=bnd, bound_by=by,
+                            pct_of_bound=100 * bnd / ms_k, device_ms=dev_k,
+                            library_device_ms=dev_l)
+            log(f"timing forward, {tag}: {name} (B={B}, H=12, Kh=2, hd=128, "
+                f"bf16, CUDA events, median of 20 after 3 warm-up): kernel "
                 f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, sdpa (dense bool mask) "
-                f"{ms_l:.4f} ms, bound {bnd:.4f} ms by {by} "
-                f"({flops / 1e9:.3f} GFLOP on visible pairs, "
+                f"{ms_l:.4f} ms (kernel / sdpa {ms_k / ms_l:.2f}x); device "
+                f"time in a CUDA graph: kernel {fmt_ms(dev_k)}, sdpa "
+                f"{fmt_ms(dev_l)}; bound "
+                f"{bnd:.4f} ms by {by}, kernel at {100 * bnd / ms_k:.1f}% of "
+                f"it ({flops / 1e9:.3f} GFLOP on visible pairs, "
                 f"{nbytes / 1e6:.3f} MB); kernel at "
                 f"{flops / ms_k / 1e9:.1f} TFLOP/s; sdpa vs kernel "
                 f"max_abs_err {e_lib:.3e}")
+    return out
 
 
 def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
@@ -907,6 +1018,7 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
         dkv = lambda: tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc)
         ms = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv),
               "delta": time_ms(lambda: tab.delta(o, do))}
+        dev = {"fwd": graph_ms(fwd), "dq": graph_ms(dq), "dkv": graph_ms(dkv)}
         ms["plain_fwd"] = time_ms(lambda: tree_attention_ref_ext(
             q, k, v, kl, sc, return_lse=True))
         ms["plain_bwd"] = time_ms(lambda: tree_attention_bwd_ref(
@@ -919,8 +1031,13 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
     ms["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), attn_mask=mask, scale=sc))
     ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sc)
-    ms["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True))
+    lib_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                          retain_graph=True)
+    ms["lib_bwd"] = time_ms(lib_bwd)
+    dev["lib_fwd"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), attn_mask=mask, scale=sc))
+    # autograd runs the backward outside the capturing stream: not captured
+    dev["lib_bwd"] = None
     del ot, qt, kt, vt, mask
     io = 2 * (q.numel() + k.numel() + v.numel())      # bf16 q, k, v
     meta = kl.numel() * 4
@@ -934,22 +1051,32 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
         bnd, by = bound(flops, nbytes)
         plain_ms = ms["plain_fwd"] if key == "fwd" else ms["plain_bwd"]
         lib_ms = ms["lib_fwd"] if key == "fwd" else ms["lib_bwd"]
+        lib_dev = dev["lib_fwd"] if key == "fwd" else dev["lib_bwd"]
         out[key] = dict(ms=ms[key], plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=bnd, bound_by=by)
+                        bound_ms=bnd, bound_by=by,
+                        pct_of_bound=100 * bnd / ms[key], device_ms=dev[key],
+                        library_device_ms=lib_dev)
         what = "forward" if key == "fwd" else "backward (dq, dk, dv)"
         log(f"timing {key} at T (B={B}, S={S}, H=12, Kh=2, hd=128, bf16, "
             f"real kv_last, {pairs} visible pairs; CUDA events, median of 20 "
             f"after 3 warm-up): kernel {ms[key]:.4f} ms, bound {bnd:.4f} ms "
             f"by {by} ({per_pair}·hd·H FLOPs per visible pair = "
             f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.3f} MB), kernel at "
+            f"{100 * bnd / ms[key]:.1f}% of its bound, "
             f"{flops / ms[key] / 1e9:.1f} TFLOP/s; plain {what} "
             f"{plain_ms:.4f} ms; sdpa {what} (dense bool mask, K/V expanded) "
-            f"{lib_ms:.4f} ms")
+            f"{lib_ms:.4f} ms; device time in a CUDA graph: kernel "
+            f"{fmt_ms(dev[key])}, sdpa {fmt_ms(lib_dev)}")
     log(f"timing at T: backward kernels dq + dk/dv {bwd_sum:.4f} ms (plus "
         f"the wrapper's Δ reduction {ms['delta']:.4f} ms); plain backward "
         f"{ms['plain_bwd']:.4f} ms; sdpa backward {ms['lib_bwd']:.4f} ms "
         f"(kernels / sdpa {bwd_sum / ms['lib_bwd']:.2f}x); forward kernel / "
         f"sdpa forward {ms['fwd'] / ms['lib_fwd']:.2f}x")
+    if None not in (dev["fwd"], dev["dq"], dev["dkv"]):
+        log(f"timing at T, device time in a CUDA graph: fwd "
+            f"{dev['fwd']:.4f} ms, dq + dk/dv {dev['dq'] + dev['dkv']:.4f} ms "
+            f"(sdpa's backward not measured so: autograd runs it outside "
+            f"the capturing stream)")
     att = n_layers * (ms["fwd"] + bwd_sum) / 1e3
     log(f"timing: attention share of a train step: {n_layers} x (fwd + dq + "
         f"dk/dv) = {att:.3f} s of the {step_s:.3f} s median step "
@@ -1007,7 +1134,7 @@ def main() -> int:
     timed("train parity", phase_train_parity, cfg, params)
     del params
     torch.cuda.empty_cache()
-    timed("timing", phase_timing_serve)
+    timing_ab = timed("timing", phase_timing_serve)
     timing = timed("timing T", phase_timing_train, kl_t, step_s,
                    cfg.n_layers)
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
@@ -1029,6 +1156,7 @@ def main() -> int:
         e["shape"] = "T: the first train step's rows, bf16, hd 128"
         if key == "fwd":
             e["launches_serve"] = serve_launches
+            e.update(timing_ab)     # the serving shapes A and B
         else:
             e["plain_and_library_compute"] = "dq, dk and dv together"
         entries.append(e)

@@ -9,37 +9,56 @@
 //   lse[b,h,i] = m + log(l)   (−1e30 for a row that sees no key; its o is 0)
 // q/o: [B,S,H,hd], k/v: [B,Skv,Kh,hd] (contiguous), kv_last/pos: int32.
 //
-// Design.  One CUDA block of 256 threads owns one (64-query tile, head,
-// batch row).  A loop inside the block walks the 64-key tiles; it takes the
-// place of the TPU's sequential kv grid axis and its VMEM carry, and keeps
-// the online-softmax state (m, l in shared memory, the output accumulator
-// in registers) across tiles.  The loop stops at the last causal tile, and
-// every tile inside it is tested with the reference's block_live predicate
-// (tree_attention.py:75) before anything is loaded: tree visibility is not
-// monotone along kv, so a dead tile may sit between live ones, and a dead
-// tile here skips its loads as well as its math.  Ragged S and Skv tails are
-// masked in-kernel (zero-filled rows, invisible keys), so no block size has
-// to divide them.  Fully masked rows keep the reference's finite −1e30
-// sentinel and its where(vis, exp, 0) guard, so they give 0, never NaN.
+// Two paths compute the same function.
 //
-// The two products: bf16 inputs with hd a multiple of 16 use WMMA (16×16×16
-// bf16 tensor-core tiles, fp32 accumulate; P is rounded to bf16 for P·V);
-// fp32 inputs (and bf16 at hd 24) use fp32 FMA on CUDA cores, so fp32 keeps
-// full precision.  Every accumulator is fp32.
+// Hopper path (bf16 at hd 64 and 128, the models' head dims).  One CUDA
+// block of 160 threads owns one (64-query tile, head, batch row): a
+// consumer warpgroup (warps 0-3, wgmma's native 64 rows) and a producer
+// warp (warp 4).  The producer loads the Q tile by TMA, then walks the
+// causal key tiles.  It decides each tile's liveness from the tile's max
+// kv_last (and, windowed, its max pos_k against the query tile's min
+// pos_q) with the reference's block_live predicate (src/repro/kernels/
+// tree_attention.py:75), reading kv_last 16 tiles at a time with one
+// warp-wide reduction per tile, and hands the consumers live tiles only:
+// for each it stages the tile's kv_last/pos_k by cp.async and brings K and
+// V in by TMA into a ring of 2 (hd 128) or 3 (hd 64) stages guarded by
+// mbarriers, so it never waits on a load itself.  A
+// dead tile costs no load and no barrier.  Tree visibility is not monotone
+// along kv, so a dead tile may sit between live ones.  The consumers run
+// S = Q·Kᵀ as wgmma m64n64k16 from the swizzled shared tiles, the online
+// softmax in the accumulator's registers (row max and sum over the four
+// threads of a row by shuffles, exp2f with scale·log2e folded in), round P
+// to bf16 in registers and feed it as wgmma's A operand for O += P·V, with V
+// read MN-major through the descriptor's transpose bit.  O stays in fp32
+// registers and is written once.  Blocks run the latest (heaviest) query
+// tiles first.  Ragged S and Skv tails read as zero from TMA and are
+// masked; a fully masked row keeps o = 0 and lse = −1e30 (the masked
+// logits are −inf and the running max starts at the finite −1e30, so no
+// exp2f ever sees a NaN).
+//
+// Simple path (fp32 inputs, the accuracy path, and bf16 at the other head
+// dims 16, 24, 32, 96, 192).  One block of 256 threads per (64-query
+// tile, head, batch row) walks the key tiles, tests block_live before any
+// load, and runs the products on WMMA (bf16 with hd a multiple of 16) or
+// fp32 FMA through shared memory.  Every accumulator is fp32 on both paths.
 //
 // What bounds it on the H100.  At the serving path's shapes (hd 128, GQA
 // 12/2, S 1024 chains) the work is about 4·hd FLOPs per visible (i,j) pair
 // against 2·hd·2 bytes per key read, so an ideal kernel is bound by the
-// tensor cores (989 TFLOP/s bf16), not by memory (3.35 TB/s).  This simple
-// kernel is far from that: WMMA through shared memory, no TMA, no wgmma, no
-// warp specialisation, no overlap of loads with math, and each of the G=6
-// query heads of a GQA group reloads its K/V tile.  Those are later work.
+// tensor cores (989 TFLOP/s bf16), not by memory (3.35 TB/s).  The Hopper
+// path's design follows from that: products on wgmma with accumulators in
+// registers, loads overlapped with the math, no work or traffic for dead
+// tiles.  Each of the G = 6 query heads of a GQA group still loads its own
+// K/V tiles (from L2 after the first); PERF.md keeps the measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "hopper.cuh"
+
 #include <climits>
+#include <cmath>
 #include <type_traits>
 
 namespace {
@@ -308,6 +327,302 @@ tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --------------------------------------------------------------------------
+// Hopper path: warp-specialised wgmma kernel (bf16, hd 64 and 128)
+// --------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 128;               // the consumer warpgroup
+constexpr int HOP_THREADS = WG_THREADS + 32;  // + the producer warp
+constexpr int SCAN = 16;                      // key tiles tested per pass
+
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+template <int HD>
+struct FwdLayout {
+  static constexpr int TILE = 64 * HD * 2;       // one 64-row bf16 tile
+  static constexpr int STAGES = HD <= 64 ? 3 : 2;
+  static constexpr int Q = 0;
+  static constexpr int KV = Q + TILE;            // stage s: K at KV + 2·s·TILE, V after it
+  static constexpr int KL = KV + STAGES * 2 * TILE;
+  static constexpr int PK = KL + STAGES * 64 * 4;
+  static constexpr int K0 = PK + STAGES * 64 * 4;
+  static constexpr int BAR = K0 + 64;
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;     // room to align the base to 1 KB
+};
+
+template <int HD>
+__global__ void __launch_bounds__(HOP_THREADS, 2)
+fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ kv_last,
+                  const int* __restrict__ pos_q, const int* __restrict__ pos_k,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int S,
+                  int Skv, int H, int Kh, float scale, int q_off, int window) {
+  using L = FwdLayout<HD>;
+  constexpr int NA = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  int* kl_s = reinterpret_cast<int*>(sm + L::KL);
+  int* pk_s = reinterpret_cast<int*>(sm + L::PK);
+  int* k0_s = reinterpret_cast<int*>(sm + L::K0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* qbar = empty + L::STAGES;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x) / (B * H);   // heaviest first
+  const int b = (blockIdx.x / H) % B, h = blockIdx.x % H;
+  const int kh = h / (H / Kh);
+  const int q0 = qi * BQ, nrows = min(BQ, S - q0);
+  const int q_start = q_off + q0, q_end = q_start + nrows - 1;
+  const bool windowed = pos_q != nullptr;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      hop::mbar_init(&full[s], 33);              // 32 lanes' copies + lane 0
+      hop::mbar_init(&empty[s], WG_THREADS);     // every consumer thread
+    }
+    hop::mbar_init(qbar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= WG_THREADS) {
+    // ---------------- producer warp ----------------
+    const int lane = tid - WG_THREADS;
+    if (lane == 0) {
+      hop::mbar_arrive_expect_tx(qbar, L::TILE);
+      for (int a = 0; a < NA; ++a)
+        hop::tma_load_4d(sm + L::Q + a * hop::ATOM, &maps.q, qbar, 64 * a, h, q0, b);
+    }
+    int qp_min = INT_MAX;
+    if (windowed) {
+      for (int r = lane; r < nrows; r += 32) qp_min = min(qp_min, pos_q[size_t(b) * S + q0 + r]);
+      qp_min = __reduce_min_sync(0xffffffffu, qp_min);
+    }
+    const int* klb = kv_last + size_t(b) * Skv;
+    const int* pkb = windowed ? pos_k + size_t(b) * Skv : nullptr;
+    const int nt = min(q_end, Skv - 1) / BK + 1;       // the last causal key tile
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t0 = 0; t0 < nt; t0 += SCAN) {
+      // block_live(q_start, q_end, k0, max kv_last, qp_min, max pos_k) of
+      // SCAN tiles: all loads first, then one reduction per tile.
+      int kl_r[SCAN][2], pk_r[SCAN][2];
+#pragma unroll
+      for (int i = 0; i < SCAN; ++i)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int key = (t0 + i) * BK + lane + 32 * u;
+          const bool in = t0 + i < nt && key < Skv;
+          kl_r[i][u] = in ? klb[key] : -1;
+          pk_r[i][u] = (in && windowed) ? pkb[key] : INT_MIN;
+        }
+      uint32_t live = 0;
+#pragma unroll
+      for (int i = 0; i < SCAN; ++i) {
+        const int kmax = __reduce_max_sync(0xffffffffu, max(kl_r[i][0], kl_r[i][1]));
+        bool ok = kmax >= q_start;                     // k0 ≤ q_end holds below nt
+        if (windowed) {
+          const int kpmax = __reduce_max_sync(0xffffffffu, max(pk_r[i][0], pk_r[i][1]));
+          ok = ok && static_cast<long long>(qp_min) - kpmax < window;
+        }
+        live |= uint32_t(ok) << i;
+      }
+      while (live) {
+        const int t = t0 + __ffs(live) - 1;
+        live &= live - 1;
+        const int k0 = t * BK;
+        hop::mbar_wait(&empty[stage], phase ^ 1);
+        // the tile's kv_last / pos_k, asynchronously (a key past Skv reads
+        // 0 and stays invisible: it is later than every query)
+        for (int c = lane; c < BK; c += 32) {
+          const bool in = k0 + c < Skv;
+          hop::cp_async_4(&kl_s[stage * BK + c], klb + (in ? k0 + c : 0), in);
+          if (windowed) hop::cp_async_4(&pk_s[stage * BK + c], pkb + (in ? k0 + c : 0), in);
+        }
+        hop::cp_async_arrive(&full[stage]);
+        if (lane == 0) {
+          k0_s[stage] = k0;
+          hop::mbar_arrive_expect_tx(&full[stage], 2 * L::TILE);
+          unsigned char* kt = sm + L::KV + stage * 2 * L::TILE;
+          for (int a = 0; a < NA; ++a) {
+            hop::tma_load_4d(kt + a * hop::ATOM, &maps.k, &full[stage], 64 * a, kh, k0, b);
+            hop::tma_load_4d(kt + L::TILE + a * hop::ATOM, &maps.v, &full[stage], 64 * a, kh,
+                             k0, b);
+          }
+        }
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    hop::mbar_wait(&empty[stage], phase ^ 1);        // the end marker
+    hop::cp_async_arrive(&full[stage]);
+    if (lane == 0) {
+      k0_s[stage] = -1;
+      hop::mbar_arrive(&full[stage]);
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroup ----------------
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;     // this thread's two rows
+  const int cq = 2 * (lane % 4);                        // its first column in each 8
+  const int iq0 = q_start + r0, iq1 = q_start + r1;
+  const bool ok0 = r0 < nrows, ok1 = r1 < nrows;
+  int pq0 = 0, pq1 = 0;
+  if (windowed) {
+    if (ok0) pq0 = pos_q[size_t(b) * S + q0 + r0];
+    if (ok1) pq1 = pos_q[size_t(b) * S + q0 + r1];
+  }
+  const float sl2 = scale * hop::LOG2E;
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 domain
+  const uint32_t q_base = hop::smem_u32(sm + L::Q);
+  hop::mbar_wait(qbar, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (;;) {
+    hop::mbar_wait(&full[stage], phase);
+    const int k0 = k0_s[stage];
+    if (k0 < 0) break;
+    const uint32_t k_base = hop::smem_u32(sm + L::KV + stage * 2 * L::TILE);
+    const uint32_t v_base = k_base + L::TILE;
+
+    // S = Q·Kᵀ  [64 × 64], fp32 in registers
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      hop::wgmma_ss_n64(s, hop::desc_k(q_base, ks), hop::desc_k(k_base, ks), ks > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+
+    // mask, then the online softmax of the reference (m, l, corr), in log2
+    const int* kl = kl_s + stage * BK;
+    const int* pk = pk_s + stage * BK;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + cq + e, key = k0 + c, kv = kl[c];
+        bool v0 = ok0 && key <= iq0 && kv >= iq0;
+        bool v1 = ok1 && key <= iq1 && kv >= iq1;
+        if (windowed) {
+          v0 = v0 && pq0 - pk[c] < window;
+          v1 = v1 && pq1 - pk[c] < window;
+        }
+        s[4 * j + e] = v0 ? s[4 * j + e] * sl2 : -INFINITY;
+        s[4 * j + 2 + e] = v1 ? s[4 * j + 2 + e] * sl2 : -INFINITY;
+        mx0 = fmaxf(mx0, s[4 * j + e]);
+        mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = exp2f(s[4 * j + e] - m0);        // −inf (masked) → 0
+        s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - m1);
+        sum0 += s[4 * j + e];
+        sum1 += s[4 * j + 2 + e];
+      }
+    l0 = l0 * c0 + sum0;                                 // this thread's share
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[4 * j] *= c0;
+      acc[4 * j + 1] *= c0;
+      acc[4 * j + 2] *= c1;
+      acc[4 * j + 3] *= c1;
+    }
+
+    // O += P·V with P rounded to bf16 in registers (wgmma's A operand)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[kk][x] = hop::pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_rs<HD>(acc, pa[kk], hop::desc_mn(v_base + kk * 16 * 128));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::mbar_arrive(&empty[stage]);
+    if (++stage == L::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  __nv_bfloat16* o0 = o + ((size_t(b) * S + q0 + r0) * H + h) * HD + cq;
+  __nv_bfloat16* o1 = o + ((size_t(b) * S + q0 + r1) * H + h) * HD + cq;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (ok0)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (ok1)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+    if (ok0)
+      lse[(size_t(b) * H + h) * S + q0 + r0] = l0 > 0.f ? (m0 + log2f(l0)) * hop::LN2 : NEG_INF;
+    if (ok1)
+      lse[(size_t(b) * H + h) * S + q0 + r1] = l1 > 0.f ? (m1 + log2f(l1)) * hop::LN2 : NEG_INF;
+  }
+}
+
+template <int HD>
+cudaError_t launch_hopper(const void* q, const void* k, const void* v, const void* kv_last,
+                          const void* pos_q, const void* pos_k, void* o, void* lse, int B,
+                          int S, int Skv, int H, int Kh, float scale, int q_off, int window,
+                          cudaStream_t stream) {
+  FwdMaps maps;
+  cudaError_t err = hop::tile_map(&maps.q, q, B, S, H, HD);
+  if (err == cudaSuccess) err = hop::tile_map(&maps.k, k, B, Skv, Kh, HD);
+  if (err == cudaSuccess) err = hop::tile_map(&maps.v, v, B, Skv, Kh, HD);
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = FwdLayout<HD>::ALLOC;
+  auto kern = fwd_hopper_kernel<HD>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nq = (S + BQ - 1) / BQ;
+  kern<<<nq * H * B, HOP_THREADS, bytes, stream>>>(
+      maps, static_cast<const int*>(kv_last), static_cast<const int*>(pos_q),
+      static_cast<const int*>(pos_k), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      B, S, Skv, H, Kh, scale, q_off, window);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD, bool MMA>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_last,
                    const void* pos_q, const void* pos_k, void* o, void* lse, int B, int S,
@@ -335,11 +650,14 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, o, lse, B, S, Skv, H,
                                     Kh, scale, q_off, window, stream);
-  if (dtype == 1)
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (HD == 64 || HD == 128)
+    return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, o, lse, B, S, Skv, H, Kh, scale,
+                             q_off, window, stream);
+  else
     return launch<__nv_bfloat16, HD, HD % 16 == 0>(q, k, v, kv_last, pos_q, pos_k, o, lse,
                                                    B, S, Skv, H, Kh, scale, q_off, window,
                                                    stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

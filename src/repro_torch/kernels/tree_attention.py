@@ -2,18 +2,23 @@
 the ctypes wrapper of the CUDA kernel ``csrc/tree_attention_fwd.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/tree_attention.py::
-tree_attention`` (body :146-218, ``pallas_call`` :248).  One CUDA block
-owns a (64-query tile, head, batch row) and loops over 64-key tiles with
-an online softmax; a tile that ``block_live`` rules out is skipped before
-its loads.  Ragged S and Skv are masked in-kernel, ``q_off`` is a runtime
-int, and GQA maps head h to kv head h // (H/Kh).
+tree_attention`` (body :146-218, ``pallas_call`` :248).  A block owns a
+(64-query tile, head, batch row) and runs an online softmax over the key
+tiles that ``block_live`` keeps; a dead tile is skipped before its loads.
+Ragged S and Skv are masked in-kernel, ``q_off`` is a runtime int, and GQA
+maps head h to kv head h // (H/Kh).
+
+Two paths (``csrc/tree_attention_fwd.cu``): bf16 at hd 64 and 128
+(``HOPPER_HEAD_DIMS``, the models' head dims) runs a warp-specialised
+kernel, a TMA producer warp that hands live key tiles through an mbarrier
+ring to a wgmma consumer warpgroup with its accumulators in registers; fp32
+(the accuracy path) and bf16 at the other head dims run the simple kernel
+(WMMA or FMA through shared memory).
 
 Bound on the H100: at the serving path's shapes (hd 128) the forward does
 about 4·hd FLOPs per visible pair for 2·hd·2 bytes per key read, so the
 floor is the tensor cores' 989 TFLOP/s (bf16), not the 3.35 TB/s of
-memory.  This first kernel is simple (WMMA through shared memory for
-bf16, fp32 FMA for fp32, no TMA/wgmma/pipelining) and far from that floor;
-PERF.md keeps its measured times.
+memory.  PERF.md keeps the measured times.
 
 On the card the wrapper launches the kernel or raises: it never falls
 back.  ``ops.tree_attention`` routes a CPU tensor to the plain version
@@ -32,6 +37,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLOCK_Q = BLOCK_K = 64        # the kernel's tile (BQ, BK in the .cu source)
 HEAD_DIMS = (16, 24, 32, 64, 96, 128, 192)
+HOPPER_HEAD_DIMS = (64, 128)  # bf16 at these takes the wgmma/TMA path
 SOURCE = "tree_attention_fwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -85,6 +91,12 @@ def block_live_mask(kv_last, S: int, block_q: int = BLOCK_Q,
         kpmax = pk.reshape(nk, block_k).max(-1)[None, :]
     return block_live(q_start, q_end, ki * block_k, kmax[None, :], qpmin,
                       kpmax, window)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data does not start on 16 bytes (a
+    view into another tensor can start anywhere), which TMA needs."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _library() -> ctypes.CDLL:
@@ -159,6 +171,7 @@ def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if save_residuals else None)
     lib = _library()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     ptr = lambda t: None if t is None else t.data_ptr()
     windowed = window is not None
     err = lib.tree_attention_fwd(

@@ -88,11 +88,44 @@ def _case(name):
     if name == "packed_gqa_hd128":
         kl, _ = _tree_meta(13, 2, 1000)
         return 2, 1000, 12, 2, 128, kl, 0, None, None, None
+    if name == "dead_tiles":
+        # a long packed row of short trees: most key tiles before a query
+        # tile are dead, with live ones (its own tree's) between them
+        trees = trees_for_batch(17, n_trees=400, kind="random",
+                                seg_len_range=(1, 6), max_depth=2)
+        sers = [serialize_tree(t) for t in trees]
+        keep, used = [], 0
+        for s in sers:
+            if used + s.n <= 2000:
+                keep.append(s)
+                used += s.n
+        kl = pack_trees(keep, 2048, batch_size=1).kv_last
+        return 1, 2048, 12, 2, 128, kl, 0, None, None, None
+    if name.startswith("ring_tail"):
+        # a causal chain of 6 key tiles, the last ragged (357 = 5·64 + 37)
+        # and live: it lands in the last stage of the forward's key-tile
+        # ring at both head dims (2 stages at hd 128, 3 at hd 64)
+        hd = int(name.rsplit("hd", 1)[1])
+        return (2, 357, 12, 2, hd, np.full((2, 357), 356), 0, None, None,
+                None)
+    if name == "ragged_gateway":
+        # S not a multiple of 64, q_off > 0, gateway ancestors (two rows
+        # front-padded differently)
+        kl, _, _ = _gateway_meta(19, 2, 200, 37, (5, 0))
+        return 2, 200, 12, 2, 128, kl, 37, None, None, None
+    if name.startswith("heads"):
+        # heads{H}_{Kh}_hd{hd}: GQA 12/2 and MHA at the models' head dims
+        H, rest = name[5:].split("_", 1)
+        Kh, hd = rest.split("_hd")
+        kl, _ = _tree_meta(23, 2, 256)
+        return 2, 256, int(H), int(Kh), int(hd), kl, 0, None, None, None
     raise KeyError(name)
 
 
 CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20", "window",
-         "gateway_window", "packed_gqa_hd128"]
+         "gateway_window", "packed_gqa_hd128", "dead_tiles", "ring_tail_hd64",
+         "ring_tail_hd128", "ragged_gateway", "heads12_2_hd64",
+         "heads12_2_hd128", "heads4_4_hd64", "heads4_4_hd128"]
 
 
 def _inputs(name, dtype, dev, hd=None):
@@ -170,7 +203,7 @@ def test_cuda_bwd_kernels_match_plain(dev, name, dtype):
         assert torch.equal(a, b)
     if name == "padding":                   # invisible keys: exactly zero
         assert not bool(got[1][0, 16:].any()) and not bool(got[2][0, 16:].any())
-    if name.startswith("gateway"):          # ancestor cotangents are real
+    if "gateway" in name:                   # ancestor cotangents are real
         A = kw["q_off"]
         assert float(got[1][:, :A].float().abs().max()) > 1e-3
 
@@ -211,3 +244,17 @@ def test_cuda_op_gradient_runs_the_kernels(dev):
     rg = torch.autograd.grad(ro, ref_leaves, do)
     for a, b in zip(g, rg):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["packed_gqa_hd128", "dead_tiles",
+                                  "ragged_gateway", "gateway20",
+                                  "ring_tail_hd64"])
+def test_cuda_dkv_schedule_matches_plain(dev, name):
+    """The dk/dv kernel's schedule pass (its first launch in the bf16 hd
+    64/128 path) gives exactly its plain version's order."""
+    B, S, H, Kh, hd, kl, q_off = _case(name)[:7]
+    kl = torch.as_tensor(np.asarray(kl), dtype=torch.int32, device=dev)
+    got = tab.dkv_order(kl, S, q_off)
+    _, _, want = tab.dkv_schedule(kl, S, q_off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -29,7 +29,8 @@ from repro_torch.train.planner import plans  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 
 
 def test_port_imports_no_jax_and_no_reference_package():

@@ -17,6 +17,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import tree_attention as jta  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
+from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
 from test_kernels import _gateway_meta, _tree_meta  # noqa: E402
 
 TOL = 2e-5
@@ -153,3 +154,98 @@ def test_prefill_attention_matches_jax(ctx):
     o = ops.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), hd ** -0.5, **kw_t)
     np.testing.assert_allclose(o.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
+
+# --------------------------------------------------------------------------
+# the dk/dv kernel's host-side tile metadata, against the reference's
+# block_kmax_flat / block_live_mask on the same seeded trees
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,A", [(256, 0), (512, 0), (256, 64), (192, 128)])
+def test_dkv_schedule_matches_jax_block_live(S, A):
+    """Per key tile: the max kv_last is the reference's block_kmax_flat,
+    the work is the number of query tiles its block_live_mask keeps, and
+    the order lists every (batch, key tile) once, heaviest first."""
+    B = 2
+    if A:
+        kl = np.asarray(_gateway_meta(S + A, B, S, A, (5, 0))[0])
+    else:
+        kl = np.asarray(_tree_meta(S, B, S)[0])
+    nk = kl.shape[1] // 64
+    kmax, work, order = tab.dkv_schedule(torch.tensor(kl).int(), S,
+                                         q_off=A)
+    np.testing.assert_array_equal(
+        kmax.numpy().reshape(-1),
+        np.asarray(jta.block_kmax_flat(jnp.asarray(kl), B, nk, 64)))
+    for b in range(B):
+        live = np.asarray(jta.block_live_mask(kl[b], S, 64, 64, q_off=A))
+        np.testing.assert_array_equal(work[b].numpy(), live.sum(0))
+    flat = work.reshape(-1).numpy()
+    order = order.numpy()
+    assert sorted(order.tolist()) == list(range(B * nk))
+    assert np.all(np.diff(flat[order]) <= 0)
+    for w in np.unique(flat):              # ties keep index order
+        idx = order[flat[order] == w]
+        assert np.all(np.diff(idx) > 0)
+
+
+def test_dkv_schedule_ragged_tail_counts_real_keys():
+    """A ragged last key tile's max covers its real keys only, as the
+    port's block_kmax_flat, and its work matches the per-pair count."""
+    rng = np.random.default_rng(8)
+    S, A = 150, 37
+    last = rng.integers(-1, S, S)
+    kl = np.concatenate([np.full(A, 1 << 30), np.where(last >= 0, last + A,
+                                                        -1)])[None]
+    kmax, work, _ = tab.dkv_schedule(torch.from_numpy(kl).int(), S, q_off=A)
+    nk = -(-kl.shape[1] // 64)
+    np.testing.assert_array_equal(kmax.numpy()[0],
+                                  ta.block_kmax_flat(kl, 1, nk, 64))
+    live = ta.block_live_mask(kl[0], S, 64, 64, q_off=A)
+    # the estimate ignores only the causal edge of the last, ragged query
+    # tile, so it never undercounts
+    assert np.all(work.numpy()[0] >= live.sum(0))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 6])
+def test_dkv_head_split_partials_sum_to_jax(parts):
+    """The dk/dv kernel splits each GQA group of G query heads into parts
+    and sums their fp32 partials in a fixed order.  The plain backward run
+    part by part and summed that way gives the reference kernel's dk/dv."""
+    from repro.kernels import tree_attention_bwd as jtab
+    from repro_torch.kernels.ref import tree_attention_bwd_ref
+    B, S, H, Kh, hd = 1, 128, 12, 2, 16
+    G = H // Kh
+    assert G % parts == 0 and tab.head_parts(G, 10, 132) in (1, 2, 3, 6)
+    rng = np.random.default_rng(parts)
+    mk = lambda *s: rng.normal(size=s).astype(np.float32)
+    q, k, v, do = mk(B, S, H, hd), mk(B, S, Kh, hd), mk(B, S, Kh, hd), \
+        mk(B, S, H, hd)
+    kl = np.array(_tree_meta(3, B, S)[0])
+    sc = hd ** -0.5
+    jo, jl = jta.tree_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(kl), sc, block_q=64, block_k=64,
+                                save_residuals=True, interpret=True)
+    _, jdk, jdv = jtab.tree_attention_bwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kl), jo,
+        jl, jnp.asarray(do), sc, block_q=64, block_k=64, interpret=True)
+    t = torch.from_numpy
+    per = G // parts
+    heads = lambda a, p: a.reshape(B, S, Kh, G, hd)[:, :, :, p * per:(p + 1)
+                                                   * per].reshape(
+        B, S, Kh * per, hd)
+    lse = t(np.array(jl)).reshape(B, Kh, G, S)
+    dk = torch.zeros(B, S, Kh, hd)
+    dv = torch.zeros(B, S, Kh, hd)
+    for p in range(parts):               # in order, as the kernel's sum
+        _, dk_p, dv_p = tree_attention_bwd_ref(
+            heads(t(q), p), t(k), t(v), t(kl).int(),
+            heads(t(np.array(jo)), p),
+            lse[:, :, p * per:(p + 1) * per].reshape(B, Kh * per, S),
+            heads(t(do), p), sc)
+        dk += dk_p
+        dv += dv_p
+    np.testing.assert_allclose(dk.numpy(), np.asarray(jdk), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), atol=1e-4,
+                               rtol=1e-4)
