@@ -7,7 +7,10 @@
 Phases, each of which ends the run non-zero if it fails:
   1. build      — nvcc the three kernel sources (tree-attention forward, dq,
                   dk/dv) in parallel, one process each; print every kernel
-                  instance's registers and spills from ptxas's report.
+                  instance's registers and spills from ptxas's report and
+                  its wgmma (HGMMA) and TMA-load (UTMALDG) instruction
+                  counts; each Hopper instance (bf16 hd 64/128) must show
+                  both and spill nothing.
   2. kernel     — hold the forward kernel against its plain PyTorch version
                   on the card, computed in f32 from the same inputs (o and
                   lse at 1e-4; a bf16 o within its rounding: 2^-7 of it plus
@@ -22,7 +25,11 @@ Phases, each of which ends the run non-zero if it fails:
                   relative L2 ≤ 1e-2 per output and every element within
                   5e-2 + 5e-2·|ref|.  The forward's cases plus the training
                   shape T; two launches must be bit-identical, invisible
-                  keys get exactly zero dk/dv.
+                  keys get exactly zero dk/dv.  Where the dq kernel computes
+                  Δ itself (bf16 hd 64/128) its Δ is held against the plain
+                  ``delta`` at 1e-5 of Σ|do·o| per row, dq and Δ must be
+                  bit-identical over two launches and dq exactly 0 on rows
+                  that see no key.
   4. serve      — Qwen2-1.5B at full width, random bf16 weights: 4 rollout
                   groups (prompt 1024, K=8, 64 new tokens) and one
                   multi-turn agentic session (prefill → fork(8) → 32 steps →
@@ -36,7 +43,11 @@ Phases, each of which ends the run non-zero if it fails:
                   ``TreeTrainEngine.step`` with the kernels: 4 SFT steps on
                   agentic trees and 2 RL steps on GRPO trees, 2 rows of
                   4096; each step launches each kernel once per layer and
-                  syncs the host once.  Then one tree-vs-baseline step
+                  syncs the host once.  Then one more step under
+                  torch.profiler (not in the median): the 15 CUDA kernels
+                  with the most device time, kernel time by family and by
+                  the host op that launched it, and the device-busy share
+                  of the step's window.  Then one tree-vs-baseline step
                   comparison on the same trees.  Counts are reset just
                   before and read just after.
   7. train parity — (a) 4 layers f32, kernel vs plain attention: loss 1e-5
@@ -48,7 +59,8 @@ Phases, each of which ends the run non-zero if it fails:
                   the serving path's two shapes A and B (forward) and at
                   the training shape T (all three), beside the H100's bound
                   and as a percentage of it; kernel and library call also
-                  as device time, replayed from a CUDA graph.
+                  as device time, replayed from a CUDA graph.  The torch Δ
+                  reduction is timed only where the backward still runs it.
 
 The line before the last names the card and its power limit; the one before
 it lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -56,6 +68,8 @@ Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import bisect
+import gzip
 import json
 import math
 import statistics
@@ -109,6 +123,15 @@ TRAIN_ROWS, TRAIN_SEQ, SFT_STEPS, RL_STEPS = 2, 4096, 4, 2
 TRAIN_GEN = dict(num_turns=3, turn_len_range=(64, 256))
 DEV = "cuda"
 CARD = ""
+# the profile's kernel families, by a substring of the kernel's name; the
+# first family that matches takes the kernel
+PROFILE_FAMILIES = (
+    ("tree attention (this repo's kernels)",
+     ("_hopper_kernel", "tree_attention_", "dkv_schedule", "sum_parts")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("copy, cast, fill, cat", ("copy", "Fill", "CatArray")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)))
 
 
 def log(msg: str) -> None:
@@ -334,6 +357,32 @@ def hold_bwd(tag: str, got, want) -> dict:
     return errs
 
 
+def hold_dq_delta(tag, q, k, v, kl, o, lse, do, sc, kw, dq_bwd) -> None:
+    """The dq kernel's Hopper path alone, twice: its Δ against the plain
+    ``delta`` at 1e-5 of Σ_d |do·o| per row (the same exact fp32 products
+    of bf16 values summed in another order), dq and Δ bit-identical over
+    the two launches and equal to the backward's dq, dq exactly 0 on rows
+    that see no key (lse = −1e30)."""
+    dq, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **kw)
+    dq2, dl2 = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **kw)
+    torch.cuda.synchronize()
+    want = tab.delta(o, do)
+    mag = (do.float() * o.float()).abs().sum(-1).transpose(1, 2)
+    err = float(((dl - want).abs() / mag.clamp_min(1e-30)).max())
+    same = torch.equal(dq, dq2) and torch.equal(dl, dl2) and torch.equal(
+        dq, dq_bwd)
+    masked = (lse <= -1e29).transpose(1, 2)
+    zero = not bool(dq[masked].any())
+    log(f"dq kernel's Δ vs plain delta: {tag}: max |err| / Σ|do·o| "
+        f"{err:.3e} (tol 1e-5); dq and Δ bit-identical over two launches "
+        f"{same}; dq exactly 0 on the {int(masked.sum())} (row, head) pairs "
+        f"that see no key {zero}")
+    check(bool(torch.isfinite(dl).all()) and err <= 1e-5,
+          f"{tag}: the dq kernel's Δ disagrees with delta()")
+    check(same, f"{tag}: two dq launches differ")
+    check(zero, f"{tag}: dq nonzero on a row that sees no key")
+
+
 def skip_fraction(kl, S, q_off, window, pq, pk) -> float:
     B = kl.shape[0]
     kl, pq, pk = (None if t is None else t.cpu().numpy() for t in (kl, pq, pk))
@@ -414,6 +463,10 @@ def phase_build() -> float:
                    f"; SASS: {sass[0]} HGMMA (wgmma), {sass[1]} UTMALDG (TMA)")
             log(f"build:   {name}: {regs} registers, {st} bytes spill stores, "
                 f"{ld} bytes spill loads{ins}")
+            if "_hopper_kernel<" in name:
+                check(st == ld == 0, f"{name} spills")
+                check(sass is None or (sass[0] > 0 and sass[1] > 0),
+                      f"{name}: no wgmma or no TMA load in its SASS")
     log(f"build: {len(SOURCES)} sources, one nvcc {' '.join(build.NVCC_FLAGS)}"
         f" each, all started together: {total:.2f} s in all")
     return total
@@ -503,6 +556,9 @@ def phase_bwd_kernel(train_kv_last) -> dict:
                 f"{name} (block-skip fraction {skip:.3f}; two launches "
                 f"bit-identical {same}; invisible keys' dk/dv exactly 0 "
                 f"{zero}{anc})", got, want)
+            if tab.fuses_delta(q):
+                hold_dq_delta(name, q, k, v, kl, o, lse, do, sc, kw,
+                              got[0])
             if dt == torch.bfloat16 and q.shape[-1] in ta.HOPPER_HEAD_DIMS:
                 # the dk/dv launch's schedule pass against its plain version
                 order = tab.dkv_order(kl, q.shape[1], q_off)
@@ -775,6 +831,8 @@ def phase_train(cfg, sft, rl):
         f"{unique} unique tokens, {dropped} trees dropped, "
         f"{engine.host_syncs} host syncs / {n_steps} steps, peak "
         f"{peak_gb():.2f} GB; launches {counts}")
+    params, opt_state, _ = profile_step(
+        lambda: engine.step(params, opt_state, sft[0]))
 
     # tree vs per-branch baseline on the same trees, rows of 2048
     trees = row_trees(cfg, 2048)
@@ -808,6 +866,123 @@ def phase_train(cfg, sft, rl):
         f"unique token, step time ratio baseline/tree {t_b / t_t:.3f} "
         f"(median of 2 after one warm-up step each)")
     return params, counts, step_s
+
+
+def profile_step(step):
+    """Run ``step`` (one train step) once under torch.profiler with CUDA
+    activity and print, from its Chrome trace: the 15 CUDA kernels with the
+    most device time (name, calls, ms, share of the step's window) and the
+    device-busy share of that window — the union of kernel, memcpy and
+    memset intervals over the host-clock span of the step, which ends in
+    its host sync.  The trace is kept, gzipped, as
+    build/train_step_trace.json.gz (``build/`` is not committed).  Returns
+    ``step``'s result."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "train_step_trace.json"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            out = step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    raw = path.read_bytes()
+    path.unlink()
+    (out_dir / "train_step_trace.json.gz").write_bytes(gzip.compress(raw))
+    report_trace(json.loads(raw)["traceEvents"])
+    return out
+
+
+def report_trace(trace_events) -> None:
+    """``profile_step``'s report from the events of a Chrome trace that
+    holds one ``train_step`` annotation."""
+    events = [e for e in trace_events if e.get("ph") == "X"]
+    marks = [e for e in events if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not marks or not dev:
+        log(f"profile: the trace holds {len(marks)} step marks and "
+            f"{len(dev)} device events: no device breakdown")
+        return
+    t0 = marks[0]["ts"]
+    t1 = t0 + marks[0]["dur"]
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in dev if e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    win = t1 - t0
+    by_name = {}
+    for e in dev:
+        if e["cat"] == "kernel" and t0 <= e["ts"] < t1:
+            n, d = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, d + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    k_all = sum(d for _, d in by_name.values())
+    log(f"profile: one train step under torch.profiler (CPU + CUDA, not in "
+        f"the median): window {win / 1e3:.3f} ms on the host clock, device "
+        f"busy {busy / 1e3:.3f} ms ({100 * busy / win:.1f}% of the window); "
+        f"{sum(n for n, _ in by_name.values())} kernels, "
+        f"{len(by_name)} distinct, {k_all / 1e3:.3f} ms of kernel time")
+    log("profile: the 15 CUDA kernels with the most device time (calls, ms, "
+        "share of the window):")
+    for name, (n, d) in top:
+        short = name if len(name) <= 110 else name[:107] + "..."
+        log(f"profile:   {n:5d}  {d / 1e3:9.3f} ms  {100 * d / win:5.1f}%  "
+            f"{short}")
+    rest = k_all - sum(d for _, (_, d) in top)
+    log(f"profile:   the other {len(by_name) - len(top)} kernels: "
+        f"{rest / 1e3:.3f} ms ({100 * rest / win:.1f}%)")
+    fam = {}
+    for name, (n, d) in by_name.items():
+        f = next((f for f, keys in PROFILE_FAMILIES
+                  if any(s in name for s in keys)), "other")
+        c, s = fam.get(f, (0, 0.0))
+        fam[f] = (c + n, s + d)
+    log("profile: kernel time by family (calls, ms, share of the window): "
+        + "; ".join(f"{f} {n} / {d / 1e3:.3f} ms / {100 * d / win:.1f}%"
+                    for f, (n, d) in sorted(fam.items(),
+                                            key=lambda kv: -kv[1][1]))
+        + f"; device idle {(win - busy) / 1e3:.3f} ms / "
+        f"{100 * (win - busy) / win:.1f}%")
+    # the host op that launched each kernel: the outermost op of its thread
+    # around the launch call (on autograd's thread, the node it evaluates)
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    outer = {}
+    for e in sorted((e for e in events if e.get("cat") == "cpu_op"),
+                    key=lambda e: (e["ts"], -e["dur"])):
+        ops = outer.setdefault(e["tid"], [])
+        if not ops or e["ts"] >= ops[-1]["ts"] + ops[-1]["dur"]:
+            ops.append(e)
+    starts = {tid: [e["ts"] for e in ops] for tid, ops in outer.items()}
+    by_op = {}
+    for e in dev:
+        if e["cat"] != "kernel" or not t0 <= e["ts"] < t1:
+            continue
+        r = launch.get(e.get("args", {}).get("correlation"))
+        op = "(launch not in the trace)"
+        if r is not None:
+            ops = outer.get(r["tid"], [])
+            i = bisect.bisect_right(starts.get(r["tid"], []), r["ts"]) - 1
+            op = (ops[i]["name"].removeprefix(
+                "autograd::engine::evaluate_function: ")
+                if i >= 0 and ops[i]["ts"] + ops[i]["dur"] >= r["ts"]
+                else "(no host op)")
+        n, d = by_op.get(op, (0, 0.0))
+        by_op[op] = (n + 1, d + e["dur"])
+    log("profile: kernel time by the host op that launched it (the "
+        "outermost op around the launch; autograd nodes on the backward "
+        "thread), the 12 largest (kernels, ms, share of the window):")
+    for op, (n, d) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"profile:   {n:5d}  {d / 1e3:9.3f} ms  {100 * d / win:5.1f}%  "
+            f"{op[:110]}")
 
 
 def grads_rel(ga, gb):
@@ -1009,15 +1184,17 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
     do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
     sc = hd ** -0.5
     out = {}
+    fused = tab.fuses_delta(q)      # the dq kernel computes Δ itself
     with torch.inference_mode():
         o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
-        dl = tab.delta(o, do)
+        _, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc)
         pairs = int(dense_mask(kl, S, 0).sum())
         fwd = lambda: ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
-        dq = lambda: tab.bwd_dq(q, k, v, kl, lse, dl, do, sc)
+        dq = lambda: tab.bwd_dq(q, k, v, kl, o, lse, do, sc)
         dkv = lambda: tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc)
-        ms = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv),
-              "delta": time_ms(lambda: tab.delta(o, do))}
+        ms = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
+        if not fused:     # the backward still runs the torch reduction
+            ms["delta"] = time_ms(lambda: tab.delta(o, do))
         dev = {"fwd": graph_ms(fwd), "dq": graph_ms(dq), "dkv": graph_ms(dkv)}
         ms["plain_fwd"] = time_ms(lambda: tree_attention_ref_ext(
             q, k, v, kl, sc, return_lse=True))
@@ -1042,8 +1219,10 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
     io = 2 * (q.numel() + k.numel() + v.numel())      # bf16 q, k, v
     meta = kl.numel() * 4
     rows = 2 * B * H * S * 4                           # lse and Δ, f32
+    # dq reads q, k, v, do (and o, where it computes Δ), lse (and Δ, where
+    # it does not), and writes dq (and Δ)
     spec = {"fwd": (4, io + 2 * q.numel() + meta + B * H * S * 4),
-            "dq": (6, io + 4 * q.numel() + meta + rows),
+            "dq": (6, io + (6 if fused else 4) * q.numel() + meta + rows),
             "dkv": (8, io + 2 * q.numel() + 4 * k.numel() + meta + rows)}
     bwd_sum = ms["dq"] + ms["dkv"]
     for key, (per_pair, nbytes) in spec.items():
@@ -1067,8 +1246,10 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
             f"{plain_ms:.4f} ms; sdpa {what} (dense bool mask, K/V expanded) "
             f"{lib_ms:.4f} ms; device time in a CUDA graph: kernel "
             f"{fmt_ms(dev[key])}, sdpa {fmt_ms(lib_dev)}")
-    log(f"timing at T: backward kernels dq + dk/dv {bwd_sum:.4f} ms (plus "
-        f"the wrapper's Δ reduction {ms['delta']:.4f} ms); plain backward "
+    d_txt = ("Δ computed inside the dq kernel, no torch reduction" if fused
+             else f"plus the wrapper's Δ reduction {ms['delta']:.4f} ms")
+    log(f"timing at T: backward kernels dq + dk/dv {bwd_sum:.4f} ms "
+        f"({d_txt}); plain backward "
         f"{ms['plain_bwd']:.4f} ms; sdpa backward {ms['lib_bwd']:.4f} ms "
         f"(kernels / sdpa {bwd_sum / ms['lib_bwd']:.2f}x); forward kernel / "
         f"sdpa forward {ms['fwd'] / ms['lib_fwd']:.2f}x")
@@ -1077,10 +1258,11 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
             f"{dev['fwd']:.4f} ms, dq + dk/dv {dev['dq'] + dev['dkv']:.4f} ms "
             f"(sdpa's backward not measured so: autograd runs it outside "
             f"the capturing stream)")
-    att = n_layers * (ms["fwd"] + bwd_sum) / 1e3
+    att = n_layers * (ms["fwd"] + bwd_sum + ms.get("delta", 0.0)) / 1e3
     log(f"timing: attention share of a train step: {n_layers} x (fwd + dq + "
-        f"dk/dv) = {att:.3f} s of the {step_s:.3f} s median step "
-        f"({100 * att / step_s:.1f}%)")
+        f"dk/dv{'' if fused else ' + Δ'}) = {att:.3f} s of the {step_s:.3f} s "
+        f"median step ({100 * att / step_s:.1f}%)")
+    out["dq"]["delta_in_kernel"] = fused
     return out
 
 

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tree-attention kernels'
-// tensor-core paths (tree_attention_fwd.cu, tree_attention_bwd_dkv.cu):
-// mbarriers, TMA tile loads, wgmma descriptors and the wgmma instructions
-// themselves, written as inline PTX so that the build needs no CUTLASS.
+// tensor-core paths (tree_attention_fwd.cu, tree_attention_bwd_dq.cu,
+// tree_attention_bwd_dkv.cu): mbarriers, TMA tile loads, wgmma descriptors
+// and the wgmma instructions themselves, written as inline PTX so that the
+// build needs no CUTLASS; and the key-tile producer warp that the forward
+// and dq share (produce_key_tiles).
 //
 // Tile layout.  Every bf16 tile is 64 rows of a [B, rows, heads, hd] tensor
 // for one head, brought in by TMA as hd/64 boxes of 64 rows × 64 columns
@@ -9,20 +11,23 @@
 // column block; box a holds columns [64a, 64a + 64).  Rows past the
 // tensor's end read as zero.  wgmma reads such a tile two ways:
 //   - K-major (the hd columns are the product's depth): Q and K in Q·Kᵀ,
-//     K and Q in K·Qᵀ.  A 16-column step moves the start address 32 bytes
-//     inside a box and 8 KB from one box to the next; 8-row groups are
-//     1 KB apart (the stride byte offset).
+//     dO and V in dO·Vᵀ, K and Q in K·Qᵀ.  A 16-column step moves the
+//     start address 32 bytes inside a box and 8 KB from one box to the
+//     next; 8-row groups are 1 KB apart (the stride byte offset).
 //   - MN-major (the rows are the depth, hd is the output width): V in P·V,
-//     dO and Q in Pᵀ·dO and dSᵀ·Q, through the descriptor's transpose bit.
-//     A 16-row step moves the start 2 KB; the next 64 output columns are
-//     the next box, 8 KB on (the leading byte offset); 8-row groups are
-//     1 KB apart.
+//     K in dS·K, dO and Q in Pᵀ·dO and dSᵀ·Q, through the descriptor's
+//     transpose bit.  A 16-row step moves the start 2 KB; the next 64
+//     output columns are the next box, 8 KB on (the leading byte offset);
+//     8-row groups are 1 KB apart.
+//   Inside a box the 16-byte chunk c of row r sits at r·128 + 16·(c ^ r%8)
+//   (the swizzle), which is how a thread reads one element group back.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace hop {
@@ -226,6 +231,169 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)
   static_assert(HD == 64 || HD == 128, "wgmma path: hd 64 or 128");
   if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
+}
+
+// ---- the key-tile producer of the forward and of dq ------------------------
+// Both kernels give one block a (64-query tile, head, batch row) and walk
+// its causal key tiles; the producer warp below is the one both run, so the
+// two skip the same tiles by construction.
+
+constexpr int KT = 64;       // keys per tile
+constexpr int SCAN = 16;     // key tiles tested per pass
+
+// The key/value ring in shared memory, STAGES deep.
+struct KeyRing {
+  unsigned char* kv;   // stage s: K at kv + 2·s·tile, V at kv + (2·s + 1)·tile
+  int* kl;             // [STAGES][KT] the stage's kv_last
+  int* pk;             // [STAGES][KT] the stage's pos_k (windowed only)
+  int* k0;             // [STAGES] the stage's first key; −1 marks the end
+  uint64_t* full;      // [STAGES] the stage has landed (32 lanes + lane 0)
+  uint64_t* empty;     // [STAGES] the consumers are done with it (128)
+};
+
+// Shared memory of a block that runs produce_key_tiles: NRES resident
+// 64-row tiles (tile i at RES + i·TILE), then the K/V ring of STAGES
+// stages, its metadata and its barriers.  The host sizes the launch by
+// ALLOC, which leaves room to align the base to 1 KB (the swizzle's unit).
+template <int HD, int NRES>
+struct KeyTileLayout {
+  static constexpr int TILE = KT * HD * 2;       // one 64-row bf16 tile
+  static constexpr int STAGES = HD <= 64 ? 3 : 2;
+  static constexpr int RES = 0;
+  static constexpr int KV = RES + NRES * TILE;   // stage s: K at KV + 2·s·TILE, V after it
+  static constexpr int KL = KV + STAGES * 2 * TILE;
+  static constexpr int PK = KL + STAGES * KT * 4;
+  static constexpr int K0 = PK + STAGES * KT * 4;
+  static constexpr int BAR = K0 + 64;            // full[STAGES], empty[STAGES], resident
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;
+
+  // The block's 1 KB-aligned base in its dynamic shared memory.
+  __device__ static unsigned char* base(unsigned char* raw) {
+    return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  }
+  __device__ static KeyRing ring(unsigned char* sm) {
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + BAR);
+    return KeyRing{sm + KV, reinterpret_cast<int*>(sm + KL), reinterpret_cast<int*>(sm + PK),
+                   reinterpret_cast<int*>(sm + K0), full, full + STAGES};
+  }
+  // the barrier the resident tiles complete on
+  __device__ static uint64_t* resbar(unsigned char* sm) {
+    return reinterpret_cast<uint64_t*>(sm + BAR) + 2 * STAGES;
+  }
+  // Thread 0 initialises the barriers: a stage is full once the producer's
+  // 32 lanes' copies and lane 0's TMA have landed, and empty once each of
+  // the `consumers` threads has released it.  Then the whole block syncs.
+  __device__ static void init(unsigned char* sm, int consumers) {
+    if (threadIdx.x == 0) {
+      const KeyRing r = ring(sm);
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&r.full[s], 33);
+        mbar_init(&r.empty[s], consumers);
+      }
+      mbar_init(resbar(sm), 1);
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+};
+
+// The producer warp of one (query tile q0..q0+nrows−1, head h, batch b):
+//  1. brings the NRES resident 64-row tiles res[i] (rows q0.., head h) to
+//     res_smem + i·tile by TMA, completing on `resbar` (count 1);
+//  2. walks the causal key tiles SCAN at a time, reading kv_last (and
+//     pos_k) for all of them first and then reducing each tile with one
+//     warp-wide max: the reference's block_live(q_start, q_end, k0,
+//     max kv_last[, min pos_q, max pos_k, window]);
+//  3. for each live tile, in order, waits for a free stage, stages the
+//     tile's kv_last/pos_k by cp.async (keys past Skv read 0: later than
+//     every query, so invisible) and brings K and V in by TMA;
+//  4. hands over the end marker (k0 = −1).
+// A dead tile costs no load and no barrier.  pos_q null ⇒ no window.
+template <int HD, int STAGES, int NRES>
+__device__ __forceinline__ void produce_key_tiles(
+    const int lane, const CUtensorMap* const (&res)[NRES], unsigned char* res_smem,
+    uint64_t* resbar, const CUtensorMap* kmap, const CUtensorMap* vmap, const KeyRing& ring,
+    const int* __restrict__ kv_last, const int* __restrict__ pos_q,
+    const int* __restrict__ pos_k, int b, int h, int kh, int S, int Skv, int q0, int nrows,
+    int q_off, int window) {
+  constexpr int TILE = KT * HD * 2;
+  constexpr int NA = HD / 64;
+  const int q_start = q_off + q0, q_end = q_start + nrows - 1;
+  const bool windowed = pos_q != nullptr;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(resbar, NRES * TILE);
+#pragma unroll
+    for (int i = 0; i < NRES; ++i)
+      for (int a = 0; a < NA; ++a)
+        tma_load_4d(res_smem + i * TILE + a * ATOM, res[i], resbar, 64 * a, h, q0, b);
+  }
+  int qp_min = INT_MAX;
+  if (windowed) {
+    for (int r = lane; r < nrows; r += 32) qp_min = min(qp_min, pos_q[size_t(b) * S + q0 + r]);
+    qp_min = __reduce_min_sync(0xffffffffu, qp_min);
+  }
+  const int* klb = kv_last + size_t(b) * Skv;
+  const int* pkb = windowed ? pos_k + size_t(b) * Skv : nullptr;
+  const int nt = min(q_end, Skv - 1) / KT + 1;       // the last causal key tile
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t0 = 0; t0 < nt; t0 += SCAN) {
+    // block_live(q_start, q_end, k0, max kv_last, qp_min, max pos_k) of
+    // SCAN tiles: all loads first, then one reduction per tile.
+    int kl_r[SCAN][2], pk_r[SCAN][2];
+#pragma unroll
+    for (int i = 0; i < SCAN; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int key = (t0 + i) * KT + lane + 32 * u;
+        const bool in = t0 + i < nt && key < Skv;
+        kl_r[i][u] = in ? klb[key] : -1;
+        pk_r[i][u] = (in && windowed) ? pkb[key] : INT_MIN;
+      }
+    uint32_t live = 0;
+#pragma unroll
+    for (int i = 0; i < SCAN; ++i) {
+      const int kmax = __reduce_max_sync(0xffffffffu, max(kl_r[i][0], kl_r[i][1]));
+      bool ok = kmax >= q_start;                     // k0 ≤ q_end holds below nt
+      if (windowed) {
+        const int kpmax = __reduce_max_sync(0xffffffffu, max(pk_r[i][0], pk_r[i][1]));
+        ok = ok && static_cast<long long>(qp_min) - kpmax < window;
+      }
+      live |= uint32_t(ok) << i;
+    }
+    while (live) {
+      const int t = t0 + __ffs(live) - 1;
+      live &= live - 1;
+      const int k0 = t * KT;
+      mbar_wait(&ring.empty[stage], phase ^ 1);
+      for (int c = lane; c < KT; c += 32) {
+        const bool in = k0 + c < Skv;
+        cp_async_4(&ring.kl[stage * KT + c], klb + (in ? k0 + c : 0), in);
+        if (windowed) cp_async_4(&ring.pk[stage * KT + c], pkb + (in ? k0 + c : 0), in);
+      }
+      cp_async_arrive(&ring.full[stage]);
+      if (lane == 0) {
+        ring.k0[stage] = k0;
+        mbar_arrive_expect_tx(&ring.full[stage], 2 * TILE);
+        unsigned char* kt = ring.kv + stage * 2 * TILE;
+        for (int a = 0; a < NA; ++a) {
+          tma_load_4d(kt + a * ATOM, kmap, &ring.full[stage], 64 * a, kh, k0, b);
+          tma_load_4d(kt + TILE + a * ATOM, vmap, &ring.full[stage], 64 * a, kh, k0, b);
+        }
+      }
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  mbar_wait(&ring.empty[stage], phase ^ 1);          // the end marker
+  cp_async_arrive(&ring.full[stage]);
+  if (lane == 0) {
+    ring.k0[stage] = -1;
+    mbar_arrive(&ring.full[stage]);
+  }
 }
 
 // ---- host: tensor maps ---------------------------------------------------

@@ -5,7 +5,8 @@
 // Replaces: the Pallas TPU kernel src/repro/kernels/tree_attention_bwd.py::
 // _bwd_dkv (kernel body :185-243, pallas_call :278).  Same function: with
 // p_ij = exp(scale·q_i·k_j − lse_i) on visible pairs (0 elsewhere),
-// Δ_i = Σ_d do_id·o_id (computed by the wrapper) and
+// Δ_i = Σ_d do_id·o_id (handed over by the dq launch before it, whose
+// kernel computes it on the bf16 hd 64/128 path) and
 // ds_ij = p_ij · (do_i·v_j − Δ_i) · scale,
 //   dv_j = Σ_{h in j's GQA group} Σ_i p_ij · do_i,
 //   dk_j = Σ_{h in j's GQA group} Σ_i ds_ij · q_i,

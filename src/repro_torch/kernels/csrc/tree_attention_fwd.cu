@@ -22,9 +22,11 @@
 // warp-wide reduction per tile, and hands the consumers live tiles only:
 // for each it stages the tile's kv_last/pos_k by cp.async and brings K and
 // V in by TMA into a ring of 2 (hd 128) or 3 (hd 64) stages guarded by
-// mbarriers, so it never waits on a load itself.  A
-// dead tile costs no load and no barrier.  Tree visibility is not monotone
-// along kv, so a dead tile may sit between live ones.  The consumers run
+// mbarriers, so it never waits on a load itself.  A dead tile costs no
+// load and no barrier.  The producer is hopper.cuh's produce_key_tiles,
+// which the dq kernel runs too: the two skip the same tiles.  Tree
+// visibility is not monotone along kv, so a dead tile may sit between live
+// ones.  The consumers run
 // S = Q·Kᵀ as wgmma m64n64k16 from the swizzled shared tiles, the online
 // softmax in the accumulator's registers (row max and sum over the four
 // threads of a row by shuffles, exp2f with scale·log2e folded in), round P
@@ -333,25 +335,13 @@ tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int WG_THREADS = 128;               // the consumer warpgroup
 constexpr int HOP_THREADS = WG_THREADS + 32;  // + the producer warp
-constexpr int SCAN = 16;                      // key tiles tested per pass
 
 struct FwdMaps {
   CUtensorMap q, k, v;
 };
 
 template <int HD>
-struct FwdLayout {
-  static constexpr int TILE = 64 * HD * 2;       // one 64-row bf16 tile
-  static constexpr int STAGES = HD <= 64 ? 3 : 2;
-  static constexpr int Q = 0;
-  static constexpr int KV = Q + TILE;            // stage s: K at KV + 2·s·TILE, V after it
-  static constexpr int KL = KV + STAGES * 2 * TILE;
-  static constexpr int PK = KL + STAGES * 64 * 4;
-  static constexpr int K0 = PK + STAGES * 64 * 4;
-  static constexpr int BAR = K0 + 64;
-  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
-  static constexpr int ALLOC = BYTES + 1024;     // room to align the base to 1 KB
-};
+using FwdLayout = hop::KeyTileLayout<HD, 1>;     // Q resident
 
 template <int HD>
 __global__ void __launch_bounds__(HOP_THREADS, 2)
@@ -360,112 +350,28 @@ fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ 
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int S,
                   int Skv, int H, int Kh, float scale, int q_off, int window) {
   using L = FwdLayout<HD>;
-  constexpr int NA = HD / 64;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
-  int* kl_s = reinterpret_cast<int*>(sm + L::KL);
-  int* pk_s = reinterpret_cast<int*>(sm + L::PK);
-  int* k0_s = reinterpret_cast<int*>(sm + L::K0);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
-  uint64_t* empty = full + L::STAGES;
-  uint64_t* qbar = empty + L::STAGES;
+  unsigned char* sm = L::base(smem_raw);
+  const hop::KeyRing ring = L::ring(sm);
+  const int *kl_s = ring.kl, *pk_s = ring.pk, *k0_s = ring.k0;
+  uint64_t *full = ring.full, *empty = ring.empty, *qbar = L::resbar(sm);
 
   const int nq = (S + BQ - 1) / BQ;
   const int qi = nq - 1 - static_cast<int>(blockIdx.x) / (B * H);   // heaviest first
   const int b = (blockIdx.x / H) % B, h = blockIdx.x % H;
   const int kh = h / (H / Kh);
   const int q0 = qi * BQ, nrows = min(BQ, S - q0);
-  const int q_start = q_off + q0, q_end = q_start + nrows - 1;
+  const int q_start = q_off + q0;
   const bool windowed = pos_q != nullptr;
   const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    for (int s = 0; s < L::STAGES; ++s) {
-      hop::mbar_init(&full[s], 33);              // 32 lanes' copies + lane 0
-      hop::mbar_init(&empty[s], WG_THREADS);     // every consumer thread
-    }
-    hop::mbar_init(qbar, 1);
-    hop::fence_barrier_init();
-  }
-  __syncthreads();
+  L::init(sm, WG_THREADS);
 
   if (tid >= WG_THREADS) {
-    // ---------------- producer warp ----------------
-    const int lane = tid - WG_THREADS;
-    if (lane == 0) {
-      hop::mbar_arrive_expect_tx(qbar, L::TILE);
-      for (int a = 0; a < NA; ++a)
-        hop::tma_load_4d(sm + L::Q + a * hop::ATOM, &maps.q, qbar, 64 * a, h, q0, b);
-    }
-    int qp_min = INT_MAX;
-    if (windowed) {
-      for (int r = lane; r < nrows; r += 32) qp_min = min(qp_min, pos_q[size_t(b) * S + q0 + r]);
-      qp_min = __reduce_min_sync(0xffffffffu, qp_min);
-    }
-    const int* klb = kv_last + size_t(b) * Skv;
-    const int* pkb = windowed ? pos_k + size_t(b) * Skv : nullptr;
-    const int nt = min(q_end, Skv - 1) / BK + 1;       // the last causal key tile
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t0 = 0; t0 < nt; t0 += SCAN) {
-      // block_live(q_start, q_end, k0, max kv_last, qp_min, max pos_k) of
-      // SCAN tiles: all loads first, then one reduction per tile.
-      int kl_r[SCAN][2], pk_r[SCAN][2];
-#pragma unroll
-      for (int i = 0; i < SCAN; ++i)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int key = (t0 + i) * BK + lane + 32 * u;
-          const bool in = t0 + i < nt && key < Skv;
-          kl_r[i][u] = in ? klb[key] : -1;
-          pk_r[i][u] = (in && windowed) ? pkb[key] : INT_MIN;
-        }
-      uint32_t live = 0;
-#pragma unroll
-      for (int i = 0; i < SCAN; ++i) {
-        const int kmax = __reduce_max_sync(0xffffffffu, max(kl_r[i][0], kl_r[i][1]));
-        bool ok = kmax >= q_start;                     // k0 ≤ q_end holds below nt
-        if (windowed) {
-          const int kpmax = __reduce_max_sync(0xffffffffu, max(pk_r[i][0], pk_r[i][1]));
-          ok = ok && static_cast<long long>(qp_min) - kpmax < window;
-        }
-        live |= uint32_t(ok) << i;
-      }
-      while (live) {
-        const int t = t0 + __ffs(live) - 1;
-        live &= live - 1;
-        const int k0 = t * BK;
-        hop::mbar_wait(&empty[stage], phase ^ 1);
-        // the tile's kv_last / pos_k, asynchronously (a key past Skv reads
-        // 0 and stays invisible: it is later than every query)
-        for (int c = lane; c < BK; c += 32) {
-          const bool in = k0 + c < Skv;
-          hop::cp_async_4(&kl_s[stage * BK + c], klb + (in ? k0 + c : 0), in);
-          if (windowed) hop::cp_async_4(&pk_s[stage * BK + c], pkb + (in ? k0 + c : 0), in);
-        }
-        hop::cp_async_arrive(&full[stage]);
-        if (lane == 0) {
-          k0_s[stage] = k0;
-          hop::mbar_arrive_expect_tx(&full[stage], 2 * L::TILE);
-          unsigned char* kt = sm + L::KV + stage * 2 * L::TILE;
-          for (int a = 0; a < NA; ++a) {
-            hop::tma_load_4d(kt + a * hop::ATOM, &maps.k, &full[stage], 64 * a, kh, k0, b);
-            hop::tma_load_4d(kt + L::TILE + a * hop::ATOM, &maps.v, &full[stage], 64 * a, kh,
-                             k0, b);
-          }
-        }
-        if (++stage == L::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    hop::mbar_wait(&empty[stage], phase ^ 1);        // the end marker
-    hop::cp_async_arrive(&full[stage]);
-    if (lane == 0) {
-      k0_s[stage] = -1;
-      hop::mbar_arrive(&full[stage]);
-    }
+    // ---------------- producer warp (hopper.cuh) ----------------
+    const CUtensorMap* const res[1] = {&maps.q};
+    hop::produce_key_tiles<HD, L::STAGES>(tid - WG_THREADS, res, sm + L::RES, qbar, &maps.k,
+                                          &maps.v, ring, kv_last, pos_q, pos_k, b, h, kh, S,
+                                          Skv, q0, nrows, q_off, window);
     return;
   }
 
@@ -485,7 +391,7 @@ fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ 
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 domain
-  const uint32_t q_base = hop::smem_u32(sm + L::Q);
+  const uint32_t q_base = hop::smem_u32(sm + L::RES);
   hop::mbar_wait(qbar, 0);
 
   int stage = 0;

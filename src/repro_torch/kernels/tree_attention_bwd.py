@@ -5,12 +5,19 @@ Replace the Pallas TPU kernels ``repro/kernels/tree_attention_bwd.py::
 _bwd_dq`` (``pallas_call`` :162) and ``::_bwd_dkv`` (``pallas_call`` :278),
 and ``tree_attention_bwd`` (:306) is their entry point here too.  Flash-style
 recomputation: the forward saved only ``lse`` [B,H,S]; with
-Δ = rowsum(dO∘O) [B,H,S] f32 (a torch reduction, as the reference computes
-it outside its kernels, :331) the kernels regenerate p = exp(s − lse) tile by
+Δ = rowsum(dO∘O) [B,H,S] f32 the kernels regenerate p = exp(s − lse) tile by
 tile under the forward's mask and block-skip rule:
 
   - ``bwd_dq``: one CUDA block per (64-query tile, head, batch) loops over
-    the key tiles and writes dq once (WMMA or FMA through shared memory);
+    the key tiles and writes dq once.  bf16 at hd 64 and 128 runs a
+    warp-specialised wgmma kernel whose producer warp is the forward's
+    (``csrc/hopper.cuh::produce_key_tiles``: Q and dO resident, live K/V
+    tiles through a TMA ring), S and dP taken 32 keys at a time, dQ in
+    registers; it also computes Δ of its own rows from o and do and writes
+    it for the dk/dv launch that follows on the same stream, so the
+    reference's Δ pre-pass (:331) runs in no torch op there.  fp32 and the
+    other head dims keep the simple kernel (WMMA or FMA through shared
+    memory), with Δ from ``delta`` (a torch reduction, its plain version);
   - ``bwd_dkv``: dk and dv over the full Skv (ancestor rows [0, q_off)
     included), the GQA reduction with no atomics.  bf16 at hd 64 and 128
     runs a warp-specialised wgmma kernel in FlashAttention-3's orientation
@@ -55,7 +62,8 @@ def _library(source: str, entry: str, n_out: int) -> ctypes.CDLL:
         lib = build.load(source)
         fn = getattr(lib, entry)
         dkv = int(entry == "tree_attention_bwd_dkv")   # + sched, partial, parts
-        fn.argtypes = ([ctypes.c_void_p] * (9 + n_out + 2 * dkv)
+        extra = 1 + dkv                                # dq: + o
+        fn.argtypes = ([ctypes.c_void_p] * (9 + n_out + extra)
                        + [ctypes.c_int] * (7 + dkv)
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
@@ -126,8 +134,16 @@ def head_parts(G: int, units: int, n_sm: int) -> int:
 
 
 def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """Δ = Σ_d do·o in f32, [B,S,H,hd] → [B,H,S] (the reference's :331)."""
+    """Δ = Σ_d do·o in f32, [B,S,H,hd] → [B,H,S] (the reference's :331):
+    the plain version of the Δ the dq kernel's Hopper path computes, and
+    the Δ its other instances read."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def fuses_delta(q: torch.Tensor) -> bool:
+    """Whether the dq kernel computes Δ itself for inputs like ``q`` (bf16
+    at hd 64 and 128, its Hopper path)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in HOPPER_HEAD_DIMS
 
 
 def _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k):
@@ -196,14 +212,23 @@ def _launch(source, entry, outs, q, k, v, kv_last, lse, dl, do, scale, q_off,
                            .decode())
 
 
-def bwd_dq(q, k, v, kv_last, lse, dl, do, scale: float, *, q_off: int = 0,
+def bwd_dq(q, k, v, kv_last, o, lse, do, scale: float, *, q_off: int = 0,
            window: Optional[int] = None, pos_q=None, pos_k=None):
-    """Launch the dq kernel (inputs already checked, ``dl`` = Δ)."""
+    """Launch the dq kernel (inputs already checked).  Returns (dq, Δ).
+    Where ``fuses_delta`` holds the kernel computes Δ [B,H,S] f32 from o
+    and do and writes it; elsewhere Δ is ``delta(o, do)``, computed here
+    before the launch.  Either way the dk/dv launch takes this Δ."""
     dq = torch.empty_like(q)
+    if fuses_delta(q):
+        B, S, H, _ = q.shape
+        dl = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        o = _aligned(o)
+    else:
+        dl = delta(o, do)
     _launch(SOURCES[0], "tree_attention_bwd_dq", (dq,), q, k, v, kv_last, lse,
-            dl, do, scale, q_off, window, pos_q, pos_k)
+            dl, do, scale, q_off, window, pos_q, pos_k, extra=(o,))
     bwd_dq.launches += 1
-    return dq
+    return dq, dl
 
 
 def bwd_dkv(q, k, v, kv_last, lse, dl, do, scale: float, *, q_off: int = 0,
@@ -248,10 +273,13 @@ def tree_attention_bwd(q, k, v, kv_last, o, lse, do, scale: float, *,
     q/o/do: [B,S,H,hd]; k/v: [B,Skv,Kh,hd]; kv_last: [B,Skv] int32; lse
     [B,H,S] f32 from the forward's ``save_residuals``; with ``window``,
     pos_q [B,S] and pos_k [B,Skv] int32.  Returns (dq, dk, dv) in the
-    inputs' dtype; dk/dv cover the full Skv, ancestor rows included."""
+    inputs' dtype; dk/dv cover the full Skv, ancestor rows included.
+
+    The dq launch comes first and hands Δ to the dk/dv launch; on the bf16
+    hd 64/128 path the dq kernel writes that Δ, so the two launches must
+    stay in this order on one stream."""
     _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k)
-    dl = delta(o, do)
     kw = dict(q_off=q_off, window=window, pos_q=pos_q, pos_k=pos_k)
-    dq = bwd_dq(q, k, v, kv_last, lse, dl, do, scale, **kw)
+    dq, dl = bwd_dq(q, k, v, kv_last, o, lse, do, scale, **kw)
     dk, dv = bwd_dkv(q, k, v, kv_last, lse, dl, do, scale, **kw)
     return dq, dk, dv

@@ -11,6 +11,10 @@ bf16 against the plain version computed in f32 from the same bf16 inputs:
 the forward's o within 2^-7·|ref| + 2e-2·(row rms) and its lse at 1e-4;
 the backward's dq/dk/dv at relative L2 ≤ 1e-2 each and every element within
 5e-2 + 5e-2·|ref| (the reference's bf16 bar, tests/test_kernels_bwd.py:235).
+The Δ that the dq kernel's Hopper path computes is held against ``delta``
+at 1e-5 of Σ_d |do·o| per row: both sum the same exact fp32 products of
+bf16 values, in another order, and 1e-5 bounds that reordering's rounding
+(hd·2^-24 ≈ 8e-6 of the sum of magnitudes at hd 128, in the worst case).
 """
 import numpy as np
 import pytest
@@ -258,3 +262,48 @@ def test_cuda_dkv_schedule_matches_plain(dev, name):
     _, _, want = tab.dkv_schedule(kl, S, q_off)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _delta_close(got, o, do):
+    """The kernel's Δ [B,H,S] against ``delta`` at 1e-5 of Σ_d |do·o|."""
+    want = tab.delta(o, do)
+    scale = (do.float() * o.float()).abs().sum(-1).transpose(1, 2)
+    err = (got - want).abs()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= 1e-5 * scale + 1e-30).all()), float(
+        (err / scale.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("hd", ta.HOPPER_HEAD_DIMS)
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_dq_hopper_matches_plain(dev, name, hd):
+    """The dq kernel's Hopper path (bf16 at hd 64 and 128) on every case:
+    dq against the plain backward at the bf16 limits, its Δ against
+    ``delta``, dq and Δ bit-identical over two launches, dq exactly 0 on
+    rows that see no key, one launch counted per call."""
+    q, k, v, kl, kw, do = _inputs(name, torch.bfloat16, dev, hd=hd)
+    sc = hd ** -0.5
+    assert tab.fuses_delta(q)
+    with torch.inference_mode():
+        o32, lse = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                          sc, return_lse=True, **kw)
+        o = o32.to(torch.bfloat16).contiguous()
+        n = tab.bwd_dq.launches
+        dq, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **kw)
+        dq2, dl2 = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **kw)
+        want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                      o.float(), lse, do.float(), sc, **kw)
+    torch.cuda.synchronize()
+    assert tab.bwd_dq.launches == n + 2
+    a, b = dq.float(), want[0].float()
+    assert dq.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+    rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    assert rel <= 1e-2, rel
+    assert bool(((a - b).abs() <= 5e-2 + 5e-2 * b.abs()).all())
+    _delta_close(dl, o, do)
+    assert torch.equal(dq, dq2) and torch.equal(dl, dl2)
+    masked = (lse <= -1e29).transpose(1, 2)          # [B,S,H]: sees no key
+    assert not bool(dq[masked].any())
+    if name == "padding":                           # queries 16.. see nothing
+        assert bool(masked[0, 16:].all())

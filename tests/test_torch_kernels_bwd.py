@@ -188,3 +188,73 @@ def test_cpu_gradient_launches_no_kernel():
                         do)
     assert (ta.tree_attention.launches, tab.bwd_dq.launches,
             tab.bwd_dkv.launches) == counts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_delta_matches_reference_expression(dtype):
+    """``delta`` (the plain version of the Δ that the dq kernel's Hopper
+    path computes) against the reference's own expression
+    (repro/kernels/tree_attention_bwd.py:331) evaluated by JAX on the same
+    values: [B,H,S] f32 from products of the inputs' dtype."""
+    rng = np.random.default_rng(61)
+    o, do = _np(rng, 2, 96, 6, 64), _np(rng, 2, 96, 6, 64)
+    jdt = getattr(jnp, dtype)
+    jo, jdo = jnp.asarray(o, jdt), jnp.asarray(do, jdt)
+    want = np.asarray((jdo.astype(jnp.float32) * jo.astype(jnp.float32)
+                       ).sum(-1).transpose(0, 2, 1))
+    tdt = getattr(torch, dtype)
+    got = tab.delta(torch.from_numpy(o).to(tdt), torch.from_numpy(do).to(tdt))
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,fused", [
+    ("bfloat16", 64, True), ("bfloat16", 128, True), ("bfloat16", 32, False),
+    ("bfloat16", 192, False), ("float32", 64, False), ("float32", 128, False),
+])
+def test_bwd_dq_computes_delta_only_off_the_hopper_path(monkeypatch, dtype,
+                                                        hd, fused):
+    """``bwd_dq`` hands the dq kernel a fresh f32 [B,H,S] buffer to write Δ
+    into where ``fuses_delta`` holds (bf16 at hd 64/128), and runs
+    ``delta`` before the launch elsewhere; it counts one launch per call.
+    The launch itself is replaced here (the kernel needs the card)."""
+    B, S, H, Kh = 1, 70, 4, 2
+    dt = getattr(torch, dtype)
+    q, o, do = (torch.ones(B, S, H, hd, dtype=dt) for _ in range(3))
+    k = v = torch.ones(B, S, Kh, hd, dtype=dt)
+    kl = torch.full((B, S), S - 1, dtype=torch.int32)
+    lse = torch.zeros(B, H, S)
+    seen = {}
+    monkeypatch.setattr(tab, "_launch", lambda src, entry, outs, *a, **kw:
+                        seen.update(entry=entry, dl=a[5], o=kw["extra"][0]))
+    n = tab.bwd_dq.launches
+    dq, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, 0.1)
+    assert tab.bwd_dq.launches == n + 1
+    assert tab.fuses_delta(q) is fused
+    assert seen["entry"] == "tree_attention_bwd_dq" and seen["dl"] is dl
+    assert seen["o"] is o and dq.shape == q.shape and dq.dtype == dt
+    assert dl.dtype == torch.float32 and tuple(dl.shape) == (B, H, S)
+    if not fused:
+        torch.testing.assert_close(dl, tab.delta(o, do))
+
+
+def test_tree_attention_bwd_hands_dq_delta_to_dkv(monkeypatch):
+    """``tree_attention_bwd`` launches dq first and passes the Δ it returns
+    (on the Hopper path, the buffer the dq kernel writes) to the dk/dv
+    launch; it computes no Δ of its own."""
+    calls = []
+    sentinel = torch.zeros(1)
+    monkeypatch.setattr(tab, "_check", lambda *a: None)
+    monkeypatch.setattr(tab, "delta", lambda *a: calls.append("delta"))
+    monkeypatch.setattr(tab, "bwd_dq", lambda *a, **kw: (
+        calls.append("dq") or ("dq", sentinel)))
+
+    def fake_dkv(q, k, v, kv_last, lse, dl, do, scale, **kw):
+        calls.append("dkv")
+        assert dl is sentinel
+        return "dk", "dv"
+
+    monkeypatch.setattr(tab, "bwd_dkv", fake_dkv)
+    x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+    out = tab.tree_attention_bwd(x, x, x, None, x, None, x, 0.1)
+    assert out == ("dq", "dk", "dv") and calls == ["dq", "dkv"]

@@ -3,37 +3,48 @@
 
     python3 tools/kernel_breakdown.py [--root DIR] [--out FILE]
 
-Times the forward and the dk/dv kernel of the checkout at ``--root``
+Times the forward, dq and dk/dv kernels of the checkout at ``--root``
 (default: this repository; give an unpacked older commit to measure its
 kernels with its own wrappers) at the shapes ``chip_smoke.py`` times:
 A (prefill S 1024), B (tool-output prefill S 200, q_off 1056, B 8) and T
 (the first train step's two packed rows of 4096 and their real kv_last),
-all bf16, H 12, Kh 2, hd 128.  Beside each full kernel it times variants
-compiled from a copy of the same source with one cut made at a marked
-point, so that differences say where the time goes:
+all bf16, H 12, Kh 2, hd 128; dq and dk/dv at T only.  Beside each full
+kernel it times variants compiled from a copy of the same source and its
+headers with one cut made at a marked point, so that differences say where
+the time goes:
 
-  - ``scan``:  the key-tile (forward) or query-tile (dk/dv) loop runs and
-    tests every tile for liveness, but a live tile is neither loaded nor
-    computed;
+  - ``scan``:  the key-tile (forward, dq) or query-tile (dk/dv) loop runs
+    and tests every tile for liveness, but a live tile is neither loaded
+    nor computed;
   - ``loads``: live tiles are loaded, not computed (in the warp-specialised
-    kernels the consumers release each tile unread).
+    kernels the consumers release each tile unread; dq's Δ, computed before
+    its key loop, stays in).
 
-A cut is made only where its anchor text is found in the source; a source
-without the anchor has no such variant.  The variants build for hd 128
-only, in parallel, with the package's own nvcc flags.  Also times dq at T
-and ``F.scaled_dot_product_attention`` with the dense boolean mask (the
-forward at A, B, T; the backward at T), dk/dv at T with each split of the
-GQA group (where the wrapper takes ``parts``), and prints the toolchain's versions
-and each full kernel's ptxas register line.  CUDA events, median of 20
-after 3 warm-up calls, as ``chip_smoke.py``, and beside each (``*_device``)
-the device time of one call in a CUDA-graph replay, which leaves out the
-host's launch overhead.  Writes every number to ``--out`` as JSON and
-prints it.
+A cut is made only where its anchor text is found in the source or one of
+its headers; a source without the anchor has no such variant.  The
+variants build for hd 128 only, in parallel, with the package's own nvcc
+flags, each in a directory of its own.  dq is called in the form the
+checkout's ``bwd_dq`` takes: where it takes ``o`` it computes Δ itself
+(``dq`` then includes Δ); where it takes Δ, Δ is a separate torch
+reduction, timed as ``delta``; ``dq_with_delta`` is what a backward pays
+for both either way.
+Also times ``F.scaled_dot_product_attention`` with the dense boolean mask
+(the forward at A, B, T; the backward at T), dk/dv at T with each split of
+the GQA group (where the wrapper takes ``parts``), and prints the
+toolchain's versions and each full kernel's ptxas register line.  CUDA
+events, median of 20 after 3 warm-up calls, as ``chip_smoke.py``, and
+beside each (``*_device``) the device time of one call in a CUDA-graph
+replay, which leaves out the host's launch overhead.  ``fwd_sha256`` holds
+a digest of the forward's o and lse bytes at each shape (the inputs come
+from a fixed seed), so two checkouts' runs show whether their forwards
+agree bit for bit.  Writes every number to ``--out`` as JSON and prints
+it.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import inspect
 import json
 import re
@@ -51,20 +62,33 @@ BIG = 1 << 30
 H, KH, HD = 12, 2, 128
 
 # (source, variant) → alternatives, each [(anchor, text inserted after it)];
-# the first alternative whose anchors are all in the source is used.  The
-# first cuts the warp-specialised kernels (the producer hands no tile /
-# the consumers release each tile unread), the second the simple ones.
+# the first alternative whose anchors are all in the source or its headers
+# is used.  The first ones cut the warp-specialised kernels (the producer
+# hands no tile / the consumers release each tile unread), the last the
+# simple ones.  Where hopper.cuh has produce_key_tiles, the forward's and
+# dq's producer lives there (indented one level less than a forward that
+# keeps its own producer).
 _RELEASE = ("\n    hop::mbar_arrive(&empty[stage]);\n    if (++stage == L::STAGES) {"
             "\n      stage = 0;\n      phase ^= 1;\n    }\n    continue;")
+_SCAN_SHARED = [("live |= uint32_t(ok) << i;\n    }", "\n    live = 0;")]
+_SIMPLE_SCAN = [("if (!(seen && in_window)) continue;     // dead tile: no "
+                 "loads, no math", "\n    continue;")]
+_KEY_LOOP_LOADS = [("const int k0 = k0_s[stage];\n    if (k0 < 0) break;",
+                    _RELEASE)]
 CUTS = {
     ("tree_attention_fwd.cu", "scan"): [
+        _SCAN_SHARED,
         [("live |= uint32_t(ok) << i;\n      }", "\n      live = 0;")],
-        [("if (!(seen && in_window)) continue;     // dead tile: no loads, "
-          "no math", "\n    continue;")]],
+        _SIMPLE_SCAN],
     ("tree_attention_fwd.cu", "loads"): [
-        [("const int k0 = k0_s[stage];\n    if (k0 < 0) break;", _RELEASE)],
+        _KEY_LOOP_LOADS,
         [("Vs[r * L::LDV + c] = from_f32<E>(ok ? to_f32(v[g]) : 0.f);\n    }\n"
           "    __syncthreads();", "\n    continue;")]],
+    ("tree_attention_bwd_dq.cu", "scan"): [_SCAN_SHARED, _SIMPLE_SCAN],
+    ("tree_attention_bwd_dq.cu", "loads"): [
+        _KEY_LOOP_LOADS,
+        [("load_tile<BK, HD, LD>(Vs, v + krow * HD, size_t(Kh) * HD, "
+          "ncols);\n    __syncthreads();", "\n    continue;")]],
     ("tree_attention_bwd_dkv.cu", "scan"): [
         [("if (k0 > q_off + q0 + nrows - 1) continue;", "\n        continue;")],
         [("if (!__syncthreads_or(tid < nrows && pq - kp_max < window)) "
@@ -122,31 +146,44 @@ def graph_ms(fn, reps=20):
 
 
 def build_variants(build, csrc: Path, out_dir: Path) -> dict:
-    """nvcc every cut variant (hd 128 only) at once; {(src, var): lib}."""
-    out_dir.mkdir(parents=True, exist_ok=True)
+    """nvcc every cut variant (hd 128 only) at once, each from a copy of
+    the source and the headers in a directory of its own; a variant whose
+    texts are unchanged since its last build is not rebuilt.
+    {(src, var): lib}."""
     procs = {}
     for (src, var), alternatives in CUTS.items():
-        text = (csrc / src).read_text()
-        cuts = next((c for c in alternatives if all(a in text for a, _ in c)),
-                    None)
+        files = {src: (csrc / src).read_text()}
+        files.update({h.name: h.read_text() for h in csrc.glob("*.cuh")})
+        cuts = next((c for c in alternatives if all(
+            any(a in x for x in files.values()) for a, _ in c)), None)
         if cuts is None:
             continue
         for anchor, ins in cuts:
-            text = text.replace(anchor, anchor + ins, 1)
+            name = next(n for n, x in files.items() if anchor in x)
+            files[name] = files[name].replace(anchor, anchor + ins, 1)
         # keep the hd-128 instance of the entry point's switch only
-        text = re.sub(r"\n\s*TREE_ATTN_HD\((?!128\))\d+\)", "", text)
-        cu = out_dir / f"{Path(src).stem}-{var}.cu"
-        cu.write_text(text)
-        for hdr in csrc.glob("*.cuh"):
-            (out_dir / hdr.name).write_text(hdr.read_text())
-        lib = cu.with_suffix(".so")
-        log = cu.with_suffix(".log").open("w")
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)]
+        files[src] = re.sub(r"\n\s*TREE_ATTN_HD\((?!128\))\d+\)", "",
+                            files[src])
+        vdir = out_dir / f"{Path(src).stem}-{var}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        lib = vdir / "variant.so"
+        stale = not lib.exists()
+        for name, text in files.items():
+            if not (vdir / name).exists() or (vdir / name).read_text() != text:
+                (vdir / name).write_text(text)
+                stale = True
+        if not stale:
+            procs[(src, var)] = (lib, None)
+            continue
+        lib.unlink(missing_ok=True)
+        log = lib.with_suffix(".log").open("w")
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+               str(vdir / src)]
         procs[(src, var)] = (lib, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT))
     libs = {}
     for key, (lib, p) in procs.items():
-        if p.wait() != 0:
+        if p is not None and p.wait() != 0:
             raise RuntimeError(f"nvcc failed on variant {key}: "
                                + lib.with_suffix(".log").read_text())
         libs[key] = ctypes.CDLL(str(lib))
@@ -216,7 +253,25 @@ def main() -> int:
             [np.full((8, 1056), BIG), np.full((8, 200), 1255)], 1))),
         "T": (kl_t.shape[0], kl_t.shape[1], 0, kl_t)}
     fwd_lib = ta._library()
-    dkv_lib = tab._library(tab.SOURCES[1], "tree_attention_bwd_dkv", 2)
+    bwd_entries = {tab.SOURCES[0]: ("tree_attention_bwd_dq", 1),
+                   tab.SOURCES[1]: ("tree_attention_bwd_dkv", 2)}
+    bwd_libs = {src: tab._library(src, entry, n)
+                for src, (entry, n) in bwd_entries.items()}
+
+    def bwd_variants(ms, key, src, fn):
+        """Time ``fn`` with the bwd source's cut variants swapped in."""
+        entry = bwd_entries[src][0]
+        for var in ("scan", "loads"):
+            if (src, var) in libs:
+                tab._libs[src] = libs[(src, var)]
+                for name in (entry, entry + "_error_string"):
+                    getattr(tab._libs[src], name).argtypes = getattr(
+                        bwd_libs[src], name).argtypes
+                    getattr(tab._libs[src], name).restype = getattr(
+                        bwd_libs[src], name).restype
+                timed(ms, f"{key}_{var}", fn)
+                tab._libs[src] = bwd_libs[src]
+
     sc = HD ** -0.5
     with torch.no_grad():
         for tag, (B, S, q_off, kl) in shapes.items():
@@ -226,6 +281,10 @@ def main() -> int:
             fwd = lambda: ta.tree_attention(q, k, v, kl, sc, q_off=q_off,
                                             save_residuals=True)
             timed(ms, "fwd", fwd)
+            o, lse = fwd()
+            res.setdefault("fwd_sha256", {})[tag] = hashlib.sha256(
+                o.view(torch.int16).cpu().numpy().tobytes()
+                + lse.cpu().numpy().tobytes()).hexdigest()
             for var in ("scan", "loads"):
                 if (ta.SOURCE, var) in libs:
                     ta._lib = libs[(ta.SOURCE, var)]
@@ -249,27 +308,26 @@ def main() -> int:
             if tag != "T":
                 continue
             do = mk(B, S, H, HD)
-            o, lse = fwd()
             dl = tab.delta(o, do)
+            if "o" in inspect.signature(tab.bwd_dq).parameters:
+                # dq computes Δ itself and returns it
+                dq = lambda: tab.bwd_dq(q, k, v, kl, o, lse, do, sc)
+                timed(ms, "dq", dq)
+                ms["dq_with_delta"] = ms["dq"]
+                ms["dq_with_delta_device"] = ms["dq_device"]
+            else:
+                dq = lambda: tab.bwd_dq(q, k, v, kl, lse, dl, do, sc)
+                timed(ms, "dq", dq)
+                timed(ms, "delta", lambda: tab.delta(o, do))
+                timed(ms, "dq_with_delta", lambda: (tab.delta(o, do), dq()))
+            bwd_variants(ms, "dq", tab.SOURCES[0], dq)
             dkv = lambda: tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc)
-            timed(ms, "dq", lambda: tab.bwd_dq(q, k, v, kl, lse, dl, do, sc))
             timed(ms, "dkv", dkv)
             if "parts" in inspect.signature(tab.bwd_dkv).parameters:
                 for parts in (1, 2, 3, 6):      # the GQA group's split
                     timed(ms, f"dkv_parts{parts}", lambda: tab.bwd_dkv(
                         q, k, v, kl, lse, dl, do, sc, parts=parts))
-            src = tab.SOURCES[1]
-            for var in ("scan", "loads"):
-                if (src, var) in libs:
-                    tab._libs[src] = libs[(src, var)]
-                    for name in ("tree_attention_bwd_dkv",
-                                 "tree_attention_bwd_dkv_error_string"):
-                        getattr(tab._libs[src], name).argtypes = getattr(
-                            dkv_lib, name).argtypes
-                        getattr(tab._libs[src], name).restype = getattr(
-                            dkv_lib, name).restype
-                    timed(ms, f"dkv_{var}", dkv)
-                    tab._libs[src] = dkv_lib
+            bwd_variants(ms, "dkv", tab.SOURCES[1], dkv)
     with torch.enable_grad():
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
         ot = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
