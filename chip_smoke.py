@@ -35,7 +35,8 @@ Phases, each of which ends the run non-zero if it fails:
                   multi-turn agentic session (prefill → fork(8) → 32 steps →
                   a 200-token tool-output prefill on all branches → 32
                   steps).  Launch counts are reset just before and read just
-                  after.
+                  after.  Then one decode step of 8 branches under
+                  torch.profiler, reported as the train step's (phase 6).
   5. parity     — replay the multi-turn session with the plain attention,
                   teacher-forced: 4 layers in f32 (≤ 1e-4 max-rel) and all
                   28 layers in bf16 (relative L2 ≤ 3e-2).
@@ -59,16 +60,45 @@ Phases, each of which ends the run non-zero if it fails:
                   the serving path's two shapes A and B (forward) and at
                   the training shape T (all three), beside the H100's bound
                   and as a percentage of it; kernel and library call also
-                  as device time, replayed from a CUDA graph.  The torch Δ
-                  reduction is timed only where the backward still runs it.
+                  as device time, replayed from a CUDA graph (SDPA's
+                  backward, which a graph cannot capture: the sum of its
+                  kernels in torch.profiler).  The torch Δ reduction is
+                  timed only where the backward still runs it.
+Then the MoE model, Qwen3-30B-A3B (H 32, Kh 4, 128 experts top-8), once
+the dense model's tensors are freed:
+  9. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
+                  the serving path's prefill and tool prefill, and the MoE
+                  train step's rows T_moe.
+ 10. moe serve  — all 48 layers (or the deepest cut whose bf16 weights fit
+                  75 GB, printed as reduced), random weights: phase 4's
+                  groups and session, decode tokens/s beside the bound of
+                  reading every weight once a step, a profiled decode
+                  step; teacher-forced replays of the session up to its
+                  second prefill, through the kernels and the plain
+                  attention, with the routing recorded: the dropped share of (token, slot)
+                  pairs at prefill and decode, the routing balance, bf16
+                  prefill-logits parity (relative L2 ≤ 5e-2) and routing
+                  agreement.
+ 11. moe parity — 2 layers f32, kernel vs plain, teacher-forced: logits
+                  max-rel ≤ 1e-4; routing flips counted, and the rows they
+                  reach left out of the check and reported.
+ 12. moe train  — phase 6 at depth 2 (2 rows of 4096, bf16).
+ 13. moe train parity — 1 layer f32, one row of 2048: (a) kernel vs plain,
+                  (b) tree vs baseline with the aux losses off and
+                  capacity factor E/K (C = N): loss 1e-5 relative, gradient
+                  relative L2 1e-4, routing flips counted; then, not
+                  checked, tree vs baseline at the real capacity factor.
+ 14. moe timing T — phase 8's training-shape timing at T_moe.
 
 The line before the last names the card and its power limit; the one before
-it lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
+it lists the kernels (each with its MoE-shape numbers under ``moe``); the
+last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import gzip
 import json
 import math
@@ -96,7 +126,11 @@ from repro_torch.kernels import tree_attention as ta  # noqa: E402
 from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
 from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
                                      tree_attention_ref_ext)
-from repro_torch.models.model import init_params, prepare_batch  # noqa: E402
+from repro_torch.models import moe as moe_layer  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import (init_params, layer_groups,  # noqa: E402
+                                      prepare_batch)
+from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.rollout import (RolloutConfig, rollout_group,  # noqa: E402
                                        sample_tokens)
 from repro_torch.serve.session import DecodeSession  # noqa: E402
@@ -121,6 +155,10 @@ KERNELS = {"tree_attention_fwd": ta.tree_attention,
 # the training phase: 2 rows of 4096, 4 agentic trees per generator batch
 TRAIN_ROWS, TRAIN_SEQ, SFT_STEPS, RL_STEPS = 2, 4096, 4, 2
 TRAIN_GEN = dict(num_turns=3, turn_len_range=(64, 256))
+# the MoE model (Qwen3-30B-A3B): its attention heads, the depth it trains
+# at, and the memory its serving weights and work may take
+MOE_ARCH, MOE_HEADS, MOE_TRAIN_LAYERS = "qwen3_30b_a3b", (32, 4), 2
+MOE_PEAK_LIMIT = 75e9
 DEV = "cuda"
 CARD = ""
 # the profile's kernel families, by a substring of the kernel's name; the
@@ -129,6 +167,9 @@ PROFILE_FAMILIES = (
     ("tree attention (this repo's kernels)",
      ("_hopper_kernel", "tree_attention_", "dkv_schedule", "sum_parts")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("indexing, sort, scan (gathers, index_put, the MoE queue)",
+     ("index", "Index", "Radix", "radix", "sort", "Sort", "scan", "Scan",
+      "gather", "scatter")),
     ("copy, cast, fill, cat", ("copy", "Fill", "CatArray")),
     ("reduction", ("reduce_kernel",)),
     ("elementwise", ("elementwise_kernel",)))
@@ -209,19 +250,25 @@ def gateway(kv_main, pos_main, A: int, pad_rows):
     return kl, pos_q, pos_k
 
 
-def kernel_cases(train_kv_last=None):
-    """(name, dtype, q, k, v, kv_last, q_off, window, pos_q, pos_k).  With
-    ``train_kv_last`` the training shape T (its real kv_last) comes last."""
-    rng = np.random.default_rng(0)
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = []
-
+def case_adder(rng, cases: list):
+    """``add(name, dtype, B, S, H, Kh, hd, kv_last, ...)`` appends a kernel
+    case (name, dtype, q, k, v, kv_last, q_off, window, pos_q, pos_k) with
+    q/k/v drawn from ``rng``."""
     def add(name, dt, B, S, H, Kh, hd, kl, q_off=0, window=None, pq=None,
             pk=None):
         q, k, v = qkv(rng, B, S, kl.shape[1], H, Kh, hd, dt)
         cases.append((name, dt, q, k, v, i32(kl), q_off, window,
                        None if pq is None else i32(pq),
                        None if pk is None else i32(pk)))
+    return add
+
+
+def kernel_cases(train_kv_last=None):
+    """(name, dtype, q, k, v, kv_last, q_off, window, pos_q, pos_k).  With
+    ``train_kv_last`` the training shape T (its real kv_last) comes last."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    add = case_adder(np.random.default_rng(0), cases)
 
     kl, pos = tree_rows(1, 2, 2048)
     add("trees MHA f32", f32, 2, 2048, 8, 8, 64, kl)
@@ -258,6 +305,31 @@ def kernel_cases(train_kv_last=None):
         B, S = train_kv_last.shape
         add(f"train shape T (B={B}, S={S}) bf16", bf16, B, S, 12, 2, 128,
             train_kv_last)
+    return cases
+
+
+def moe_kernel_cases(train_kv_last):
+    """The MoE model's attention (H 32, Kh 4: a GQA group of 8, hd 128): a
+    gateway case in f32 and bf16, the serving path's prefill and tool
+    prefill, and the MoE training shape T (its real kv_last) last."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    H, Kh = MOE_HEADS
+    cases = []
+    add = case_adder(np.random.default_rng(20), cases)
+    kl, _ = tree_rows(21, 2, 512)
+    g, _, _ = gateway(kl, np.zeros_like(kl), 37, (5, 0))
+    for dt in (f32, bf16):
+        add(f"H {H}/Kh {Kh}: trees + gateway A=37 {dt}", dt, 2, 512, H, Kh,
+            128, g, q_off=37)
+    add(f"H {H}/Kh {Kh} path: prefill S=1024 bf16", bf16, 1, 1024, H, Kh,
+        128, np.full((1, 1024), 1023))
+    add(f"H {H}/Kh {Kh} path: tool prefill S=200 q_off=1056 bf16", bf16, 8,
+        200, H, Kh, 128, np.concatenate(
+            [np.full((8, 1056), BIG), np.full((8, 200), 1255)], 1),
+        q_off=1056)
+    B, S = train_kv_last.shape
+    add(f"H {H}/Kh {Kh} MoE train shape T (B={B}, S={S}) bf16", bf16, B, S,
+        H, Kh, 128, train_kv_last)
     return cases
 
 
@@ -472,10 +544,10 @@ def phase_build() -> float:
     return total
 
 
-def phase_kernel() -> float:
+def phase_kernel(cases, with_prefill_attention: bool = True) -> float:
     worst = 0.0
     with torch.inference_mode():
-        for name, dt, q, k, v, kl, q_off, window, pq, pk in kernel_cases():
+        for name, dt, q, k, v, kl, q_off, window, pq, pk in cases:
             kw = dict(q_off=q_off, window=window, pos_q=pq, pos_k=pk)
             sc = q.shape[-1] ** -0.5
             o, lse = ops.tree_attention(q, k, v, kl, sc, save_residuals=True,
@@ -488,6 +560,8 @@ def phase_kernel() -> float:
             skip = skip_fraction(kl, q.shape[1], q_off, window, pq, pk)
             worst = max(worst, hold(f"{name} (block-skip fraction "
                                     f"{skip:.3f})", o, ro, lse, rl, bo, bl))
+        if not with_prefill_attention:
+            return worst
         # prefill_attention: no context, context, an invalid context row
         rng = np.random.default_rng(5)
         B, A, S, H, Kh, hd = 2, 300, 500, 12, 2, 128
@@ -523,16 +597,15 @@ def phase_kernel() -> float:
     return worst
 
 
-def phase_bwd_kernel(train_kv_last) -> dict:
-    """The dq and dk/dv kernels on the forward's cases and the training
-    shape T, from the forward kernel's own o and lse.  Returns each
-    kernel's largest max abs error over the cases: dq's for the dq kernel,
-    dk's and dv's for the dk/dv kernel."""
+def phase_bwd_kernel(cases) -> dict:
+    """The dq and dk/dv kernels on the forward's cases and a training shape
+    T, from the forward kernel's own o and lse.  Returns each kernel's
+    largest max abs error over the cases: dq's for the dq kernel, dk's and
+    dv's for the dk/dv kernel."""
     worst = {"dq": 0.0, "dkv": 0.0}
     rng = np.random.default_rng(4)
     with torch.inference_mode():
-        for name, dt, q, k, v, kl, q_off, window, pq, pk in kernel_cases(
-                train_kv_last):
+        for name, dt, q, k, v, kl, q_off, window, pq, pk in cases:
             kw = dict(q_off=q_off, window=window, pos_q=pq, pos_k=pk)
             sc = q.shape[-1] ** -0.5
             do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
@@ -574,9 +647,11 @@ def phase_bwd_kernel(train_kv_last) -> dict:
     return worst
 
 
-def multiturn(cfg, params, impl: str, gen=None, record=None):
+def multiturn(cfg, params, impl: str, gen=None, record=None,
+              tail_steps: int = 32):
     """prefill 1024 → fork(8) → 32 steps → prefill 200 "tool output"
-    tokens on all 8 branches (the kernel's q_off path) → 32 steps.
+    tokens on all 8 branches (the kernel's q_off path) → ``tail_steps``
+    steps.
 
     Samples with ``gen``, or, given ``record`` (the fed tokens of an
     earlier run), replays those tokens.  Returns (fed tokens, logits per
@@ -586,7 +661,7 @@ def multiturn(cfg, params, impl: str, gen=None, record=None):
     tool = rng.integers(0, cfg.vocab_size, 200).astype(np.int32)
     fed, logits = [], []
     timing = {"prefill_s": 0.0, "prefill_tok": 0, "decode_s": 0.0,
-              "decode_tok": 0}
+              "decode_tok": 0, "kinds": []}
 
     def run(kind, n_tok, fn, toks):
         if record is not None:
@@ -598,6 +673,7 @@ def multiturn(cfg, params, impl: str, gen=None, record=None):
         torch.cuda.synchronize()
         timing[f"{kind}_s"] += time.perf_counter() - t0
         timing[f"{kind}_tok"] += n_tok
+        timing["kinds"].append(kind)
         check(bool(torch.isfinite(out).all()), f"non-finite logits ({impl})")
         logits.append(out)
         return out
@@ -617,13 +693,13 @@ def multiturn(cfg, params, impl: str, gen=None, record=None):
             lg = run("prefill", 8 * len(tool),
                      lambda t: br.prefill(t, impl=impl), tool)
             tok = sample(lg)
-        for _ in range(32):
+        for _ in range(tail_steps if turn else 32):
             lg = run("decode", 8, br.step, tok)
             tok = sample(lg)
     return fed, logits, timing
 
 
-def phase_serve(cfg, params):
+def phase_serve(cfg, params, tag: str = "serve"):
     rc = RolloutConfig(k=8, prompt_len=1024, max_new=64, temperature=1.0)
     gen = torch.Generator(DEV).manual_seed(1)
     rng = np.random.default_rng(7)
@@ -649,19 +725,31 @@ def phase_serve(cfg, params):
         n_prefill += 2
     counts = launch_counts()
     launches = counts["tree_attention_fwd"]
-    log(f"serve: 4 rollout groups (prompt {rc.prompt_len}, k {rc.k}, "
-        f"max_new {rc.max_new}) in {t_groups:.3f} s; multi-turn session: "
+    log(f"{tag}: 4 rollout groups (prompt {rc.prompt_len}, k {rc.k}, "
+        f"max_new {rc.max_new}) in {t_groups:.3f} s ({t_groups / 4:.3f} s a "
+        f"group; prefill_tokens == prompt_len in each); multi-turn session: "
         f"prefill {tm['prefill_tok'] / tm['prefill_s']:.1f} tokens/s "
         f"({tm['prefill_tok']} tokens in {tm['prefill_s']:.4f} s), decode "
         f"{tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
         f"({tm['decode_tok']} tokens in {tm['decode_s']:.4f} s)")
-    log(f"serve: kernel launches {counts} (forward = {cfg.n_layers} layers "
+    log(f"{tag}: kernel launches {counts} (forward = {cfg.n_layers} layers "
         f"x {n_prefill} parallel prefills; no backward)")
     check(launches == cfg.n_layers * n_prefill,
           f"kernel launches {launches} != {cfg.n_layers} x {n_prefill}")
     check(counts["tree_attention_bwd_dq"] == counts["tree_attention_bwd_dkv"]
           == 0, "serving launched a backward kernel")
-    return calls, logits, launches
+    with torch.inference_mode():
+        # one decode step of 8 branches off a 1024-token prompt, profiled
+        br = DecodeSession.create(cfg, params, buf_len=rc.buf_len)
+        br.prefill(rng.integers(0, cfg.vocab_size, rc.prompt_len))
+        br = br.fork(rc.k)
+        tok = torch.zeros(rc.k, dtype=torch.long, device=DEV)
+        for _ in range(2):
+            br.step(tok)
+        profile_step(lambda: (br.step(tok), torch.cuda.synchronize()),
+                     tag.replace(" ", "_") + "_decode_step_trace",
+                     "decode step")
+    return calls, logits, tm, launches
 
 
 def replay_error(cfg, params, calls, logits, metric):
@@ -770,7 +858,7 @@ def count_hidden_syncs(engine, fn):
                  if "called a synchronizing" in str(w.message)]
 
 
-def phase_train(cfg, sft, rl):
+def phase_train(cfg, sft, rl, tag: str = "train"):
     """Full-width training through the kernels, then tree vs baseline."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -781,7 +869,7 @@ def phase_train(cfg, sft, rl):
     engine = TreeTrainEngine(cfg, OptimizerConfig(
         lr=3e-4, warmup_steps=2, total_steps=n_steps))
     torch.cuda.synchronize()
-    log(f"train: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} heads "
+    log(f"{tag}: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} heads "
         f"{cfg.attn.n_heads}/{cfg.attn.n_kv_heads} hd {cfg.attn.head_dim} "
         f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f} B params + fp32 AdamW "
         f"state: {torch.cuda.memory_allocated() / 1e9:.2f} GB in "
@@ -805,7 +893,7 @@ def phase_train(cfg, sft, rl):
         if i:
             times.append(dt)
             per_tok.append(plan.unique_tokens / dt)
-        log(f"train step {i} ({mode}): loss {m['loss']:.4f} nll/tok "
+        log(f"{tag} step {i} ({mode}): loss {m['loss']:.4f} nll/tok "
             f"{m['nll']:.4f} grad_norm {m['grad_norm']:.3f} lr {m['lr']:.3e}"
             f"; {plan.num_trees} trees, {plan.unique_tokens} unique tokens "
             f"in {plan.packed.cells} cells, {plan.dropped} trees dropped; "
@@ -818,12 +906,12 @@ def phase_train(cfg, sft, rl):
         check(engine.host_syncs == i + 1,
               f"train step {i}: {engine.host_syncs} host syncs")
     counts = launch_counts()
-    log(f"train: step 1 under torch.cuda.set_sync_debug_mode('warn') (off "
+    log(f"{tag}: step 1 under torch.cuda.set_sync_debug_mode('warn') (off "
         f"inside the engine's _sync): {len(hidden)} other synchronizing "
         f"calls{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}")
     check(not hidden, "a train step synchronized outside _sync")
     step_s = statistics.median(times)
-    log(f"train: {n_steps} steps ({len(sft)} sep_avg on agentic trees, "
+    log(f"{tag}: {n_steps} steps ({len(sft)} sep_avg on agentic trees, "
         f"{len(rl)} rl on GRPO trees), {TRAIN_ROWS} rows x {TRAIN_SEQ}: "
         f"step {step_s:.3f} s median after the first (all: "
         f"{', '.join(f'{t:.3f}' for t in times)}), "
@@ -832,7 +920,8 @@ def phase_train(cfg, sft, rl):
         f"{engine.host_syncs} host syncs / {n_steps} steps, peak "
         f"{peak_gb():.2f} GB; launches {counts}")
     params, opt_state, _ = profile_step(
-        lambda: engine.step(params, opt_state, sft[0]))
+        lambda: engine.step(params, opt_state, sft[0]),
+        tag.replace(" ", "_") + "_step_trace")
 
     # tree vs per-branch baseline on the same trees, rows of 2048
     trees = row_trees(cfg, 2048)
@@ -858,7 +947,7 @@ def phase_train(cfg, sft, rl):
         del opt
     (t_t, n_t, sh_t, pk_t), (t_b, n_b, sh_b, pk_b) = res["tree"], \
         res["baseline"]
-    log(f"train: tree vs per-branch baseline on the same {len(trees)} trees "
+    log(f"{tag}: tree vs per-branch baseline on the same {len(trees)} trees "
         f"(rows of 2048, full width, {cfg.dtype}, kernels, AdamW included): "
         f"tree {n_t} tokens in {sh_t[0]} row(s), step {t_t:.3f} s, peak "
         f"{pk_t:.2f} GB; baseline {n_b} tokens in {sh_b[0]} row(s), step "
@@ -868,19 +957,20 @@ def phase_train(cfg, sft, rl):
     return params, counts, step_s
 
 
-def profile_step(step):
-    """Run ``step`` (one train step) once under torch.profiler with CUDA
-    activity and print, from its Chrome trace: the 15 CUDA kernels with the
-    most device time (name, calls, ms, share of the step's window) and the
-    device-busy share of that window — the union of kernel, memcpy and
-    memset intervals over the host-clock span of the step, which ends in
-    its host sync.  The trace is kept, gzipped, as
-    build/train_step_trace.json.gz (``build/`` is not committed).  Returns
-    ``step``'s result."""
+def profile_step(step, name: str = "train_step_trace",
+                 what: str = "train step"):
+    """Run ``step`` (one train step, or ``what``) once under torch.profiler
+    with CUDA activity and print, from its Chrome trace: the 15 CUDA
+    kernels with the most device time (name, calls, ms, share of the step's
+    window) and the device-busy share of that window — the union of
+    kernel, memcpy and memset intervals over the host-clock span of the
+    step, which must end in a host sync.  The trace is kept, gzipped, as
+    build/<name>.json.gz (``build/`` is not committed).  Returns ``step``'s
+    result."""
     from torch.profiler import ProfilerActivity, profile, record_function
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
-    path = out_dir / "train_step_trace.json"
+    path = out_dir / f"{name}.json"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -890,12 +980,12 @@ def profile_step(step):
     prof.export_chrome_trace(str(path))
     raw = path.read_bytes()
     path.unlink()
-    (out_dir / "train_step_trace.json.gz").write_bytes(gzip.compress(raw))
-    report_trace(json.loads(raw)["traceEvents"])
+    (out_dir / f"{name}.json.gz").write_bytes(gzip.compress(raw))
+    report_trace(json.loads(raw)["traceEvents"], what)
     return out
 
 
-def report_trace(trace_events) -> None:
+def report_trace(trace_events, what: str = "train step") -> None:
     """``profile_step``'s report from the events of a Chrome trace that
     holds one ``train_step`` annotation."""
     events = [e for e in trace_events if e.get("ph") == "X"]
@@ -924,8 +1014,8 @@ def report_trace(trace_events) -> None:
             by_name[e["name"]] = (n + 1, d + e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     k_all = sum(d for _, d in by_name.values())
-    log(f"profile: one train step under torch.profiler (CPU + CUDA, not in "
-        f"the median): window {win / 1e3:.3f} ms on the host clock, device "
+    log(f"profile: one {what} under torch.profiler (CPU + CUDA, outside "
+        f"the timed runs): window {win / 1e3:.3f} ms on the host clock, device "
         f"busy {busy / 1e3:.3f} ms ({100 * busy / win:.1f}% of the window); "
         f"{sum(n for n, _ in by_name.values())} kernels, "
         f"{len(by_name)} distinct, {k_all / 1e3:.3f} ms of kernel time")
@@ -983,6 +1073,14 @@ def report_trace(trace_events) -> None:
     for op, (n, d) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"profile:   {n:5d}  {d / 1e3:9.3f} ms  {100 * d / win:5.1f}%  "
             f"{op[:110]}")
+    # the layer stacks' gradients: one unbind per stack leaf and forward
+    # (its backward stacks the layers' grads), or a select per layer
+    log("profile: the layer stacks' gradient nodes (kernels, ms, share of "
+        "the window): " + "; ".join(
+            f"{op} {by_op.get(op, (0, 0.0))[0]} / "
+            f"{by_op.get(op, (0, 0.0))[1] / 1e3:.3f} ms / "
+            f"{100 * by_op.get(op, (0, 0.0))[1] / win:.1f}%"
+            for op in ("UnbindBackward0", "SelectBackward0")))
 
 
 def grads_rel(ga, gb):
@@ -1045,6 +1143,300 @@ def phase_train_parity(cfg, params):
     check(e_loss <= 1e-5 and e_g <= 1e-4, "train parity (a)")
     check(e_loss_b <= 1e-5 and e_g_b <= 1e-4, "train parity (b)")
     check(e_loss_c <= 1e-2 and l2_c <= 5e-2, "train parity (c)")
+
+
+# --------------------------------------------------------------------------
+# the MoE model: Qwen3-30B-A3B
+# --------------------------------------------------------------------------
+
+class RoutingLog:
+    """While active, records every MoE layer call's routing: for each token
+    its top-k experts (sorted), which of its (token, slot) pairs its expert
+    kept, and whether it is valid.  They are recomputed from the layer's own
+    input by ``moe.route`` and ``moe.queue``, the functions the layer calls,
+    so the layer's output is the unwrapped layer's."""
+
+    def __init__(self):
+        # (B, S, top_e sorted [N, K], keep [N, K], valid [N]) per call
+        self.calls = []
+
+    def __enter__(self):
+        real = self._real = moe_layer.moe
+
+        def recorded(params, mcfg, x, valid, activation, **kw):
+            B, S, D = x.shape
+            top_e = moe_layer.route(params, mcfg, x.reshape(-1, D))[3]
+            _, _, keep = moe_layer.queue(top_e, valid.reshape(-1),
+                                         mcfg.num_experts,
+                                         moe_layer.capacity(B * S, mcfg))
+            self.calls.append((B, S, top_e.sort(-1).values,
+                               keep.view(B * S, -1), valid.reshape(-1)))
+            return real(params, mcfg, x, valid, activation, **kw)
+
+        transformer.moe = decode.moe = recorded
+        return self
+
+    def __exit__(self, *exc):
+        transformer.moe = decode.moe = self._real
+
+    def busiest(self, first: int, n: int) -> list:
+        """For calls first .. first+n−1 (one call's layers): the share of
+        the call's valid tokens that chose its busiest expert."""
+        return [float(torch.bincount(top_e[valid].reshape(-1)).max())
+                / int(valid.sum())
+                for _, _, top_e, _, valid in self.calls[first:first + n]]
+
+    def drop_share(self, decode_calls: bool) -> tuple[int, int]:
+        """(dropped, total) valid (token, slot) pairs over the prefill
+        calls (S > 1) or the decode calls (S = 1)."""
+        dropped = total = 0
+        for _, S, _, keep, valid in self.calls:
+            if (S == 1) == decode_calls:
+                dropped += int((~keep & valid[:, None]).sum())
+                total += int(valid.sum()) * keep.shape[1]
+        return dropped, total
+
+
+def flipped_tokens(a: RoutingLog, b: RoutingLog) -> list:
+    """Per MoE call of two runs over the same inputs: the [N] bool of valid
+    tokens whose top-k expert set differs."""
+    check(len(a.calls) == len(b.calls), "the two runs made different MoE "
+                                        "calls")
+    return [(ea != eb).any(-1) & va
+            for (_, _, ea, _, va), (_, _, eb, _, _) in zip(a.calls, b.calls)]
+
+
+def share(n: int, d: int) -> str:
+    return f"{n} of {d} ({100 * n / max(d, 1):.3f}%)"
+
+
+def moe_serve_depth(cfg) -> int:
+    """The deepest cut of ``cfg`` whose bf16 weights, with 6 GB for the
+    caches, activations and the parity replays, stay under
+    ``MOE_PEAK_LIMIT``."""
+    one = cfg.replace(n_layers=1)
+    head = cfg.replace(n_layers=0).param_count() * 2
+    per_layer = one.param_count() * 2 - head \
+        + 2 * cfg.d_model * cfg.moe.num_experts        # the fp32 router
+    return min(cfg.n_layers, int((MOE_PEAK_LIMIT - 6e9 - head) // per_layer))
+
+
+def phase_moe_serve(cfg_full):
+    """Qwen3-30B-A3B at full width and the deepest cut that fits (all 48
+    layers on an 80 GB card): the serve phase's rollout groups and session,
+    then teacher-forced replays of the session up to its second prefill
+    with the kernels and with the plain attention, recording the routing: the dropped share of
+    (token, slot) pairs, prefill logits parity in bf16 and the routing
+    agreement.  Returns (the serve run's forward launches, the depth)."""
+    L = moe_serve_depth(cfg_full)
+    cfg = cfg_full.replace(n_layers=L)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    cut = "" if L == cfg_full.n_layers else (
+        f" (reduced: {L} of {cfg_full.n_layers} layers fit "
+        f"{MOE_PEAK_LIMIT / 1e9:.0f} GB)")
+    log(f"moe serve: {cfg.name} {L} layers{cut} d {cfg.d_model} heads "
+        f"{cfg.attn.n_heads}/{cfg.attn.n_kv_heads} hd {cfg.attn.head_dim} "
+        f"qk_norm, {cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_expert "
+        f"{cfg.moe.d_expert} capacity factor {cfg.moe.capacity_factor}, "
+        f"{cfg.dtype} (router fp32): {cfg.param_count() / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, random weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    calls, logits, tm, launches = phase_serve(cfg, params, "moe serve")
+    # a decode step multiplies every expert at capacity 1: it reads every
+    # weight but the embedding table
+    step_bytes = sum(t.numel() * t.element_size()
+                     for p, t in flatten_tree(params) if p[0] != "embed")
+    bound_s = step_bytes / PEAK_BYTES
+    log(f"moe serve: decode {tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
+        f"(8 branches, {tm['decode_s'] / (tm['decode_tok'] / 8) * 1e3:.2f} ms "
+        f"a step) against its bound: a step reads {step_bytes / 1e9:.2f} GB "
+        f"of weights (every expert multiplies at capacity "
+        f"{moe_layer.capacity(8, cfg.moe)}), >= {bound_s * 1e3:.2f} ms at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s, so at most {8 / bound_s:.1f} tokens/s")
+    with torch.inference_mode():
+        # the replays end at the second prefill: both prefills and the 32
+        # decode steps between them
+        with RoutingLog() as rk:
+            _, lk, tmk = multiturn(cfg, params, "kernel", record=calls,
+                                   tail_steps=0)
+        with RoutingLog() as rr:
+            _, lr, _ = multiturn(cfg, params, "ref", record=calls,
+                                 tail_steps=0)
+    same = all(torch.equal(a, b) for a, b in zip(lk, logits))
+    pre = [i for i, k in enumerate(tmk["kinds"]) if k == "prefill"]
+    e_pre = max(rel_l2(lk[i], lr[i]) for i in pre)
+    e_all = max(rel_l2(a, b) for a, b in zip(lk, lr))
+    flips = flipped_tokens(rk, rr)
+    n_pre = sum(int(f.sum()) for f, c in zip(flips, rk.calls) if c[1] > 1)
+    n_dec = sum(int(f.sum()) for f, c in zip(flips, rk.calls) if c[1] == 1)
+    d_pre = sum(int(c[4].sum()) for c in rk.calls if c[1] > 1)
+    d_dec = sum(int(c[4].sum()) for c in rk.calls if c[1] == 1)
+    log(f"moe serve: share of (token, slot) pairs dropped (capacity "
+        f"{cfg.moe.capacity_factor} x N·K/E per call, N the call's tokens): "
+        f"prefill {share(*rk.drop_share(False))}, decode "
+        f"{share(*rk.drop_share(True))} (capacity "
+        f"{moe_layer.capacity(8, cfg.moe)} at 8 branches)")
+    busy = rk.busiest(0, L)     # the prompt's prefill, layer by layer
+    m = cfg.moe
+    log(f"moe serve: routing balance of the prompt's prefill (1024 tokens, "
+        f"top-{m.top_k} of {m.num_experts}: "
+        f"{100 * m.top_k / m.num_experts:.2f}% each if uniform, capacity "
+        f"{100 * moe_layer.capacity(1024, m) / 1024:.2f}%): "
+        f"the busiest expert takes {100 * busy[0]:.1f}% of the tokens at "
+        f"layer 0, {100 * statistics.median(busy):.1f}% at the median layer, "
+        f"{100 * max(busy):.1f}% at most (layer {busy.index(max(busy))})")
+    log(f"moe serve parity (b): {L} layers bf16, kernel vs plain attention, "
+        f"teacher-forced multi-turn replay: relative L2 of the prefill logits "
+        f"{e_pre:.3e} (limit 5e-2; {len(pre)} prefill calls), of every call's "
+        f"{e_all:.3e} (not checked); routing agreement over (token, layer): "
+        f"prefill {100 - 100 * n_pre / max(d_pre, 1):.3f}% ({n_pre} of "
+        f"{d_pre} differ), decode {100 - 100 * n_dec / max(d_dec, 1):.3f}% "
+        f"({n_dec} of {d_dec}); the kernel replay reproduces the timed run's "
+        f"logits bit for bit: {same}")
+    check(e_pre <= 5e-2, "moe serve parity (b)")
+    del params, logits, lk, lr, rk, rr
+    torch.cuda.empty_cache()
+    return launches, L
+
+
+def phase_moe_parity(cfg_full):
+    """(a) 2 layers at full width in f32: the multi-turn session through
+    the kernels, replayed teacher-forced through the plain attention, with
+    routing recorded.  A (token, layer) whose expert set differs between the
+    two (a near-tie in the top-8 of 128 flipped by sub-1e-6 differences) is
+    reported, and the logits rows it can reach are left out of the check:
+    its own branch from that call on, every branch if it lies in the shared
+    prompt."""
+    cfg = cfg_full.replace(n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    with torch.inference_mode():
+        with RoutingLog() as rk:
+            calls, lk, _ = multiturn(cfg, params, "kernel",
+                                     torch.Generator(DEV).manual_seed(2))
+        with RoutingLog() as rr:
+            _, lr, _ = multiturn(cfg, params, "ref", record=calls)
+    flips = flipped_tokens(rk, rr)
+    n_moe = sum(n for kind, n in layer_groups(cfg) if kind == "moe")
+    all_rows, tainted = False, set()
+    worst, compared, excluded = 0.0, 0, 0
+    for c, (a, b) in enumerate(zip(lk, lr)):
+        for f, (B, S, *_) in zip(flips[c * n_moe:(c + 1) * n_moe],
+                                 rk.calls[c * n_moe:(c + 1) * n_moe]):
+            rows = set(np.nonzero(f.view(B, S).any(-1).cpu().numpy())[0])
+            all_rows |= bool(rows) and B == 1
+            tainted |= rows
+        keep = [r for r in range(a.shape[0]) if not all_rows
+                and r not in tainted]
+        if keep:
+            worst = max(worst, max_rel(a[keep], b[keep]))
+        compared += len(keep)
+        excluded += a.shape[0] - len(keep)
+    n_flip = sum(int(f.sum()) for f in flips)
+    n_dec = sum(int(c[4].sum()) for c in rk.calls)
+    log(f"moe parity (a): 2 layers f32 at full width, kernel vs plain "
+        f"attention, teacher-forced multi-turn: max relative error of logits "
+        f"{worst:.3e} (limit 1e-4) over {compared} rows; routing flips "
+        f"{n_flip} of {n_dec} (token, layer) decisions, {excluded} logits "
+        f"rows left out for them")
+    check(compared > 0, "moe parity (a): every row was left out")
+    check(worst <= 1e-4, "moe parity (a)")
+    del params
+
+
+def prefix_keys(batch) -> dict:
+    """{key: flat index (b·S + s)} of a packed batch's valid tokens, keyed
+    by the token sequence of the path that ends in them (followed through
+    ``prev_idx``): a tree token and its copies in the per-branch baseline
+    share a key, and equal keys mean equal inputs."""
+    tok, prev, val = (batch[k].cpu().numpy() for k in ("tokens", "prev_idx",
+                                                        "valid"))
+    B, S = tok.shape
+    keys = {}
+    for b in range(B):
+        h = [0] * S
+        for s in range(S):
+            if val[b, s]:
+                p = prev[b, s]
+                h[s] = hash((h[p] if p >= 0 else 0, int(tok[b, s])))
+                keys[h[s]] = b * S + s
+    return keys
+
+
+def tree_baseline_flips(rt: RoutingLog, bt, rb: RoutingLog, bb) -> tuple:
+    """(flipped, compared) (token, layer) routing decisions between a
+    tree-packed batch and its per-branch baseline, matched by path."""
+    kt, kb = prefix_keys(bt), prefix_keys(bb)
+    check(set(kb) <= set(kt), "a baseline token has no tree token")
+    it = torch.tensor([kt[k] for k in kb], device=DEV)
+    ib = torch.tensor(list(kb.values()), device=DEV)
+    flipped = sum(int((ct[2][it] != cb[2][ib]).any(-1).sum())
+                  for ct, cb in zip(rt.calls, rb.calls))
+    return flipped, len(kb) * len(rt.calls)
+
+
+def phase_moe_train_parity(cfg_full):
+    """1 layer at full width in f32, one packed row of 2048: (a) kernel vs
+    plain attention; (b) tree vs per-branch baseline with the aux losses
+    off and capacity factor E/K (capacity never binds); then, not checked,
+    tree vs baseline at the real capacity factor with the aux losses on."""
+    cfg = cfg_full.replace(n_layers=1, dtype="float32")
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    trees = row_trees(cfg, 2048)
+    bt, bb = tree_and_baseline(cfg, trees, 2048)
+    with RoutingLog() as rk:
+        lk, _, gk = value_and_grad(cfg, params, bt, "kernel")
+    with RoutingLog() as rr:
+        lr, _, gr = value_and_grad(cfg, params, bt, "ref")
+    e_loss = abs(float(lk) - float(lr)) / abs(float(lr))
+    e_g, leaf, l2, l2leaf = grads_rel(gk, gr)
+    n_flip = sum(int(f.sum()) for f in flipped_tokens(rk, rr))
+    log(f"moe train parity (a): 1 layer f32 at full width, one packed row of "
+        f"2048 ({len(trees)} trees, {int(bt['valid'].sum())} tokens), kernel "
+        f"vs plain attention: loss {float(lk):.6f} vs {float(lr):.6f}, "
+        f"relative error {e_loss:.3e} (limit 1e-5); relative L2 of the "
+        f"flattened gradient {l2:.3e} (limit 1e-4), worst leaf {l2leaf}; "
+        f"max-rel {e_g:.3e} at {leaf}; routing flips {n_flip} of "
+        f"{int(bt['valid'].sum())} tokens")
+    del gr
+    m = cfg.moe
+    strict = cfg.replace(moe=dataclasses.replace(
+        m, router_aux_weight=0.0, router_z_weight=0.0,
+        capacity_factor=m.num_experts / m.top_k))
+    res = {}
+    for name, c in (("strict", strict), ("real", cfg)):
+        with RoutingLog() as rt:
+            l_t, mt, g_t = value_and_grad(c, params, bt, "kernel")
+        with RoutingLog() as rb:
+            l_b, _, g_b = value_and_grad(c, params, bb, "kernel")
+        res[name] = (float(l_t), float(l_b), float(mt["aux_loss"]),
+                     *grads_rel(g_t, g_b),
+                     *tree_baseline_flips(rt, bt, rb, bb))
+        del g_t, g_b
+    l_t, l_b, aux, e_gb, leaf_b, l2_b, l2leaf_b, fl, n = res["strict"]
+    e_loss_b = abs(l_t - l_b) / abs(l_b)
+    C_t = moe_layer.capacity(bt["tokens"].numel(), strict.moe)
+    log(f"moe train parity (b): 1 layer f32 through the kernels, aux losses "
+        f"off, capacity factor {strict.moe.capacity_factor:g} (C = N: "
+        f"{C_t} for the tree's row), tree (1 row) vs per-branch baseline "
+        f"({bb['tokens'].shape[0]} rows of 2048, {int(bb['valid'].sum())} "
+        f"tokens): loss {l_t:.6f} vs {l_b:.6f}, relative error "
+        f"{e_loss_b:.3e} (limit 1e-5); relative L2 of the flattened gradient "
+        f"{l2_b:.3e} (limit 1e-4), worst leaf {l2leaf_b}; max-rel {e_gb:.3e} "
+        f"at {leaf_b}; routing flips {fl} of {n} (baseline token, layer) "
+        f"decisions matched to the tree by path")
+    r = res["real"]
+    log(f"moe train parity, not checked: at the real capacity factor "
+        f"{m.capacity_factor} with the aux losses on, tree and baseline "
+        f"differ by design (C comes from each batch's N, and the aux losses "
+        f"are means over its valid tokens): loss {r[0]:.6f} vs {r[1]:.6f} "
+        f"(relative {abs(r[0] - r[1]) / abs(r[1]):.3e}; tree aux {r[2]:.3e}), "
+        f"gradient relative L2 {r[5]:.3e}, routing flips {r[7]} of {r[8]}")
+    check(e_loss <= 1e-5 and l2 <= 1e-4, "moe train parity (a)")
+    check(e_loss_b <= 1e-5 and l2_b <= 1e-4, "moe train parity (b)")
+    check(aux == 0.0, "moe train parity (b): the aux losses are not off")
+    del params, gk
 
 
 # --------------------------------------------------------------------------
@@ -1173,12 +1565,36 @@ def phase_timing_serve() -> dict:
     return out
 
 
-def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
-    """All three kernels at the training shape T (the first train step's
-    packed rows and their real kv_last), with bounds on visible pairs."""
+def profiler_kernel_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` as the sum of the durations of the
+    CUDA kernels it launches, from a torch.profiler trace of ``reps`` calls
+    after one warm-up (for calls a CUDA graph cannot capture)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "kernel_sum_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    return sum(e["dur"] for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel") / 1e3 / reps
+
+
+def phase_timing_train(train_kv_last, step_s: float, n_layers: int,
+                       heads=(12, 2), tag: str = "T"):
+    """All three kernels at a training shape (the first train step's
+    packed rows and their real kv_last; ``heads`` = (H, Kh)), with bounds
+    on visible pairs."""
     rng = np.random.default_rng(10)
     B, S = train_kv_last.shape
-    H, Kh, hd, dt = 12, 2, 128, torch.bfloat16
+    (H, Kh), hd, dt = heads, 128, torch.bfloat16
     kl = i32(train_kv_last)
     q, k, v = qkv(rng, B, S, S, H, Kh, hd, dt)
     do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
@@ -1213,8 +1629,9 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
     ms["lib_bwd"] = time_ms(lib_bwd)
     dev["lib_fwd"] = graph_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), attn_mask=mask, scale=sc))
-    # autograd runs the backward outside the capturing stream: not captured
-    dev["lib_bwd"] = None
+    # autograd runs the backward outside the capturing stream, so no graph:
+    # its device time is the sum of its kernels in torch.profiler
+    dev["lib_bwd"] = profiler_kernel_ms(lib_bwd)
     del ot, qt, kt, vt, mask
     io = 2 * (q.numel() + k.numel() + v.numel())      # bf16 q, k, v
     meta = kl.numel() * 4
@@ -1236,7 +1653,8 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
                         pct_of_bound=100 * bnd / ms[key], device_ms=dev[key],
                         library_device_ms=lib_dev)
         what = "forward" if key == "fwd" else "backward (dq, dk, dv)"
-        log(f"timing {key} at T (B={B}, S={S}, H=12, Kh=2, hd=128, bf16, "
+        log(f"timing {key} at {tag} (B={B}, S={S}, H={H}, Kh={Kh}, hd=128, "
+            f"bf16, "
             f"real kv_last, {pairs} visible pairs; CUDA events, median of 20 "
             f"after 3 warm-up): kernel {ms[key]:.4f} ms, bound {bnd:.4f} ms "
             f"by {by} ({per_pair}·hd·H FLOPs per visible pair = "
@@ -1244,24 +1662,26 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int):
             f"{100 * bnd / ms[key]:.1f}% of its bound, "
             f"{flops / ms[key] / 1e9:.1f} TFLOP/s; plain {what} "
             f"{plain_ms:.4f} ms; sdpa {what} (dense bool mask, K/V expanded) "
-            f"{lib_ms:.4f} ms; device time in a CUDA graph: kernel "
-            f"{fmt_ms(dev[key])}, sdpa {fmt_ms(lib_dev)}")
+            f"{lib_ms:.4f} ms; device time: kernel {fmt_ms(dev[key])} (CUDA "
+            f"graph), sdpa {fmt_ms(lib_dev)} ("
+            + ("CUDA graph" if key == "fwd" else
+               "sum of its kernels in torch.profiler") + ")")
     d_txt = ("Δ computed inside the dq kernel, no torch reduction" if fused
              else f"plus the wrapper's Δ reduction {ms['delta']:.4f} ms")
-    log(f"timing at T: backward kernels dq + dk/dv {bwd_sum:.4f} ms "
+    log(f"timing at {tag}: backward kernels dq + dk/dv {bwd_sum:.4f} ms "
         f"({d_txt}); plain backward "
         f"{ms['plain_bwd']:.4f} ms; sdpa backward {ms['lib_bwd']:.4f} ms "
         f"(kernels / sdpa {bwd_sum / ms['lib_bwd']:.2f}x); forward kernel / "
         f"sdpa forward {ms['fwd'] / ms['lib_fwd']:.2f}x")
     if None not in (dev["fwd"], dev["dq"], dev["dkv"]):
-        log(f"timing at T, device time in a CUDA graph: fwd "
-            f"{dev['fwd']:.4f} ms, dq + dk/dv {dev['dq'] + dev['dkv']:.4f} ms "
-            f"(sdpa's backward not measured so: autograd runs it outside "
-            f"the capturing stream)")
+        log(f"timing at {tag}, device time: fwd {dev['fwd']:.4f} ms, dq + "
+            f"dk/dv {dev['dq'] + dev['dkv']:.4f} ms (CUDA graphs); sdpa "
+            f"backward {dev['lib_bwd']:.4f} ms (the sum of its kernels in "
+            f"torch.profiler: autograd runs it outside a capturing stream)")
     att = n_layers * (ms["fwd"] + bwd_sum + ms.get("delta", 0.0)) / 1e3
-    log(f"timing: attention share of a train step: {n_layers} x (fwd + dq + "
-        f"dk/dv{'' if fused else ' + Δ'}) = {att:.3f} s of the {step_s:.3f} s "
-        f"median step ({100 * att / step_s:.1f}%)")
+    log(f"timing at {tag}: attention share of a train step: {n_layers} x "
+        f"(fwd + dq + dk/dv{'' if fused else ' + Δ'}) = {att:.3f} s of the "
+        f"{step_s:.3f} s median step ({100 * att / step_s:.1f}%)")
     out["dq"]["delta_in_kernel"] = fused
     return out
 
@@ -1295,8 +1715,8 @@ def main() -> int:
     rl = train_plans(cfg, "grpo", "rl", RL_STEPS)
     kl_t = sft[0].packed.inputs["kv_last"].cpu().numpy()
     timed("build", phase_build)
-    worst_fwd = timed("kernel", phase_kernel)
-    worst_bwd = timed("bwd kernel", phase_bwd_kernel, kl_t)
+    worst_fwd = timed("kernel", phase_kernel, kernel_cases())
+    worst_bwd = timed("bwd kernel", phase_bwd_kernel, kernel_cases(kl_t))
 
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
@@ -1307,7 +1727,8 @@ def main() -> int:
         f"{cfg.attn.head_dim} {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B "
         f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB, random "
         f"weights in {time.perf_counter() - t0:.2f} s")
-    calls, logits, serve_launches = timed("serve", phase_serve, cfg, params)
+    calls, logits, _, serve_launches = timed("serve", phase_serve, cfg,
+                                             params)
     timed("parity", phase_parity, cfg, params, calls, logits)
     del params, logits
     torch.cuda.empty_cache()
@@ -1319,6 +1740,26 @@ def main() -> int:
     timing_ab = timed("timing", phase_timing_serve)
     timing = timed("timing T", phase_timing_train, kl_t, step_s,
                    cfg.n_layers)
+
+    # the MoE model, Qwen3-30B-A3B, once the dense model's tensors are gone
+    mcfg = get_config(MOE_ARCH)
+    mcfg_train = mcfg.replace(n_layers=MOE_TRAIN_LAYERS)
+    msft = train_plans(mcfg_train, "agentic", "sep_avg", SFT_STEPS)
+    mrl = train_plans(mcfg_train, "grpo", "rl", RL_STEPS)
+    kl_m = msft[0].packed.inputs["kv_last"].cpu().numpy()
+    worst_fwd = max(worst_fwd, timed("moe kernel", phase_kernel,
+                                     moe_kernel_cases(kl_m), False))
+    worst_m = timed("moe bwd kernel", phase_bwd_kernel, moe_kernel_cases(kl_m))
+    worst_bwd = {k: max(worst_bwd[k], worst_m[k]) for k in worst_bwd}
+    moe_serve_launches, moe_depth = timed("moe serve", phase_moe_serve, mcfg)
+    timed("moe parity", phase_moe_parity, mcfg)
+    params, moe_counts, moe_step_s = timed("moe train", phase_train,
+                                           mcfg_train, msft, mrl, "moe train")
+    del params
+    torch.cuda.empty_cache()
+    timed("moe train parity", phase_moe_train_parity, mcfg)
+    timing_moe = timed("moe timing T", phase_timing_train, kl_m, moe_step_s,
+                       MOE_TRAIN_LAYERS, MOE_HEADS, "T_moe")
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
@@ -1336,8 +1777,14 @@ def main() -> int:
                  replaces=replaces, launches=counts[name], max_abs_err=err,
                  **timing[key])
         e["shape"] = "T: the first train step's rows, bf16, hd 128"
+        e["moe"] = dict(
+            shape=f"T_moe: the {MOE_TRAIN_LAYERS}-layer Qwen3-30B-A3B train "
+                  f"step's rows, H 32, Kh 4, bf16, hd 128",
+            launches_train=moe_counts[name], **timing_moe[key])
         if key == "fwd":
             e["launches_serve"] = serve_launches
+            e["moe"]["launches_serve"] = moe_serve_launches
+            e["moe"]["serve_layers"] = moe_depth
             e.update(timing_ab)     # the serving shapes A and B
         else:
             e["plain_and_library_compute"] = "dq, dk and dv together"

@@ -7,7 +7,7 @@ import importlib
 
 from repro_torch.configs.base import AttnCfg, ModelConfig, config_from_dict
 
-ARCH_IDS = ["qwen1p5_0p5b", "qwen2_1p5b"]
+ARCH_IDS = ["qwen1p5_0p5b", "qwen2_1p5b", "qwen3_30b_a3b"]
 
 
 def _canon(arch: str) -> str:

@@ -100,13 +100,21 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameter count of a dense decoder (the port's one family)."""
+        """Approximate parameter count of a dense or MoE decoder (the
+        reference's formula)."""
         D, F, L = self.d_model, self.d_ff, self.n_layers
         emb = self.padded_vocab * D * (1 if self.tie_embeddings else 2)
         a = self.attn
         per_attn = D * a.q_dim + 2 * D * a.kv_dim + a.q_dim * D
         mult = 3 if self.mlp_activation == "swiglu" else 2
-        return emb + L * (per_attn + mult * D * F)
+        if self.moe is None:
+            return emb + L * (per_attn + mult * D * F)
+        m = self.moe
+        routed = m.num_experts * mult * D * m.d_expert
+        shared = m.num_shared_experts * mult * D * m.d_expert
+        fd = m.first_dense_layers
+        return emb + fd * (per_attn + mult * D * F) + (L - fd) * (
+            per_attn + routed + shared + D * m.num_experts)
 
 
 _NESTED = {"attn": AttnCfg, "moe": MoECfg, "ssm": SSMCfg,

@@ -17,12 +17,21 @@ import torch.nn.functional as F
 
 def _dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
                 dtype=torch.float32, device=None) -> torch.Tensor:
-    """N(0, 1/fan_in) (or N(0, scale²)) drawn in fp32, cast to ``dtype``."""
+    """N(0, 1/fan_in) (or N(0, scale²)) drawn in fp32, cast to ``dtype``.
+    A stacked leaf (ndim ≥ 3) is drawn one slice of its leading dim at a
+    time into the ``dtype`` tensor, so no fp32 copy of a whole stack exists
+    (48 layers of Qwen3-30B-A3B's experts would be 39 GB of it)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * scale).to(dtype)
+    draw = lambda sh: (torch.randn(sh, generator=generator,
+                                   dtype=torch.float32, device=device)
+                       * scale).to(dtype)
+    if len(shape) < 3:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None, lead=()) -> dict:

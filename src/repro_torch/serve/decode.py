@@ -1,11 +1,11 @@
 """Serving internals: the per-layer KV cache, the one-token decode step,
 and ``rollouts_to_tree``.
 
-Port of the dense slice of ``repro/serve/decode.py`` (its deprecated free
-functions are left out).  The cache keeps the reference's layout — per
-layer group ``g{i}``: k/v [L, B, T, Kh, hd] and pos [L, B, T] (−1 = empty
-slot) — but the port writes it **in place**: ``_decode_step`` updates the
-cache it is given.  ``serve/session.py`` owns when that is safe.
+Port of the dense and MoE slices of ``repro/serve/decode.py`` (its
+deprecated free functions are left out).  The cache keeps the reference's
+layout — per layer group ``g{i}``: k/v [L, B, T, Kh, hd] and pos [L, B, T]
+(−1 = empty slot) — but the port writes it **in place**: ``_decode_step``
+updates the cache it is given.  ``serve/session.py`` owns when that is safe.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from repro_torch.core.tree import TrajectoryTree, TreeNode
 from repro_torch.data.synthetic import group_normalized_advantages
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.layers import embed, logits_from_hidden, mlp, rmsnorm
-from repro_torch.models.transformer import _dtype, _layer, layer_groups
+from repro_torch.models.moe import moe
+from repro_torch.models.transformer import _dtype, _unstack, layer_groups
 
 
 def _attn_cache(L: int, B: int, T: int, cfg: ModelConfig, dt, device) -> dict:
@@ -39,11 +40,23 @@ def _init_cache(cfg: ModelConfig, batch: int, buf_len: int, device) -> dict:
             for gi, (_, n) in enumerate(layer_groups(cfg))}
 
 
-def _decode_layer(cfg: ModelConfig, p: dict, x, cache_l, pos, widx):
+def _decode_layer(cfg: ModelConfig, p: dict, kind: str, x, cache_l, pos,
+                  widx):
+    """One layer of a decode step.  An MoE layer routes the step's B tokens
+    as one batch with every token valid, as the reference does: its
+    capacity is max(1, round(B·K/E·cf)), so C = 1 at 8 branches of 128
+    experts top-8, and slots past an expert's first token are dropped."""
     eps = cfg.norm_eps
     x = x + decode_attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
                              cache_l, pos, widx)
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps), cfg.mlp_activation)
+    h = rmsnorm(p["ln2"], x, eps)
+    if kind == "moe":
+        m, _ = moe(p["moe"], cfg.moe, h,
+                   torch.ones(h.shape[:2], dtype=torch.bool, device=h.device),
+                   cfg.mlp_activation, with_aux=False)
+    else:
+        m = mlp(p["mlp"], h, cfg.mlp_activation)
+    return x + m
 
 
 def _decode_step(cfg: ModelConfig, params: dict, cache: dict,
@@ -53,12 +66,11 @@ def _decode_step(cfg: ModelConfig, params: dict, cache: dict,
     Writes the new token's K/V into ``cache`` in place and returns logits
     [B, padded_vocab] (fp32)."""
     x = embed(params["embed"], tokens)
-    for gi, ((_, n), stacked) in enumerate(
+    for gi, ((kind, n), stacked) in enumerate(
             zip(layer_groups(cfg), params["layer_stacks"])):
         grp = cache[f"g{gi}"]
-        for li in range(n):
-            x = _decode_layer(cfg, _layer(stacked, li), x, _layer(grp, li),
-                              pos, write_idx)
+        for lp, cache_l in zip(_unstack(stacked, n), _unstack(grp, n)):
+            x = _decode_layer(cfg, lp, kind, x, cache_l, pos, write_idx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params["embed"], params.get("lm_head"), x)[:, 0]
 

@@ -1,7 +1,7 @@
 """DecodeSession — the serving API: prefill / fork / step / snapshot.
 
-Port of ``repro/serve/session.py`` for the dense family.  One session owns
-a KV cache for ``batch`` lockstep branches:
+Port of ``repro/serve/session.py`` for the dense and MoE families.  One
+session owns a KV cache for ``batch`` lockstep branches:
 
   ``create``    allocate the cache on the session's device (CUDA unless
                 the caller passes ``device="cpu"``).
@@ -82,6 +82,8 @@ class DecodeSession:
 
     # -- prefill -----------------------------------------------------------
     def _can_parallel_prefill(self, P: int) -> bool:
+        if self.cfg.family not in ("dense", "moe"):
+            return False
         if self.cfg.attn.window is not None:
             return False
         return self.t + P <= self._ring
@@ -112,7 +114,8 @@ class DecodeSession:
         batch = dict(
             tokens=torch.as_tensor(toks, device=dev).long()[None].expand(B, P),
             pos_ids=(t0 + ar)[None].expand(B, P),
-            kv_last=torch.full((B, P), P - 1, dtype=torch.int32, device=dev))
+            kv_last=torch.full((B, P), P - 1, dtype=torch.int32, device=dev),
+            valid=torch.ones((B, P), dtype=torch.bool, device=dev))
         n_groups = len(layer_groups(cfg))
         gw = None
         if t0 > 0:
@@ -127,8 +130,8 @@ class DecodeSession:
             batch["anc_pos"] = anc_pos
             batch["anc_valid"] = anc_pos >= 0
         capspecs = {"pf": {"path_idx": torch.arange(P, device=dev)}}
-        hidden, caps = partition_forward(cfg, self.params, batch, gw,
-                                         capspecs, impl)
+        hidden, _, caps = partition_forward(cfg, self.params, batch, gw,
+                                            capspecs, impl)
         logits = logits_from_hidden(self.params["embed"],
                                     self.params.get("lm_head"),
                                     hidden[:, -1:])[:, 0]

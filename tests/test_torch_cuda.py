@@ -92,6 +92,11 @@ def _case(name):
     if name == "packed_gqa_hd128":
         kl, _ = _tree_meta(13, 2, 1000)
         return 2, 1000, 12, 2, 128, kl, 0, None, None, None
+    if name == "packed_gqa32_4_hd128":
+        # Qwen3-30B-A3B's attention: 32 query heads on 4 kv heads (a GQA
+        # group of 8), hd 128, on packed trees
+        kl, _ = _tree_meta(29, 2, 1000)
+        return 2, 1000, 32, 4, 128, kl, 0, None, None, None
     if name == "dead_tiles":
         # a long packed row of short trees: most key tiles before a query
         # tile are dead, with live ones (its own tree's) between them
@@ -129,7 +134,8 @@ def _case(name):
 CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20", "window",
          "gateway_window", "packed_gqa_hd128", "dead_tiles", "ring_tail_hd64",
          "ring_tail_hd128", "ragged_gateway", "heads12_2_hd64",
-         "heads12_2_hd128", "heads4_4_hd64", "heads4_4_hd128"]
+         "heads12_2_hd128", "heads4_4_hd64", "heads4_4_hd128",
+         "packed_gqa32_4_hd128", "heads32_4_hd128"]
 
 
 def _inputs(name, dtype, dev, hd=None):
@@ -307,3 +313,38 @@ def test_cuda_dq_hopper_matches_plain(dev, name, hd):
     assert not bool(dq[masked].any())
     if name == "padding":                           # queries 16.. see nothing
         assert bool(masked[0, 16:].all())
+
+
+def test_cuda_moe_train_step_makes_no_hidden_sync(dev):
+    """A bf16 MoE model (the Qwen3-30B-A3B smoke config: a dense-free stack
+    of 2 MoE layers, 4 experts top-2) takes a loss, its gradients and an
+    AdamW update on the card under ``set_sync_debug_mode("error")``: the
+    routing, dispatch, combine and aux losses make no host sync, and each
+    tree-attention kernel launches once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prepare_batch
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config("qwen3_30b_a3b", smoke=True).replace(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    opt = init_opt_state(params)
+    trees = trees_for_batch(3, n_trees=4, kind="agentic",
+                            vocab_size=cfg.vocab_size, turn_len_range=(8, 32),
+                            num_turns=2)
+    batch = prepare_batch(cfg, pack_trees([serialize_tree(t) for t in trees],
+                                          1024), device=dev)
+    batch["num_trees"] = len(trees)
+    counts = (ta.tree_attention.launches, tab.bwd_dq.launches,
+              tab.bwd_dkv.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, metrics, grads = value_and_grad(cfg, params, batch)
+        adamw_update(OptimizerConfig(), params, grads, opt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ta.tree_attention.launches, tab.bwd_dq.launches,
+            tab.bwd_dkv.launches) == tuple(c + cfg.n_layers for c in counts)
+    assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"]) > 0
+    assert params["layer_stacks"][0]["moe"]["router"].dtype == torch.float32
