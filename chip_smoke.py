@@ -48,28 +48,46 @@ Phases, each of which ends the run non-zero if it fails:
                   torch.profiler (not in the median): the 15 CUDA kernels
                   with the most device time, kernel time by family and by
                   the host op that launched it, and the device-busy share
-                  of the step's window.  Then one tree-vs-baseline step
-                  comparison on the same trees.  Counts are reset just
-                  before and read just after.
-  7. train parity — (a) 4 layers f32, kernel vs plain attention: loss 1e-5
+                  of the step's window.  Then tree vs per-branch baseline
+                  on the planner's 2-row step (rows of 2048) and the same
+                  trees' paths, forward + backward timed apart from AdamW.
+                  Counts are reset just before and read just after.
+  7. determinism — two ``accumulate`` calls on the same parameters and
+                  plan give bit-identical gradients on every leaf: a
+                  packed plan and a partition-wave plan, all 28 layers.
+  8. waves      — 4 generator batches of agentic trees of 6k-16k unique
+                  tokens (nearly all larger than a row) through ``plans``:
+                  auto partition, auto capacity, lookahead 2, grafting on,
+                  plans built on a background thread.  Per step: waves,
+                  rows per wave, A_max, step time, unique tokens/s, peak
+                  memory, launches (forward 2 per layer and wave: sweep
+                  and remat), one host sync (audited in 'warn' and in
+                  'error' mode), trees packed, partitioned and dropped
+                  (0); Σ unique tokens equals the generated trees'.
+  9. train parity — (a) 4 layers f32, kernel vs plain attention: loss 1e-5
                   relative, grads max-rel 1e-4; (b) the same through the
                   kernels, tree vs per-branch baseline (Eq. 5), same limits;
                   (c) 28 layers bf16, kernel vs plain: loss 1e-2 relative,
                   gradient relative L2 5e-2.
-  8. timing     — each kernel, its plain version and one library call, at
+ 10. wave parity — one tree of 6k-8k tokens partitioned at 2048 (≥ 3
+                  waves, ancestors ≥ 2048 tokens) vs the same tree whole in
+                  one row of 8192, kernels both: (a) 4 layers f32, loss
+                  1e-5, grads max-rel 1e-4; (b) 28 layers bf16, loss 1e-2,
+                  gradient relative L2 5e-2.
+ 11. timing     — each kernel, its plain version and one library call, at
                   the serving path's two shapes A and B (forward) and at
-                  the training shape T (all three), beside the H100's bound
-                  and as a percentage of it; kernel and library call also
-                  as device time, replayed from a CUDA graph (SDPA's
-                  backward, which a graph cannot capture: the sum of its
-                  kernels in torch.profiler).  The torch Δ reduction is
-                  timed only where the backward still runs it.
+                  the training shape T (all three), and at W (a gateway
+                  wave of phase 8, q_off = A_max, the largest it ran),
+                  beside the H100's bound and as a percentage of it;
+                  kernel and library call also as device time, replayed
+                  from a CUDA graph (SDPA's backward, which a graph cannot
+                  capture: the sum of its kernels in torch.profiler).
 Then the MoE model, Qwen3-30B-A3B (H 32, Kh 4, 128 experts top-8), once
 the dense model's tensors are freed:
-  9. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
+ 12. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
                   the serving path's prefill and tool prefill, and the MoE
                   train step's rows T_moe.
- 10. moe serve  — all 48 layers (or the deepest cut whose bf16 weights fit
+ 13. moe serve  — all 48 layers (or the deepest cut whose bf16 weights fit
                   75 GB, printed as reduced), random weights: phase 4's
                   groups and session, decode tokens/s beside the bound of
                   reading every weight once a step, a profiled decode
@@ -79,20 +97,22 @@ the dense model's tensors are freed:
                   pairs at prefill and decode, the routing balance, bf16
                   prefill-logits parity (relative L2 ≤ 5e-2) and routing
                   agreement.
- 11. moe parity — 2 layers f32, kernel vs plain, teacher-forced: logits
+ 14. moe parity — 2 layers f32, kernel vs plain, teacher-forced: logits
                   max-rel ≤ 1e-4; routing flips counted, and the rows they
                   reach left out of the check and reported.
- 12. moe train  — phase 6 at depth 2 (2 rows of 4096, bf16).
- 13. moe train parity — 1 layer f32, one row of 2048: (a) kernel vs plain,
+ 15. moe train  — phase 6 at depth 2 (2 rows of 4096, bf16), then phase
+                  7's check on a packed plan.
+ 16. moe train parity — 1 layer f32, one row of 2048: (a) kernel vs plain,
                   (b) tree vs baseline with the aux losses off and
                   capacity factor E/K (C = N): loss 1e-5 relative, gradient
                   relative L2 1e-4, routing flips counted; then, not
                   checked, tree vs baseline at the real capacity factor.
- 14. moe timing T — phase 8's training-shape timing at T_moe.
+ 17. moe timing T — phase 11's training-shape timing at T_moe.
 
 The line before the last names the card and its power limit; the one before
-it lists the kernels (each with its MoE-shape numbers under ``moe``); the
-last line is ``{"ok": true, "device": {...}}``.
+it lists the kernels (each with its MoE-shape numbers under ``moe`` and its
+W numbers under ``wave``); the last line is ``{"ok": true, "device":
+{...}}``.
 Without a CUDA device it exits 2.
 """
 from __future__ import annotations
@@ -116,7 +136,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.gateway import (  # noqa: E402
+    packed_partitioned_value_and_grad)
 from repro_torch.core.packing import pack_linear_paths, pack_trees  # noqa: E402
+from repro_torch.core.partition import partition_tree  # noqa: E402
 from repro_torch.core.tree import serialize_tree  # noqa: E402
 from repro_torch.data.loader import LoaderConfig, tree_stream  # noqa: E402
 from repro_torch.data.synthetic import agentic_tree, random_tree  # noqa: E402
@@ -128,7 +151,8 @@ from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
                                      tree_attention_ref_ext)
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.model import (init_params, layer_groups,  # noqa: E402
+from repro_torch.models.model import (batch_arrays,  # noqa: E402
+                                      init_params, layer_groups,
                                       prepare_batch)
 from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.rollout import (RolloutConfig, rollout_group,  # noqa: E402
@@ -138,8 +162,8 @@ from repro_torch.train.engine import (ExecutionPlan, PackedExec,  # noqa: E402
                                       TreeTrainEngine)
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          init_opt_state)
-from repro_torch.train.planner import plans  # noqa: E402
-from repro_torch.train.train_step import value_and_grad  # noqa: E402
+from repro_torch.train.planner import PlannerConfig, plans  # noqa: E402
+from repro_torch.train.train_step import update, value_and_grad  # noqa: E402
 
 BIG = 1 << 30
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
@@ -155,6 +179,16 @@ KERNELS = {"tree_attention_fwd": ta.tree_attention,
 # the training phase: 2 rows of 4096, 4 agentic trees per generator batch
 TRAIN_ROWS, TRAIN_SEQ, SFT_STEPS, RL_STEPS = 2, 4096, 4, 2
 TRAIN_GEN = dict(num_turns=3, turn_len_range=(64, 256))
+# Tree Packing over partitions: trees of 6k-16k unique tokens (agentic,
+# longer turns), nearly all larger than a row of 4096, trained through the
+# planner (auto partition, auto capacity, lookahead 2, grafting on), 2
+# trees per generator batch, rows of TRAIN_SEQ, at most TRAIN_ROWS rows a
+# wave; the wave parity tree is partitioned at 2048 and also run whole in
+# one row of 8192
+WAVE_GEN = dict(num_turns=3, turn_len_range=(256, 1536), max_parallel_tools=2)
+WAVE_BATCHES, WAVE_TREES, WAVE_SEED, WAVE_LOOKAHEAD = 4, 2, 1, 2
+WAVE_MIN_ANC = 2048           # some gateway wave must carry this many
+PARITY_CAP, PARITY_ROW, PARITY_TOKENS = 2048, 8192, (6000, 8000)
 # the MoE model (Qwen3-30B-A3B): its attention heads, the depth it trains
 # at, and the memory its serving weights and work may take
 MOE_ARCH, MOE_HEADS, MOE_TRAIN_LAYERS = "qwen3_30b_a3b", (32, 4), 2
@@ -789,12 +823,14 @@ def phase_parity(cfg_full, params_full, calls, logits):
 # --------------------------------------------------------------------------
 
 def train_plans(cfg, kind: str, loss_mode: str, n: int):
-    """The first ``n`` non-empty plans of the launcher's planner."""
+    """The first ``n`` non-empty plans of the launcher's planner (host
+    arrays; the engine copies them to the card)."""
     lc = LoaderConfig(seq_len=TRAIN_SEQ, batch_rows=TRAIN_ROWS,
                       trees_per_batch=4, kind=kind, loss_mode=loss_mode,
                       seed=0, gen_kwargs=TRAIN_GEN)
     out, dropped = [], 0
-    for plan in plans(cfg, lc, 8 * n, device=DEV):
+    for ps in plans(cfg, lc, 8 * n):
+        plan = ps.execution_plan()
         if plan.is_empty:
             dropped += plan.dropped
             continue
@@ -804,6 +840,21 @@ def train_plans(cfg, kind: str, loss_mode: str, n: int):
         if len(out) == n:
             return out
     raise Failed(f"the planner gave fewer than {n} {kind} plans")
+
+
+def multi_row_step(cfg, S: int):
+    """The first step of the planner (tree mode, lookahead 2, 8 short
+    agentic trees a batch, rows of S) whose TRAIN_ROWS rows each hold at
+    least two trees."""
+    lc = LoaderConfig(seq_len=S, batch_rows=TRAIN_ROWS, trees_per_batch=8,
+                      seed=0, gen_kwargs=dict(num_turns=3,
+                                              turn_len_range=(32, 160)))
+    for ps in plans(cfg, lc, 32, PlannerConfig(lookahead=2)):
+        if len(ps.rows) == TRAIN_ROWS and not ps.oversized and \
+                all(len(r) >= 2 for r in ps.rows):
+            return ps
+    raise Failed(f"no planner step put two trees in each of {TRAIN_ROWS} "
+                 f"rows of {S}")
 
 
 def row_trees(cfg, S: int, scan: int = 64):
@@ -923,42 +974,58 @@ def phase_train(cfg, sft, rl, tag: str = "train"):
         lambda: engine.step(params, opt_state, sft[0]),
         tag.replace(" ", "_") + "_step_trace")
 
-    # tree vs per-branch baseline on the same trees, rows of 2048
-    trees = row_trees(cfg, 2048)
-    bt, bb = tree_and_baseline(cfg, trees, 2048)
+    # tree vs per-branch baseline on the planner's multi-row output: its
+    # first step with two or more trees in each row of 2048, and the same
+    # trees' paths in as many rows of 2048 as they need; the forward + backward
+    # (``engine.accumulate``) timed apart from AdamW
+    ps = multi_row_step(cfg, 2048)
+    bb = pack_linear_paths([f.paths for f in ps.fits], 2048)
+    plan_t = ps.execution_plan()
+    plan_b = ExecutionPlan(packed=PackedExec(
+        inputs=batch_arrays(cfg, bb), tokens=int(bb.valid.sum()),
+        cells=bb.tokens.size), num_trees=plan_t.num_trees)
     del opt_state
     res = {}
-    for name, batch in (("tree", bt), ("baseline", bb)):
+    for name, plan in (("tree", plan_t), ("baseline", plan_b)):
         opt = init_opt_state(params)
         eng = TreeTrainEngine(cfg, OptimizerConfig(
             lr=3e-4, warmup_steps=2, total_steps=4))
-        plan = ExecutionPlan(packed=PackedExec(
-            inputs=batch, tokens=int(batch["valid"].sum()),
-            cells=batch["tokens"].numel()), num_trees=len(trees))
         torch.cuda.reset_peak_memory_stats()
-        ts = []
+        fb, ad = [], []
         for _ in range(3):
+            torch.cuda.synchronize()
             t1 = time.perf_counter()
-            params, opt, m = eng.step(params, opt, plan)
-            ts.append(time.perf_counter() - t1)
-            check(math.isfinite(m["loss"]), f"{name} step: non-finite loss")
-        res[name] = (statistics.median(ts[1:]), plan.unique_tokens,
-                     tuple(batch["tokens"].shape), peak_gb())
+            grads, scal = eng.accumulate(params, plan)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            params, opt, _ = update(eng.opt_cfg, params, grads, opt)
+            torch.cuda.synchronize()
+            fb.append(t2 - t1)
+            ad.append(time.perf_counter() - t2)
+            check(bool(torch.isfinite(scal).all()), f"{name}: non-finite loss")
+            del grads
+        res[name] = (statistics.median(fb[1:]), statistics.median(ad[1:]),
+                     plan.unique_tokens, plan.packed.inputs["tokens"].shape[0],
+                     peak_gb())
         del opt
-    (t_t, n_t, sh_t, pk_t), (t_b, n_b, sh_b, pk_b) = res["tree"], \
-        res["baseline"]
-    log(f"{tag}: tree vs per-branch baseline on the same {len(trees)} trees "
-        f"(rows of 2048, full width, {cfg.dtype}, kernels, AdamW included): "
-        f"tree {n_t} tokens in {sh_t[0]} row(s), step {t_t:.3f} s, peak "
-        f"{pk_t:.2f} GB; baseline {n_b} tokens in {sh_b[0]} row(s), step "
-        f"{t_b:.3f} s, peak {pk_b:.2f} GB; {n_b / n_t:.3f} flat tokens per "
-        f"unique token, step time ratio baseline/tree {t_b / t_t:.3f} "
-        f"(median of 2 after one warm-up step each)")
+    (f_t, a_t, n_t, r_t, pk_t), (f_b, a_b, n_b, r_b, pk_b) = \
+        res["tree"], res["baseline"]
+    log(f"{tag}: tree vs per-branch baseline on the planner's multi-row "
+        f"step ({plan_t.num_trees} trees in {[len(r) for r in ps.rows]} per "
+        f"row, rows of 2048, full width, "
+        f"{cfg.dtype}, kernels): tree {n_t} tokens in {r_t} rows, forward + "
+        f"backward {f_t:.3f} s, AdamW {a_t:.3f} s, peak {pk_t:.2f} GB; "
+        f"baseline {n_b} tokens in {r_b} rows, forward + backward "
+        f"{f_b:.3f} s, AdamW {a_b:.3f} s, peak {pk_b:.2f} GB; "
+        f"{n_b / n_t:.3f} flat tokens per unique token, forward + backward "
+        f"ratio baseline/tree {f_b / f_t:.3f}, with AdamW "
+        f"{(f_b + a_b) / (f_t + a_t):.3f} (median of 2 after one warm-up "
+        f"each; host clock around synchronized calls)")
     return params, counts, step_s
 
 
 def profile_step(step, name: str = "train_step_trace",
-                 what: str = "train step"):
+                 what: str = "train step", annotations: tuple = ()):
     """Run ``step`` (one train step, or ``what``) once under torch.profiler
     with CUDA activity and print, from its Chrome trace: the 15 CUDA
     kernels with the most device time (name, calls, ms, share of the step's
@@ -981,13 +1048,15 @@ def profile_step(step, name: str = "train_step_trace",
     raw = path.read_bytes()
     path.unlink()
     (out_dir / f"{name}.json.gz").write_bytes(gzip.compress(raw))
-    report_trace(json.loads(raw)["traceEvents"], what)
+    report_trace(json.loads(raw)["traceEvents"], what, annotations)
     return out
 
 
-def report_trace(trace_events, what: str = "train step") -> None:
+def report_trace(trace_events, what: str = "train step",
+                 annotations: tuple = ()) -> None:
     """``profile_step``'s report from the events of a Chrome trace that
-    holds one ``train_step`` annotation."""
+    holds one ``train_step`` annotation; ``annotations`` names
+    ``record_function`` ranges whose kernels' device time is reported."""
     events = [e for e in trace_events if e.get("ph") == "X"]
     marks = [e for e in events if e.get("name") == "train_step"
              and e.get("cat") == "user_annotation"]
@@ -1073,6 +1142,23 @@ def report_trace(trace_events, what: str = "train step") -> None:
     for op, (n, d) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"profile:   {n:5d}  {d / 1e3:9.3f} ms  {100 * d / win:5.1f}%  "
             f"{op[:110]}")
+    # device time of the kernels launched inside each named annotation
+    # (e.g. the gateway's K/V concatenation, models/attention.py)
+    for label in annotations:
+        spans = {}
+        for e in events:
+            if e.get("cat") == "user_annotation" and e.get("name") == label:
+                spans.setdefault(e["tid"], []).append(
+                    (e["ts"], e["ts"] + e["dur"]))
+        n = d = 0
+        for e in dev:
+            r = launch.get(e.get("args", {}).get("correlation"))
+            if e["cat"] == "kernel" and r is not None and any(
+                    a <= r["ts"] <= b for a, b in spans.get(r["tid"], ())):
+                n, d = n + 1, d + e["dur"]
+        log(f"profile: kernels launched inside '{label}': "
+            f"{sum(map(len, spans.values()))} calls, {n} kernels, "
+            f"{d / 1e3:.3f} ms ({100 * d / win:.2f}% of the window)")
     # the layer stacks' gradients: one unbind per stack leaf and forward
     # (its backward stacks the layers' grads), or a select per layer
     log("profile: the layer stacks' gradient nodes (kernels, ms, share of "
@@ -1143,6 +1229,304 @@ def phase_train_parity(cfg, params):
     check(e_loss <= 1e-5 and e_g <= 1e-4, "train parity (a)")
     check(e_loss_b <= 1e-5 and e_g_b <= 1e-4, "train parity (b)")
     check(e_loss_c <= 1e-2 and l2_c <= 5e-2, "train parity (c)")
+
+
+# --------------------------------------------------------------------------
+# determinism and Tree Packing over partitions
+# --------------------------------------------------------------------------
+
+def phase_determinism(cfg, params, cases, tag: str = "determinism"):
+    """Each (name, plan): ``engine.accumulate`` twice on the same
+    parameters and plan; every gradient leaf and the scalars must be
+    bit-identical (``torch.equal``)."""
+    engine = TreeTrainEngine(cfg)
+    for name, plan in cases:
+        g1, s1 = engine.accumulate(params, plan)
+        g2, s2 = engine.accumulate(params, plan)
+        leaves = list(zip(flatten_tree(g1), flatten_tree(g2)))
+        differ = [("/".join(map(str, pa)), float((a - b).abs().max()))
+                  for (pa, a), (_, b) in leaves if not torch.equal(a, b)]
+        same_scal = torch.equal(s1, s2)
+        waves = len(plan.partition.waves) if plan.has_waves else 0
+        log(f"{tag} ({name}): {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
+            f"{plan.num_trees} trees, {plan.unique_tokens} unique tokens, "
+            f"{'packed rows' if plan.packed is not None else 'no packed rows'}"
+            f" + {waves} waves; two accumulate calls: {len(leaves) - len(differ)}"
+            f" of {len(leaves)} gradient leaves bit-identical, scalars "
+            f"{'identical' if same_scal else 'differ'}"
+            + (f"; differing: {differ[:6]}" if differ else ""))
+        del leaves, g1, g2
+        check(not differ and same_scal, f"{tag} ({name}): gradients differ "
+              f"between two runs")
+    torch.cuda.empty_cache()
+
+
+def error_mode_step(engine, fn):
+    """Run ``fn`` (one engine step) under ``set_sync_debug_mode("error")``
+    everywhere except inside ``engine._sync``: any other synchronizing call
+    raises."""
+    sync = engine._sync
+
+    def allowed(vec):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return sync(vec)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    engine._sync = allowed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        engine._sync = sync
+
+
+def wave_config(cfg):
+    lc = LoaderConfig(seq_len=TRAIN_SEQ, batch_rows=TRAIN_ROWS,
+                      trees_per_batch=WAVE_TREES, kind="agentic",
+                      seed=WAVE_SEED, auto_partition=True, auto_capacity=True,
+                      gen_kwargs=WAVE_GEN)
+    pc = PlannerConfig(lookahead=WAVE_LOOKAHEAD, plan_workers=1, graft=True,
+                       max_rows=TRAIN_ROWS)
+    return lc, pc
+
+
+def first_wave_plan(cfg):
+    """The first plan of the waves phase's stream (host arrays)."""
+    lc, pc = wave_config(cfg)
+    return next(iter(plans(cfg, lc, WAVE_LOOKAHEAD, pc))).execution_plan()
+
+
+def wave_kv_last(wp) -> np.ndarray:
+    """The kernels' kv_last for a gateway wave's rows, as
+    models/attention.py assembles it: the front-padded ancestors (2^30
+    where ``anc_valid``, −1 on the padding), then the rows' own kv_last
+    shifted by A_max."""
+    A = wp.anc_A_max
+    kl = wp.batch["kv_last"].astype(np.int64)
+    anc = np.where(wp.batch["anc_valid"], BIG, -1)
+    return np.concatenate([anc, np.where(kl >= 0, kl + A, -1)], 1)
+
+
+def phase_wave_kernel(waves) -> dict:
+    """The three kernels against their plain versions at the waves phase's
+    gateway waves (the largest A_max, and the most padded ancestor slots):
+    each wave's rows and real kv_last behind its front-padded ancestors,
+    q_off = A_max, H 12, Kh 2, hd 128, in f32 (the simple kernels) and
+    bf16 (the Hopper kernels), through ``phase_kernel`` and
+    ``phase_bwd_kernel``: o/lse and dq/dk/dv at their tolerances, the
+    backward bit-identical over two launches, dk/dv exactly 0 on every key
+    no query sees (the padded ancestor slots among them), the dq kernel's
+    Δ.  Returns each kernel's largest max abs error: o's for the forward,
+    dq's, and dk's and dv's."""
+    cases, n_pad = [], 0
+    add = case_adder(np.random.default_rng(30), cases)
+    seen = set()
+    for wp in waves:
+        if wp is None or id(wp) in seen:
+            continue
+        seen.add(id(wp))
+        kl, A = wave_kv_last(wp), wp.anc_A_max
+        B, Skv = kl.shape
+        pad = ~wp.batch["anc_valid"]
+        n_pad += int(pad.sum())
+        tiles = [int(p.reshape(-1, 64).all(1).sum()) if A % 64 == 0 else 0
+                 for p in pad]
+        log(f"wave kernel: a gateway wave of {B} rows of {Skv - A}, q_off = "
+            f"A_max = {A}, Skv {Skv} ({Skv % 64} keys past the last whole "
+            f"64-key tile); ancestors per row {list(wp.A_real[:B])}, "
+            f"padded ancestor slots per row {pad.sum(1).tolist()}, whole "
+            f"64-key tiles of kv_last -1 per row {tiles}")
+        for dt in (torch.float32, torch.bfloat16):
+            add(f"W: gateway wave q_off = A_max = {A}, B={B}, Skv={Skv} "
+                f"{dt}", dt, B, Skv - A, 12, 2, 128, kl, q_off=A)
+    check(n_pad > 0, "wave kernel: no gateway wave had padded ancestor "
+          "slots")
+    fwd = phase_kernel(cases, with_prefill_attention=False)
+    bwd = phase_bwd_kernel(cases)
+    return {"fwd": fwd, "dq": bwd["dq"], "dkv": bwd["dkv"]}
+
+
+def phase_waves(cfg, params):
+    """Qwen2-1.5B trained through ``plans`` on trees larger than a row:
+    auto partition, auto capacity, lookahead 2, grafting on, the plans
+    built on a background thread and copied to the card by the engine.
+    Per step: waves, rows per wave, A_max, step time, unique tokens/s,
+    peak memory, launches, host syncs (one; step 1 audited in 'warn' mode,
+    step 2 in 'error' mode), trees packed, partitioned and dropped (0).
+    Token conservation over the stream.  Returns (params, the gateway
+    wave with the largest A_max (of those, the most padded ancestor
+    slots), the kernel launches of its step, the step's wave count, the
+    gateway wave with the most padded ancestor slots)."""
+    lc, pc = wave_config(cfg)
+    generated = [t for b in tree_stream(cfg, lc, WAVE_BATCHES) for t in b]
+    g_tokens = sum(t.num_unique_tokens() for t in generated)
+    big = sum(t.num_unique_tokens() > TRAIN_SEQ for t in generated)
+    in_range = sum(6000 <= t.num_unique_tokens() <= 16000 for t in generated)
+    log(f"waves: {len(generated)} agentic trees ({WAVE_GEN}), {g_tokens} "
+        f"unique tokens; {big} larger than a row of {TRAIN_SEQ}, {in_range} "
+        f"with 6k-16k unique tokens; sizes "
+        f"{sorted(t.num_unique_tokens() for t in generated)}")
+    check(2 * big >= len(generated), "waves: fewer than half the trees "
+          "exceed a row")
+    opt_state = init_opt_state(params)
+    engine = TreeTrainEngine(cfg, OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=WAVE_BATCHES))
+    L = cfg.n_layers
+    reset_launches()
+    pipe = plans(cfg, lc, WAVE_BATCHES, pc)
+    tokens = trees = oversized = dropped = grafted = max_w = 0
+    times, per_tok, hidden = [], [], []
+    best, padded = ((0, 0), None, None, 0), ((0, 0), None)
+    for i, ps in enumerate(pipe):
+        plan = ps.execution_plan()
+        dropped += plan.dropped
+        if plan.is_empty:
+            continue
+        grafted += sum(f.n_src > 1 for f in ps.fits) \
+            + sum(o.n_src > 1 for o in ps.oversized)
+        waves = plan.partition.waves if plan.has_waves else []
+        W, P = len(waves), int(plan.packed is not None)
+        max_w = max(max_w, W)
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step = lambda: engine.step(params, opt_state, plan)
+        t1 = time.perf_counter()
+        if i == 1:
+            (params, opt_state, m), hidden = count_hidden_syncs(engine, step)
+        elif i == 2:
+            params, opt_state, m = error_mode_step(engine, step)
+        else:
+            params, opt_state, m = step()
+        dt = time.perf_counter() - t1
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want = {"tree_attention_fwd": L * (P + 2 * W),
+                "tree_attention_bwd_dq": L * (P + W),
+                "tree_attention_bwd_dkv": L * (P + W)}
+        tokens += plan.unique_tokens
+        trees += plan.num_trees
+        oversized += plan.num_oversized
+        if i:
+            times.append(dt)
+        per_tok.append(plan.unique_tokens / dt)
+        A = max((w.anc_A_max for w in waves), default=0)
+        log(f"waves step {i}: capacity {ps.capacity}, {plan.num_trees} trees "
+            f"({plan.num_trees - plan.num_oversized} packed, "
+            f"{plan.num_oversized} partitioned, {plan.dropped} dropped), "
+            f"{plan.unique_tokens} unique tokens, {P} packed execution + {W} "
+            f"waves, rows per wave {[w.num_rows for w in waves]}, A_max per "
+            f"wave {[w.anc_A_max for w in waves]}; loss {m['loss']:.4f} "
+            f"nll/tok {m['nll']:.4f} grad_norm {m['grad_norm']:.3f}; "
+            f"{dt:.3f} s ({plan.unique_tokens / dt:.0f} unique tokens/s), "
+            f"peak {peak_gb():.2f} GB; launches {delta}; host syncs "
+            f"{engine.host_syncs}")
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"waves step {i}: non-finite loss or grad norm")
+        check(delta == want, f"waves step {i}: launches {delta}, want {want}")
+        check(engine.host_syncs == engine.steps_done, f"waves step {i}: "
+              f"{engine.host_syncs} host syncs in {engine.steps_done} steps")
+        for wp in waves:
+            if not wp.has_gw:
+                continue
+            n_pad = int((~wp.batch["anc_valid"]).sum())
+            if (wp.anc_A_max, n_pad) > best[0]:
+                best = ((wp.anc_A_max, n_pad), wp, delta, W)
+            if (n_pad, wp.anc_A_max) > padded[0]:
+                padded = ((n_pad, wp.anc_A_max), wp)
+    log(f"waves: step 1 under set_sync_debug_mode('warn'): {len(hidden)} "
+        f"other synchronizing calls"
+        f"{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}; step 2 "
+        f"under set_sync_debug_mode('error') outside _sync: passed")
+    check(not hidden, "a wave step synchronized outside _sync")
+    log(f"waves: {engine.steps_done} steps, {trees} trees ({oversized} "
+        f"partitioned, {grafted} grafted entries), {dropped} dropped; "
+        f"{tokens} unique tokens trained of {g_tokens} generated; step "
+        f"{statistics.median(times):.3f} s median after the first (all: "
+        f"{', '.join(f'{t:.3f}' for t in times)}), "
+        f"{statistics.median(per_tok):.0f} unique tokens/s median; plan "
+        f"build on 1 worker: {pipe.schedule_s * 1e3:.1f} ms scheduled + "
+        f"{pipe.build_s * 1e3:.1f} ms built, {pipe.exposed_s * 1e3:.1f} ms "
+        f"exposed to the engine; host syncs {engine.host_syncs}")
+    # one more step (not in the median) under torch.profiler: where the
+    # wave step's time goes, and what the gateways' K/V concatenation costs
+    params, opt_state, _ = profile_step(
+        lambda: engine.step(params, opt_state, plan), "wave_step_trace",
+        f"wave step ({W} waves)", ("gateway_kv_cat",))
+    check(dropped == 0, "waves: trees dropped")
+    check(tokens == g_tokens, f"waves: {tokens} unique tokens trained, "
+          f"{g_tokens} generated")
+    check(best[1] is not None and best[0][0] >= WAVE_MIN_ANC,
+          f"waves: no gateway wave with A_max >= {WAVE_MIN_ANC} (largest "
+          f"{best[0][0]})")
+    check(max_w >= 3, f"waves: at most {max_w} waves a step")
+    del opt_state
+    torch.cuda.empty_cache()
+    return params, best[1], best[2], best[3], padded[1]
+
+
+def parity_tree(cfg):
+    """The first tree of the waves phase's generator with PARITY_TOKENS
+    unique tokens that partitions at PARITY_CAP into ≥ 3 waves with
+    ancestors of ≥ PARITY_CAP tokens, and fits one row of PARITY_ROW."""
+    lc, _ = wave_config(cfg)
+    lc = dataclasses.replace(lc, seed=WAVE_SEED + 1, trees_per_batch=4)
+    for batch in tree_stream(cfg, lc, 16):
+        for t in batch:
+            n = t.num_unique_tokens()
+            if not PARITY_TOKENS[0] <= n <= PARITY_TOKENS[1] or \
+                    n > PARITY_ROW:
+                continue
+            parts = partition_tree(t, PARITY_CAP)
+            depth = {}
+            for p in parts:
+                depth[p.pid] = 0 if p.parent_pid < 0 \
+                    else depth[p.parent_pid] + 1
+            if max(depth.values()) >= 2 and \
+                    max(p.anc_len for p in parts) >= PARITY_CAP:
+                return t, parts
+    raise Failed("no wave parity tree in the stream")
+
+
+def phase_wave_parity(cfg, params):
+    """One tree partitioned at PARITY_CAP (≥ 3 waves, ancestors ≥
+    PARITY_CAP tokens) against the same tree whole in one row of
+    PARITY_ROW, through the kernels:
+    (a) 4 layers f32: loss 1e-5 relative, grads max-rel 1e-4; (b) all
+    layers bf16: loss 1e-2 relative, gradient relative L2 5e-2."""
+    tree, parts = parity_tree(cfg)
+    ser = serialize_tree(tree)
+    results = []
+    for label, c, p in (("a", cfg.replace(n_layers=4, dtype="float32"),
+                         None), ("b", cfg, params)):
+        if p is None:
+            p = init_params(c, torch.Generator(DEV).manual_seed(0))
+        whole = prepare_batch(c, pack_trees([ser], PARITY_ROW), device=DEV)
+        lw, _, gw = value_and_grad(c, p, whole, "kernel")
+        lp, gp, info = packed_partitioned_value_and_grad(
+            c, p, [tree], PARITY_CAP, seq_len=PARITY_CAP)
+        e_loss = abs(lp - float(lw)) / abs(float(lw))
+        e_g, leaf, l2, l2leaf = grads_rel(gp, gw)
+        log(f"wave parity ({label}): {c.n_layers} layers {c.dtype}, one tree "
+            f"of {ser.n} unique tokens ({tree.num_leaves()} leaves): "
+            f"{info['num_partitions']} partitions in {info['num_waves']} waves "
+            f"of rows of {PARITY_CAP} (max ancestors "
+            f"{max(q.anc_len for q in parts)}) vs whole in one row of "
+            f"{PARITY_ROW}, kernels both: loss {lp:.6f} vs {float(lw):.6f}, "
+            f"relative error {e_loss:.3e}; grads max-rel {e_g:.3e} at {leaf}, "
+            f"relative L2 {l2:.3e} (worst leaf {l2leaf})")
+        results.append((label, e_loss, e_g, l2, info["num_waves"]))
+        del gw, gp
+        if label == "a":
+            del p
+        torch.cuda.empty_cache()
+    (_, la, ga, _, wa), (_, lb, _, l2b, _) = results
+    check(wa >= 3, "wave parity: fewer than 3 waves")
+    check(la <= 1e-5 and ga <= 1e-4, "wave parity (a)")
+    check(lb <= 1e-2 and l2b <= 5e-2, "wave parity (b)")
 
 
 # --------------------------------------------------------------------------
@@ -1587,36 +1971,41 @@ def profiler_kernel_ms(fn, reps: int = 5) -> float:
                and e.get("cat") == "kernel") / 1e3 / reps
 
 
-def phase_timing_train(train_kv_last, step_s: float, n_layers: int,
-                       heads=(12, 2), tag: str = "T"):
-    """All three kernels at a training shape (the first train step's
-    packed rows and their real kv_last; ``heads`` = (H, Kh)), with bounds
-    on visible pairs."""
+def phase_timing_train(train_kv_last, step_s, n_layers: int,
+                       heads=(12, 2), tag: str = "T", q_off: int = 0):
+    """All three kernels at a training shape (a train step's rows and
+    their real kv_last over Skv keys, of which the first ``q_off`` are
+    gateway ancestors; ``heads`` = (H, Kh)), with bounds on visible pairs.
+    ``step_s`` (None: not reported) relates them to a step."""
     rng = np.random.default_rng(10)
-    B, S = train_kv_last.shape
+    B, Skv = train_kv_last.shape
+    S = Skv - q_off
     (H, Kh), hd, dt = heads, 128, torch.bfloat16
     kl = i32(train_kv_last)
-    q, k, v = qkv(rng, B, S, S, H, Kh, hd, dt)
+    q, k, v = qkv(rng, B, S, Skv, H, Kh, hd, dt)
+    qo = dict(q_off=q_off)
     do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
     sc = hd ** -0.5
     out = {}
     fused = tab.fuses_delta(q)      # the dq kernel computes Δ itself
     with torch.inference_mode():
-        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
-        _, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc)
-        pairs = int(dense_mask(kl, S, 0).sum())
-        fwd = lambda: ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
-        dq = lambda: tab.bwd_dq(q, k, v, kl, o, lse, do, sc)
-        dkv = lambda: tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc)
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
+                                   **qo)
+        _, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **qo)
+        pairs = int(dense_mask(kl, S, q_off).sum())
+        fwd = lambda: ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
+                                        **qo)
+        dq = lambda: tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **qo)
+        dkv = lambda: tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc, **qo)
         ms = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
         if not fused:     # the backward still runs the torch reduction
             ms["delta"] = time_ms(lambda: tab.delta(o, do))
         dev = {"fwd": graph_ms(fwd), "dq": graph_ms(dq), "dkv": graph_ms(dkv)}
         ms["plain_fwd"] = time_ms(lambda: tree_attention_ref_ext(
-            q, k, v, kl, sc, return_lse=True))
+            q, k, v, kl, sc, return_lse=True, **qo))
         ms["plain_bwd"] = time_ms(lambda: tree_attention_bwd_ref(
-            q, k, v, kl, o, lse, do, sc))
-    mask = dense_mask(kl, S, 0)
+            q, k, v, kl, o, lse, do, sc, **qo))
+    mask = dense_mask(kl, S, q_off)
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
     kt, vt = (t.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
               .contiguous().requires_grad_(True) for t in (k, v))
@@ -1653,8 +2042,8 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int,
                         pct_of_bound=100 * bnd / ms[key], device_ms=dev[key],
                         library_device_ms=lib_dev)
         what = "forward" if key == "fwd" else "backward (dq, dk, dv)"
-        log(f"timing {key} at {tag} (B={B}, S={S}, H={H}, Kh={Kh}, hd=128, "
-            f"bf16, "
+        log(f"timing {key} at {tag} (B={B}, S={S}, Skv={Skv}, q_off={q_off}, "
+            f"H={H}, Kh={Kh}, hd=128, bf16, "
             f"real kv_last, {pairs} visible pairs; CUDA events, median of 20 "
             f"after 3 warm-up): kernel {ms[key]:.4f} ms, bound {bnd:.4f} ms "
             f"by {by} ({per_pair}·hd·H FLOPs per visible pair = "
@@ -1678,10 +2067,11 @@ def phase_timing_train(train_kv_last, step_s: float, n_layers: int,
             f"dk/dv {dev['dq'] + dev['dkv']:.4f} ms (CUDA graphs); sdpa "
             f"backward {dev['lib_bwd']:.4f} ms (the sum of its kernels in "
             f"torch.profiler: autograd runs it outside a capturing stream)")
-    att = n_layers * (ms["fwd"] + bwd_sum + ms.get("delta", 0.0)) / 1e3
-    log(f"timing at {tag}: attention share of a train step: {n_layers} x "
-        f"(fwd + dq + dk/dv{'' if fused else ' + Δ'}) = {att:.3f} s of the "
-        f"{step_s:.3f} s median step ({100 * att / step_s:.1f}%)")
+    if step_s is not None:
+        att = n_layers * (ms["fwd"] + bwd_sum + ms.get("delta", 0.0)) / 1e3
+        log(f"timing at {tag}: attention share of a train step: {n_layers} x "
+            f"(fwd + dq + dk/dv{'' if fused else ' + Δ'}) = {att:.3f} s of "
+            f"the {step_s:.3f} s median step ({100 * att / step_s:.1f}%)")
     out["dq"]["delta_in_kernel"] = fused
     return out
 
@@ -1713,7 +2103,7 @@ def main() -> int:
     cfg = get_config("qwen2_1p5b")
     sft = train_plans(cfg, "agentic", "sep_avg", SFT_STEPS)
     rl = train_plans(cfg, "grpo", "rl", RL_STEPS)
-    kl_t = sft[0].packed.inputs["kv_last"].cpu().numpy()
+    kl_t = np.asarray(sft[0].packed.inputs["kv_last"])
     timed("build", phase_build)
     worst_fwd = timed("kernel", phase_kernel, kernel_cases())
     worst_bwd = timed("bwd kernel", phase_bwd_kernel, kernel_cases(kl_t))
@@ -1734,19 +2124,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     params, counts, step_s = timed("train", phase_train, cfg, sft, rl)
+    timed("determinism", phase_determinism, cfg, params,
+          [("packed", sft[0]), ("waves", first_wave_plan(cfg))])
+    params, wave_w, wave_launches, wave_n, wave_pad = timed(
+        "waves", phase_waves, cfg, params)
     timed("train parity", phase_train_parity, cfg, params)
+    timed("wave parity", phase_wave_parity, cfg, params)
     del params
     torch.cuda.empty_cache()
     timing_ab = timed("timing", phase_timing_serve)
     timing = timed("timing T", phase_timing_train, kl_t, step_s,
                    cfg.n_layers)
+    wave_err = timed("wave kernel", phase_wave_kernel, (wave_w, wave_pad))
+    timing_w = timed("timing W", phase_timing_train, wave_kv_last(wave_w),
+                     None, cfg.n_layers, (12, 2), "W", wave_w.anc_A_max)
 
     # the MoE model, Qwen3-30B-A3B, once the dense model's tensors are gone
     mcfg = get_config(MOE_ARCH)
     mcfg_train = mcfg.replace(n_layers=MOE_TRAIN_LAYERS)
     msft = train_plans(mcfg_train, "agentic", "sep_avg", SFT_STEPS)
     mrl = train_plans(mcfg_train, "grpo", "rl", RL_STEPS)
-    kl_m = msft[0].packed.inputs["kv_last"].cpu().numpy()
+    kl_m = np.asarray(msft[0].packed.inputs["kv_last"])
     worst_fwd = max(worst_fwd, timed("moe kernel", phase_kernel,
                                      moe_kernel_cases(kl_m), False))
     worst_m = timed("moe bwd kernel", phase_bwd_kernel, moe_kernel_cases(kl_m))
@@ -1755,6 +2153,8 @@ def main() -> int:
     timed("moe parity", phase_moe_parity, mcfg)
     params, moe_counts, moe_step_s = timed("moe train", phase_train,
                                            mcfg_train, msft, mrl, "moe train")
+    timed("moe determinism", phase_determinism, mcfg_train, params,
+          [("packed", msft[0])], "moe determinism")
     del params
     torch.cuda.empty_cache()
     timed("moe train parity", phase_moe_train_parity, mcfg)
@@ -1777,6 +2177,13 @@ def main() -> int:
                  replaces=replaces, launches=counts[name], max_abs_err=err,
                  **timing[key])
         e["shape"] = "T: the first train step's rows, bf16, hd 128"
+        e["wave"] = dict(
+            shape=f"W: a gateway wave of the waves phase, "
+                  f"{wave_w.batch['tokens'].shape[0]} rows of {TRAIN_SEQ}, "
+                  f"q_off = A_max = {wave_w.anc_A_max}, H 12, Kh 2, bf16, "
+                  f"hd 128",
+            launches_wave_step=wave_launches[name], waves_in_step=wave_n,
+            max_abs_err=wave_err[key], **timing_w[key])
         e["moe"] = dict(
             shape=f"T_moe: the {MOE_TRAIN_LAYERS}-layer Qwen3-30B-A3B train "
                   f"step's rows, H 32, Kh 4, bf16, hd 128",

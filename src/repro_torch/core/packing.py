@@ -1,20 +1,21 @@
 """Packing serialized trees into fixed-shape training rows.
 
-A copy of the packed-row part of ``repro/core/packing.py`` (``:23-310``);
-``tests/test_torch_train.py`` holds it against the original field by field.
+A copy of ``repro/core/packing.py``: packed rows (held against the original
+field by field in ``tests/test_torch_train.py``) and Tree Packing over
+partitions, ``pack_partition_waves`` (``tests/test_torch_partition.py``).
 A row holds one or more whole DFS-serialized trees back to back; because
 ``kv_last`` bounds visibility to a token's own subtree, packed trees are
 mutually invisible with no extra mask.  The SSM ``chunk_size`` alignment is
-not copied (SSM families are ROADMAP Queue A item 5), and neither is the
-partition-wave packing (Queue A item 4).
+not copied (SSM families are ROADMAP.md Queue A item 4): it raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core.partition import TreePartition
 from repro_torch.core.tree import SerializedTree
 
 
@@ -44,7 +45,7 @@ def _no_chunks(chunk_size: Optional[int]) -> None:
     if chunk_size is not None:
         raise NotImplementedError(
             "chunk-aligned (SSM) packing is not ported yet; see ROADMAP.md "
-            "Queue A item 5")
+            "Queue A item 4")
 
 
 def _empty_row(S: int) -> dict[str, np.ndarray]:
@@ -237,3 +238,156 @@ def pack_linear_paths(
         row_trees=np.asarray(
             [len({flat[i]["_tree"] for i in r}) for r in rows], np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Tree Packing over partitions (paper §3.3–3.4): pack the partition
+# serializations of MANY trees into fixed-shape [B, S] rows, grouped by
+# topological wave so every partition's parent lands in a strictly earlier
+# wave (its gateway captures exist before the child runs).  Waves follow
+# depth order in the partition tree; a depth level wider than ``max_rows``
+# splits into several consecutive waves, all still after their parents'.
+#
+# Row discipline: wave-0 fragments carry no gateway, so any number can
+# share a row (kv_last separates them, as with whole trees).  Wave ≥1
+# fragments each own a row — their ancestor KV (extra_kv) is row-global.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PackedPartition:
+    """Placement of one partition fragment inside a wave batch."""
+    tree: int                  # index into the forest's tree list
+    pid: int                   # partition id within that tree
+    row: int
+    offset: int                # token offset inside the row
+
+
+@dataclass
+class PackedCut:
+    """One cut of a placed partition, with row-absolute indices."""
+    tree: int
+    pid: int                   # parent partition (lives in this wave)
+    child_pid: int
+    row: int                   # parent's row
+    path_idx: np.ndarray       # i32, absolute positions in the parent row
+    cut_chunk: int             # absolute chunk index in the parent row
+    boundary_pos: int          # absolute position of the predicting token
+    boundary_label: int
+    boundary_weight: float
+
+
+@dataclass
+class PackedWave:
+    """One topological wave: fixed-shape rows + placement metadata."""
+    arrays: dict[str, np.ndarray]          # [B, S] serialization columns
+    slots: list[PackedPartition] = field(default_factory=list)
+    cuts: list[PackedCut] = field(default_factory=list)
+
+    @property
+    def num_rows(self) -> int:
+        return self.arrays["tokens"].shape[0]
+
+
+def pack_partition_waves(
+    forest: Sequence[Sequence[TreePartition]],
+    seq_len: int,
+    *,
+    chunk_size: Optional[int] = None,
+    max_rows: Optional[int] = None,
+) -> list[PackedWave]:
+    """Pack every partition of every tree into per-wave [B, S] rows.
+
+    forest[t] is ``partition_tree(trees[t], capacity, ...)`` with
+    capacity ≤ seq_len.  Returns waves in topological order; root waves'
+    rows may hold several fragments, gateway-bearing waves one fragment
+    per row.  ``max_rows`` bounds every wave's row count (same-depth
+    fragments are independent, so a too-wide wave splits into several
+    consecutive waves) — the partitioned path then never exceeds the
+    activation footprint of a ``max_rows × seq_len`` packed step."""
+    _no_chunks(chunk_size)
+    # wave index per partition (parent wave + 1; parents precede children)
+    waves: list[list[tuple[int, int]]] = []
+    for t, parts in enumerate(forest):
+        wv: dict[int, int] = {}
+        for p in parts:
+            w = 0 if p.parent_pid < 0 else wv[p.parent_pid] + 1
+            wv[p.pid] = w
+            while len(waves) <= w:
+                waves.append([])
+            waves[w].append((t, p.pid))
+
+    def materialize(placements: list[PackedPartition], B: int
+                    ) -> PackedWave:
+        S = seq_len
+        cols = {k: np.stack([_empty_row(S)[k] for _ in range(B)])
+                for k in ("tokens", "pos_ids", "kv_last", "weight",
+                          "prev_idx", "valid")}
+        cuts: list[PackedCut] = []
+        for pl in placements:
+            ser = forest[pl.tree][pl.pid].ser
+            off = pl.offset
+            sl = slice(off, off + ser.n)
+            cols["tokens"][pl.row, sl] = ser.tokens
+            cols["pos_ids"][pl.row, sl] = ser.pos_ids
+            cols["kv_last"][pl.row, sl] = np.where(
+                ser.kv_last < 0, -1, ser.kv_last + off)
+            cols["weight"][pl.row, sl] = ser.weight
+            # negative prev slots (−1 none, −2.. gateway) are offset-free
+            cols["prev_idx"][pl.row, sl] = np.where(
+                ser.prev_idx < 0, ser.prev_idx, ser.prev_idx + off)
+            cols["valid"][pl.row, sl] = ser.valid
+            for c in forest[pl.tree][pl.pid].cuts:
+                cuts.append(PackedCut(
+                    tree=pl.tree, pid=pl.pid, child_pid=c.child_pid,
+                    row=pl.row,
+                    path_idx=c.path_token_idx + off,
+                    cut_chunk=c.cut_chunk,
+                    boundary_pos=c.boundary_pos + off,
+                    boundary_label=c.boundary_label,
+                    boundary_weight=c.boundary_weight))
+        return PackedWave(arrays=dict(cols), slots=placements, cuts=cuts)
+
+    out: list[PackedWave] = []
+    for w, members in enumerate(waves):
+        # --- row assignment -------------------------------------------------
+        placements: list[PackedPartition] = []
+        if w == 0:
+            order = sorted(members,
+                           key=lambda m: -forest[m[0]][m[1]].ser.n)
+            row_used: list[int] = []
+            for t, pid in order:
+                n = forest[t][pid].ser.n
+                if n > seq_len:
+                    raise DoesNotFitError(
+                        f"partition of {n} tokens > row of {seq_len}; "
+                        "lower the partition capacity")
+                for r, used in enumerate(row_used):
+                    if used + n <= seq_len:
+                        placements.append(PackedPartition(t, pid, r, used))
+                        row_used[r] += n
+                        break
+                else:
+                    placements.append(PackedPartition(t, pid,
+                                                      len(row_used), 0))
+                    row_used.append(n)
+            B = len(row_used)
+        else:
+            for r, (t, pid) in enumerate(members):
+                if forest[t][pid].ser.n > seq_len:
+                    raise DoesNotFitError(
+                        f"partition of {forest[t][pid].ser.n} tokens > row "
+                        f"of {seq_len}; lower the partition capacity")
+                placements.append(PackedPartition(t, pid, r, 0))
+            B = len(members)
+
+        # --- materialize rows (splitting too-wide waves) --------------------
+        if max_rows is not None and B > max_rows:
+            for base in range(0, B, max_rows):
+                chunk = [PackedPartition(p.tree, p.pid, p.row - base,
+                                         p.offset)
+                         for p in placements
+                         if base <= p.row < base + max_rows]
+                out.append(materialize(chunk, min(max_rows, B - base)))
+        else:
+            out.append(materialize(placements, B))
+    return out

@@ -1,9 +1,10 @@
 """Trajectory trees and DFS serialization (paper §3.1–3.2).
 
-A copy of the parts of ``repro/core/tree.py`` that serving and packed
-training use: the port imports nothing of the reference package, and
-``tests/test_torch_serve.py`` and ``tests/test_torch_train.py`` hold this
-copy against the original on random, agentic and GRPO trees.
+A copy of ``repro/core/tree.py`` without the SSM chunk alignment: the port
+imports nothing of the reference package, and ``tests/test_torch_serve.py``,
+``tests/test_torch_train.py`` and ``tests/test_torch_partition.py`` hold
+this copy against the original on random, agentic, GRPO and partitioned
+trees.
 
 A trajectory tree is a rooted tree whose nodes hold token segments; each
 root-to-leaf path is one trajectory.  DFS serialization lays every token
@@ -136,6 +137,13 @@ class SerializedTree:
     def n(self) -> int:
         return int(self.tokens.shape[0])
 
+    def chunk_parent_map(self, chunk_size: int) -> np.ndarray:
+        """The SSM chunk-parent map (reference ``core/tree.py``): SSM and
+        hybrid families are ROADMAP.md Queue A item 4."""
+        raise NotImplementedError(
+            "chunk_parent_map is SSM-only and not ported yet; see "
+            "ROADMAP.md Queue A item 4")
+
 
 def _leaf_counts(root: TreeNode) -> dict[int, int]:
     """g_n = number of root-to-leaf paths through node n (post-order)."""
@@ -167,14 +175,41 @@ def _branch_adv_sums(root: TreeNode) -> dict[int, float]:
     return s
 
 
+def tree_lam_map(root: TreeNode, loss_mode: str) -> dict[int, float]:
+    """id(node) → λ for every node of the tree rooted at ``root``, under
+    ``loss_mode`` — exactly the per-node weight ``serialize_tree`` would
+    assign.  Shared by the partitioner (pruned subtrees keep full-tree
+    weights) and the cross-tree grafter (``core/forest``)."""
+    g = _leaf_counts(root)
+    K = g[id(root)]
+    if loss_mode == "uniform":
+        return {nid: 1.0 for nid in g}
+    if loss_mode == "rl":
+        return {nid: a / K for nid, a in _branch_adv_sums(root).items()}
+    if loss_mode == "sep_avg":
+        return {nid: gn / K for nid, gn in g.items()}
+    raise ValueError(loss_mode)
+
+
 def serialize_tree(tree: TrajectoryTree, *,
-                   loss_mode: str = "sep_avg") -> SerializedTree:
+                   loss_mode: str = "sep_avg",
+                   lam_map: Optional[dict[int, float]] = None,
+                   depth_pos0: int = 0,
+                   root_prev: int = -1) -> SerializedTree:
     """DFS-serialize ``tree``; every token appears exactly once (Eq. 8).
 
     loss_mode: 'sep_avg' (λ = g_t/K), 'uniform' (λ = 1) or 'rl'
-    (λ = Σ_{branches through t} A_b / K).  The reference's SSM chunk
-    padding and partition-mode extras (``chunk_size``, ``lam_map``,
-    ``depth_pos0``, ``root_prev``) come with the slices that need them.
+    (λ = Σ_{branches through t} A_b / K).
+
+    Partition-mode extras (``core/partition.py``):
+      lam_map    : id(node) → λ computed on the *full* tree (a pruned
+                   partition subtree keeps full-tree weights);
+      depth_pos0 : depth position of the first token (= #ancestor tokens);
+      root_prev  : prev_idx of the very first token; −2 marks a partition
+                   root whose predicting token lives in the parent
+                   partition (its loss is the parent's boundary loss).
+    The reference's SSM chunk padding (``chunk_size``) is ROADMAP.md
+    Queue A item 4.
     """
     g = _leaf_counts(tree.root)
     K = g[id(tree.root)]
@@ -202,7 +237,9 @@ def serialize_tree(tree: TrajectoryTree, *,
 
         toks.append(node.tokens)
         pos.append(np.arange(depth_pos, depth_pos + L, dtype=np.int32))
-        if loss_mode == "sep_avg":
+        if lam_map is not None:
+            lam = lam_map[id(node)]
+        elif loss_mode == "sep_avg":
             lam = g[id(node)] / K
         elif loss_mode == "uniform":
             lam = 1.0
@@ -226,7 +263,7 @@ def serialize_tree(tree: TrajectoryTree, *,
         for c in node.children:
             rec(c, depth_pos + L, my_nid, my_last_tok)
 
-    rec(tree.root, 0, -1, -1)
+    rec(tree.root, depth_pos0, -1, root_prev)
 
     # kv_last per token = last DFS index of its node's subtree; subtree
     # ends accumulate in reverse DFS order (children follow parents)
@@ -253,3 +290,25 @@ def serialize_tree(tree: TrajectoryTree, *,
         node_end=np.asarray(node_end, np.int32),
         num_paths=K,
     )
+
+
+def visibility_mask(ser: SerializedTree) -> np.ndarray:
+    """Dense [N, N] boolean tree-attention mask (test oracle; Fig. 3)."""
+    n = ser.n
+    i = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    return (j <= i) & (ser.kv_last[None, :] >= i) & ser.valid[None, :] \
+        & ser.valid[:, None]
+
+
+def subtree_token_count(tree: TrajectoryTree) -> dict[int, int]:
+    """id(node) → token count of its subtree (used by the partitioner)."""
+    out: dict[int, int] = {}
+
+    def rec(n: TreeNode) -> int:
+        t = n.size + sum(rec(c) for c in n.children)
+        out[id(n)] = t
+        return t
+
+    rec(tree.root)
+    return out

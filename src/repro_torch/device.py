@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -17,6 +18,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "repro_torch runs on a CUDA device and this machine has none; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """Host (numpy) batch columns → tensors on ``device``; tensors and
+    Python scalars pass through.  A CUDA copy is issued non-blocking, so it
+    neither reads the device back nor waits for it."""
+    def move(a):
+        if isinstance(a, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.to(device, non_blocking=True) \
+                if device.type == "cuda" else t
+        return a
+    return {k: move(v) for k, v in batch.items()}
 
 
 def map_tree(fn, tree):
@@ -49,15 +63,17 @@ def tree_leaves(tree) -> list:
 def unflatten_like(tree, leaves):
     """A tree shaped like ``tree`` holding ``leaves`` (in ``tree_leaves``
     order)."""
-    it = iter(leaves)
+    return _rebuild(tree, iter(leaves))
 
-    def rebuild(t):
-        if isinstance(t, dict):
-            out = {k: rebuild(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}          # keep the dict's order
-        if isinstance(t, (list, tuple)):
-            return type(t)(rebuild(v) for v in t)
-        return next(it)
 
-    return rebuild(tree)
+def _rebuild(t, it):
+    # a module-level function: a nested recursive closure would be a
+    # reference cycle holding ``leaves`` (device tensors) until Python's
+    # cycle collector happened to run
+    if isinstance(t, dict):
+        out = {k: _rebuild(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}              # keep the dict's order
+    if isinstance(t, (list, tuple)):
+        return type(t)(_rebuild(v, it) for v in t)
+    return next(it)
 

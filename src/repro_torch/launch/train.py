@@ -6,7 +6,9 @@ per-branch baseline) on synthetic agentic trees:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1p5_0p5b \\
       --smoke --steps 3 --device cpu
 
-Every step is an ``ExecutionPlan`` from ``train/planner.plans`` executed by
+Every step is an ``ExecutionPlan`` from the plan-ahead scheduler
+(``train/planner.plans``: cost-model-driven Tree Packing over a
+``--lookahead`` window, ``--plan-workers`` background builders) executed by
 ``train/engine.TreeTrainEngine.step``; each step performs exactly one host
 sync (the logging transfer).  ``--impl kernel`` (the default) runs the
 hand-written CUDA kernels on the card (their plain versions on the CPU),
@@ -14,10 +16,20 @@ hand-written CUDA kernels on the card (their plain versions on the CPU),
 the RL model-update objective on GRPO trees.  It runs on ``cuda`` unless
 ``--device`` names another device.
 
-Not ported (ROADMAP.md Queue A): ``--lookahead``, ``--plan-workers``,
-``--auto-partition``, ``--capacity``, ``--graft``, ``--min-graft`` (the
-planner and partition waves, items 3-4), ``--aot-warmup``,
-``--warmup-threads``, ``--compile-cache-dir`` and ``--mesh`` (item 8).
+``--auto-partition`` routes trees larger than one row through
+Redundancy-Free Tree Partitioning (partition waves, ``--capacity`` token
+cap per partition, ``auto`` by default) instead of dropping them; the run
+ends with a ``partitioned: ... dropped`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1p5_0p5b \
+      --smoke --auto-partition --capacity 256 --seq-len 512 --device cpu
+
+``--graft`` merges trees of the window that open with the same token
+prefix into one grafted forest (``core/forest``; pair with ``--kind
+template``).
+
+Not ported (ROADMAP.md Queue A item 7): ``--aot-warmup``,
+``--warmup-threads``, ``--compile-cache-dir`` and ``--mesh``.
 """
 from __future__ import annotations
 
@@ -35,7 +47,7 @@ from repro_torch.train.checkpoint import (load_checkpoint, load_meta,
                                           save_checkpoint)
 from repro_torch.train.engine import TreeTrainEngine
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-from repro_torch.train.planner import plans
+from repro_torch.train.planner import PlannerConfig, plans
 
 
 def main(argv=None) -> None:
@@ -50,6 +62,12 @@ def main(argv=None) -> None:
                     help="rows per step (the reference's auto choice on "
                          "one device is 2)")
     ap.add_argument("--trees", type=int, default=6)
+    ap.add_argument("--lookahead", type=int, default=1,
+                    help="generator batches the planner bin-packs "
+                         "jointly (global Tree Packing; 1 = per-step)")
+    ap.add_argument("--plan-workers", type=int, default=1,
+                    help="background plan-builder threads (double-"
+                         "buffered against engine.step; 0 = synchronous)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--impl", default="kernel", choices=["ref", "kernel"],
                     help="kernel (default): the hand-written CUDA kernels, "
@@ -61,9 +79,35 @@ def main(argv=None) -> None:
                          "λ_t = 1; rl: GRPO per-branch advantages scale "
                          "λ_t (the RL model-update phase)")
     ap.add_argument("--kind", default=None,
-                    choices=["agentic", "grpo", "random"],
+                    choices=["agentic", "grpo", "random", "template"],
                     help="synthetic tree generator (default: agentic; "
-                         "grpo when --loss-mode rl)")
+                         "grpo when --loss-mode rl; template = shared "
+                         "system-prompt workload for --graft)")
+    ap.add_argument("--auto-partition", action="store_true",
+                    help="train oversized trees via wave-scheduled "
+                         "partitioning instead of dropping them")
+    ap.add_argument("--capacity", default="auto",
+                    help="partition token cap: an integer forces it; "
+                         "'auto' (default) lets the planner choose per "
+                         "lookahead window from the oversized trees' "
+                         "partition-count/depth trade-off "
+                         "(core.partition.choose_capacity)")
+    ap.add_argument("--graft", action="store_true",
+                    help="cross-tree forest grafting: merge trees that "
+                         "share a token prefix (core/forest) before "
+                         "packing, so shared system prompts are computed "
+                         "once per window")
+    ap.add_argument("--min-graft", type=int, default=16,
+                    help="minimum shared-prefix tokens for a graft to be "
+                         "considered (shorter matches never pay for the "
+                         "merge)")
+    ap.add_argument("--turns", type=int, default=4,
+                    help="turns per agentic/grpo tree")
+    ap.add_argument("--turn-len", type=int, nargs=2, default=(8, 48),
+                    metavar=("MIN", "MAX"),
+                    help="token length range of an agentic/grpo turn "
+                         "(longer turns make trees larger than a row, "
+                         "which --auto-partition trains)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None,
@@ -88,17 +132,44 @@ def main(argv=None) -> None:
           f"impl={args.impl} loss_mode={args.loss_mode} kind={args.kind} "
           f"device={dev}")
 
+    auto_capacity = False
+    if str(args.capacity).lower() == "auto":
+        args.capacity = None
+        auto_capacity = True
+    else:
+        try:
+            args.capacity = int(args.capacity)
+        except ValueError:
+            ap.error(f"--capacity must be an integer or 'auto', got "
+                     f"{args.capacity!r}")
+    if args.auto_partition:
+        if args.mode != "tree":
+            ap.error("--auto-partition requires --mode tree (partitioning "
+                     "is a tree-serialization feature; baseline mode "
+                     "would silently drop oversized trees)")
+        if args.capacity is not None and not 0 < args.capacity <= \
+                args.seq_len:
+            ap.error(f"--capacity {args.capacity} must be in (0, --seq-len "
+                     f"{args.seq_len}]")
+    if args.graft and args.mode != "tree":
+        ap.error("--graft requires --mode tree (grafted forests are "
+                 "serialized trees; baseline rows cannot share prefixes)")
+
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(2, args.steps // 10))
     # generator kwargs differ per kind (agentic/grpo take turn shapes,
     # random takes segment shapes) — the reference launcher's
     gen_kwargs = (dict(seg_len_range=(8, 48), max_depth=4)
                   if args.kind == "random"
-                  else dict(turn_len_range=(8, 48), num_turns=4))
+                  else dict(turn_len_range=tuple(args.turn_len),
+                            num_turns=args.turns))
     lc = LoaderConfig(seq_len=args.seq_len, batch_rows=args.rows,
                       trees_per_batch=args.trees, mode=args.mode,
                       kind=args.kind, seed=args.seed,
-                      loss_mode=args.loss_mode, gen_kwargs=gen_kwargs)
+                      loss_mode=args.loss_mode,
+                      auto_partition=args.auto_partition,
+                      capacity=args.capacity, auto_capacity=auto_capacity,
+                      gen_kwargs=gen_kwargs)
 
     params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                          device=dev)
@@ -111,10 +182,17 @@ def main(argv=None) -> None:
 
     engine = TreeTrainEngine(cfg, opt_cfg, impl=args.impl)
     engine.steps_done = done
+    pcfg = PlannerConfig(lookahead=args.lookahead,
+                         plan_workers=args.plan_workers, max_rows=args.rows,
+                         graft=args.graft, min_graft=args.min_graft)
+    pipe = plans(cfg, lc, args.steps, pcfg)
     tokens_done = padded_total = dropped_total = executed = 0
+    part_trees = part_tokens = 0
     history = []
     t0 = time.time()
-    for i, plan in enumerate(plans(cfg, lc, args.steps, device=dev)):
+    # the planner builds the next plans on background threads meanwhile
+    for i, ps in enumerate(pipe):
+        plan = ps.execution_plan()
         dropped_total += plan.dropped
         if plan.is_empty:           # nothing trainable this step
             continue
@@ -126,8 +204,12 @@ def main(argv=None) -> None:
         dt = time.time() - ts
         tokens_done += plan.unique_tokens
         padded_total += plan.padded_tokens
+        part_trees += plan.num_oversized
+        if plan.has_waves:
+            part_tokens += plan.partition.info["unique_tokens"]
         history.append({"step": i, "loss": m["loss"], "nll": m["nll"],
                         "grad_norm": m["grad_norm"], "sec": dt,
+                        "oversized": plan.num_oversized,
                         "dropped": plan.dropped})
         if i % args.log_every == 0:
             print(f"step {i:4d} loss {m['loss']:10.4f} "
@@ -142,11 +224,22 @@ def main(argv=None) -> None:
             print(f"[train] ckpt @ step {engine.steps_done} → {args.save}",
                   flush=True)
     wall = time.time() - t0
+    peak = (f", peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+            if dev.type == "cuda" else "")
     print(f"[train] {len(history)} steps, {tokens_done} unique tokens, "
           f"{dropped_total} dropped trees, {wall:.1f}s wall "
           f"({engine.host_syncs} host syncs / {len(history)} steps), "
           f"{padded_total} padded tokens "
-          f"({padded_total / max(tokens_done, 1):.2f}/unique)")
+          f"({padded_total / max(tokens_done, 1):.2f}/unique){peak}")
+    print(f"[train] plan-ahead: {pipe.built} plans, "
+          f"{pipe.schedule_s * 1e3:.0f}ms scheduled + "
+          f"{pipe.build_s * 1e3:.0f}ms built / "
+          f"{pipe.exposed_s * 1e3:.0f}ms exposed "
+          f"(lookahead {args.lookahead}, {args.plan_workers} workers)")
+    if args.auto_partition:
+        print(f"[train] partitioned: {part_trees} oversized trees, "
+              f"{part_tokens} tokens, {dropped_total} dropped")
     if args.save:
         save_checkpoint(args.save, params, opt_state,
                         meta={"arch": cfg.name, "steps": engine.steps_done})

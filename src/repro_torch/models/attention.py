@@ -113,8 +113,10 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
     if extra_kv is not None:
         A = extra_kv["k"].shape[1]
         q_off = A
-        k_all = torch.cat([extra_kv["k"].to(k.dtype), k], dim=1)
-        v_all = torch.cat([extra_kv["v"].to(v.dtype), v], dim=1)
+        # a full copy of the layer's K/V per call (named for the profiler)
+        with torch.profiler.record_function("gateway_kv_cat"):
+            k_all = torch.cat([extra_kv["k"].to(k.dtype), k], dim=1)
+            v_all = torch.cat([extra_kv["v"].to(v.dtype), v], dim=1)
         anc_kl = torch.full((B, A), BIG, dtype=torch.int32, device=x.device)
         if extra_kv.get("valid") is not None:
             anc_kl = torch.where(extra_kv["valid"], anc_kl, -1)

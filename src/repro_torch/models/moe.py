@@ -116,9 +116,14 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
     counts, pos_c, keep = queue(top_e, vmask, E, C)
     e_flat = top_e.reshape(N * K)
 
+    # each token's row once per slot: an expand, not repeat_interleave,
+    # whose CUDA backward is an atomic index_add (run-to-run different
+    # sums); the expand's backward is a fixed-order sum over K
+    src = xf[:, None].expand(N, K, D).reshape(N * K, D)     # [N·K, D]
     # dispatch: [E, C+1, D], the last row the spill bucket; kept slots are
-    # unique, so only the discarded spill row ever sums
-    src = xf.repeat_interleave(K, dim=0)                      # [N·K, D]
+    # unique, so only the discarded spill row ever sums (and on CUDA an
+    # accumulating index_put sorts its indices: deterministic either way);
+    # its backward is a gather
     xb = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
     xb = xb.index_put((e_flat, pos_c), src, accumulate=True)[:, :C]
 
@@ -130,7 +135,9 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
         h = _activate(torch.bmm(xb, params["wi_up"]), activation)
     yb = torch.bmm(h, params["wo"])                          # [E, C, D]
 
-    # combine: gather each slot's row (the spill row reads zeros)
+    # combine: gather each slot's row (the spill row reads zeros); its
+    # backward is an accumulating index_put, deterministic on CUDA (sorted),
+    # and only the cut-off spill row receives more than one cotangent
     yb = torch.cat([yb, yb.new_zeros((E, 1, D))], dim=1)
     gathered = yb[e_flat, pos_c]                              # [N·K, D]
     w = torch.where(keep, top_p.reshape(N * K), 0.0).to(x.dtype)

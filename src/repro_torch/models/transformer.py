@@ -1,15 +1,16 @@
 """Model assembly for the dense and MoE decoders.
 
 Port of the dense and MoE slices of ``repro/models/transformer.py``:
-``init_params``, ``forward`` (:316), ``loss_and_metrics`` (:520) and the
-session's ``partition_forward``.  Parameters keep the reference's layout —
+``init_params``, ``forward`` (:316), ``partition_forward`` (:398, the
+session's prefill and the partition waves), ``partition_loss`` (:477) and
+``loss_and_metrics`` (:520).  Parameters keep the reference's layout —
 ``layer_stacks[g]`` holds one scan group of same-kind layers with a leading
 layer dimension — so the weight bridge is an identity rename.  Layers loop
 in Python where the reference scans; each forward unbinds every stacked
 leaf once (``_unstack``), so the backward writes each leaf's gradient once
 instead of one zero-filled whole stack per layer.  Other families (SSM,
 hybrid, enc-dec, VLM) raise: they are later items of ROADMAP.md Queue A,
-as is ``remat="full"`` (item 8).  The reference's ``shard_activation`` and
+as is ``remat="full"`` (item 7).  The reference's ``shard_activation`` and
 ``shard_logits`` are the identity without a device mesh, and the one-card
 port has none.
 """
@@ -23,8 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
-                                       init_mlp, init_rmsnorm,
-                                       logits_from_hidden, mlp, rmsnorm)
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
+                                       take_rows, token_nll)
 from repro_torch.models.moe import init_moe, moe
 
 
@@ -149,8 +150,8 @@ def _stack_caps(per_layer: list):
 
 def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
                       capspecs: Optional[dict], impl: str):
-    """One DFS forward with gateway inputs and captures (the session's
-    parallel prefill).
+    """One DFS forward with gateway inputs and captures (a partition wave,
+    and the session's parallel prefill).
 
     gw_in: None or {"g{i}": {"attn": {k, v}}} with a leading layer dim per
     group; ``batch["anc_pos"]``/``["anc_valid"]`` give the ancestors'
@@ -185,7 +186,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     if cfg.remat != "none":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet; see ROADMAP.md Queue A "
-            f"item 8")
+            f"item 7")
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid")}
     x = embed(params["embed"], batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -197,6 +198,39 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
+def _token_nll(params: dict, hidden: torch.Tensor, pos: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """CE of ``labels`` [B, T] from the hidden rows at ``pos`` [B, T]
+    (fp32 logits a chunk at a time; ``take_rows`` keeps the backward
+    deterministic)."""
+    h = take_rows(hidden, pos.long())
+    return token_nll(params["embed"], params.get("lm_head"), h, labels)
+
+
+def partition_loss(cfg: ModelConfig, params: dict, batch: dict, gw_in,
+                   capspecs: Optional[dict], impl: str = "kernel"):
+    """Loss *sum* for one partition (λ already full-tree) + boundary
+    losses: child partitions' first tokens are predicted by this
+    partition's hidden states at the cut nodes (``extra_pos``/``_label``/
+    ``_weight``).  Returns ((loss, captures), metrics), the metrics
+    tensors on the device: ``nll_sum`` the token CE (no MoE aux),
+    ``weight_sum`` the weights including the boundary ones."""
+    hidden, aux, caps = partition_forward(cfg, params, batch, gw_in,
+                                          capspecs, impl)
+    prev = batch["prev_idx"]
+    w = torch.where(prev >= 0, batch["weight"], 0.0)
+    loss = torch.sum(w * _token_nll(params, hidden, prev.clamp_min(0),
+                                    batch["tokens"]))
+    weight_sum = torch.sum(w)
+    if "extra_pos" in batch and batch["extra_pos"].shape[-1] > 0:
+        nll_b = _token_nll(params, hidden, batch["extra_pos"],
+                           batch["extra_label"])
+        loss = loss + torch.sum(batch["extra_weight"] * nll_b)
+        weight_sum = weight_sum + torch.sum(batch["extra_weight"])
+    metrics = {"weight_sum": weight_sum, "nll_sum": loss}
+    return (loss + aux, caps), metrics
+
+
 def loss_and_metrics(cfg: ModelConfig, params: dict, batch: dict,
                      impl: str = "kernel") -> tuple[torch.Tensor, dict]:
     """Tree loss (Eq. 4): Σ_t λ_t · CE(logits[prev(t)], token_t) / #trees.
@@ -204,13 +238,7 @@ def loss_and_metrics(cfg: ModelConfig, params: dict, batch: dict,
     hidden, aux = forward(cfg, params, batch, impl)
     prev = batch["prev_idx"]
     w = torch.where(prev >= 0, batch["weight"], 0.0)
-    idx = prev.clamp_min(0).long()[..., None]
-    h_prev = torch.gather(hidden, 1, idx.expand(-1, -1, hidden.shape[-1]))
-    logits = logits_from_hidden(params["embed"], params.get("lm_head"),
-                                h_prev)
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, batch["tokens"].long()[..., None])[..., 0]
-    nll = lse - lab
+    nll = _token_nll(params, hidden, prev.clamp_min(0), batch["tokens"])
     nll_sum = torch.sum(w * nll)
     weight_sum = torch.sum(w)
     loss = nll_sum / float(batch.get("num_trees", 1))

@@ -348,3 +348,38 @@ def test_cuda_moe_train_step_makes_no_hidden_sync(dev):
             tab.bwd_dkv.launches) == tuple(c + cfg.n_layers for c in counts)
     assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"]) > 0
     assert params["layer_stacks"][0]["moe"]["router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("waves", [False, True], ids=["packed", "waves"])
+def test_cuda_engine_grads_bit_identical_over_two_runs(dev, waves):
+    """Qwen2-1.5B at smoke width in bf16: ``TreeTrainEngine.accumulate``
+    twice from the same parameters and plan gives bit-identical gradients
+    on every leaf and identical scalars — on a packed plan and on a plan
+    whose oversized trees train on partition waves (capacity 256, rows of
+    512).  Both runs make no host sync (``set_sync_debug_mode("error")``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import LoaderConfig
+    from repro_torch.device import tree_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.train.engine import TreeTrainEngine
+    from repro_torch.train.planner import plans
+    cfg = get_config("qwen2_1p5b", smoke=True).replace(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    lc = LoaderConfig(seq_len=512, batch_rows=2, trees_per_batch=6,
+                      auto_partition=waves, capacity=256,
+                      gen_kwargs=dict(turn_len_range=(8, 48), num_turns=4))
+    plan = next(p for p in (ps.execution_plan() for ps in plans(cfg, lc, 8))
+                if (p.has_waves if waves else not p.is_empty))
+    engine = TreeTrainEngine(cfg)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs.append(engine.accumulate(params, plan))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    (g1, s1), (g2, s2) = runs
+    assert torch.equal(s1, s2) and bool(torch.isfinite(s1).all())
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2), strict=True):
+        assert torch.equal(a, b)

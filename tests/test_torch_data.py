@@ -1,6 +1,7 @@
 """The training slice's copies of JAX-free reference modules, held against
 their originals exactly: tree statistics and ``linearize_paths``, the tree
-generators (``random``, ``agentic``, ``grpo``) through ``trees_for_batch``
+generators (``random``, ``agentic``, ``grpo``, and ``chain``, ``por``,
+``template``) through ``trees_for_batch``
 and ``tree_stream``, the packers (``plan_tree_rows``, ``pack_trees``,
 ``pack_linear_paths`` in every loss mode) and the Qwen1.5-0.5B config."""
 import dataclasses
@@ -59,9 +60,20 @@ def test_generated_trees_and_their_paths_match_jax(kind):
 
 
 def test_unported_generators_raise_with_roadmap_item():
+    """The generators this once named as unported (chain, por, template)
+    are ported now: each gives the reference's trees; an unknown kind
+    still raises."""
+    kw = {"chain": dict(length=4), "por": dict(target_por=0.5),
+          "template": dict(num_templates=2, template_len=24)}
     for kind in ("chain", "por", "template"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsyn.trees_for_batch(0, n_trees=1, kind=kind)
+        ja = jsyn.trees_for_batch(3, n_trees=3, kind=kind, **kw[kind])
+        tb = tsyn.trees_for_batch(3, n_trees=3, kind=kind, **kw[kind])
+        for a, b in zip(ja, tb, strict=True):
+            np.testing.assert_array_equal(jax_serialize(a).tokens,
+                                          serialize_tree(b).tokens)
+            assert a.por() == b.por()
+    with pytest.raises(KeyError):
+        tsyn.trees_for_batch(0, n_trees=1, kind="no-such-kind")
 
 
 def test_tree_stream_matches_jax():
@@ -113,7 +125,7 @@ def test_pack_linear_paths_matches_jax(kind, mode):
 
 def test_packers_refuse_ssm_chunks():
     _, tt = _trees("random")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
         tpack.pack_trees([serialize_tree(t) for t in tt], 1024, chunk_size=8)
 
 

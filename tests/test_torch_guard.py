@@ -146,7 +146,7 @@ def test_cpu_train_step_launches_no_kernel():
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     lc = LoaderConfig(seq_len=512, batch_rows=2, trees_per_batch=6,
                       gen_kwargs=dict(turn_len_range=(8, 48), num_turns=4))
-    plan = next(p for p in plans(cfg, lc, 4, device="cpu")
+    plan = next(p for p in (ps.execution_plan() for ps in plans(cfg, lc, 4))
                 if not p.is_empty)
     engine = TreeTrainEngine(cfg, OptimizerConfig(), impl="kernel")
     counts = (ta.tree_attention.launches, tab.bwd_dq.launches,
@@ -169,7 +169,7 @@ def test_training_entry_points_default_to_the_kernel_op(monkeypatch, capsys):
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     lc = LoaderConfig(seq_len=512, batch_rows=2, trees_per_batch=6,
                       gen_kwargs=dict(turn_len_range=(8, 48), num_turns=4))
-    plan = next(p for p in plans(cfg, lc, 4, device="cpu")
+    plan = next(p for p in (ps.execution_plan() for ps in plans(cfg, lc, 4))
                 if not p.is_empty)
     TreeTrainEngine(cfg, OptimizerConfig()).step(
         params, init_opt_state(params), plan)

@@ -54,6 +54,18 @@ def test_launcher_runs_to_finite_losses(tmp_path, extra):
     assert f"({len(hist)} host syncs / {len(hist)} steps)" in out
 
 
+def test_launcher_auto_partition_trains_long_turn_trees(tmp_path):
+    """``--turns``/``--turn-len`` make agentic trees larger than a row of
+    512, and ``--auto-partition`` trains them through partition waves with
+    none dropped and one host sync a step."""
+    out = _train("--steps", "2", "--seq-len", "512", "--auto-partition",
+                 "--turns", "3", "--turn-len", "64", "192", cwd=tmp_path)
+    part = [ln for ln in out.splitlines() if "partitioned:" in ln]
+    assert len(part) == 1 and part[0].endswith(" 0 dropped"), out
+    assert int(part[0].split("partitioned:")[1].split()[0]) > 0, out
+    assert "(2 host syncs / 2 steps)" in out, out
+
+
 def test_resume_from_step_2_is_bit_exact(tmp_path):
     """Steps 0-1 are warmup steps, whose lr does not depend on
     --steps, so a 2-step run saves the state a 4-step run has after its

@@ -6,8 +6,6 @@ tests/test_equivalence.py:57-62), the paper's tree ≡ per-branch identity
 and decay mask, and three engine steps (1e-5 relative) with one host sync
 per step.  JAX runs its Pallas kernels in interpret mode where ``impl`` is
 "pallas"; the port's "kernel" path takes the plain versions on the CPU."""
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -335,8 +333,11 @@ def test_engine_warmup_updates_without_a_host_sync():
 
 
 def test_with_acc_execution_matches_jax():
-    """The accumulating execution (used when a step has several): grads
-    added into a nonzero fp32 accumulator and scalars into a vector."""
+    """The accumulating execution: grads streamed into a nonzero fp32
+    accumulator and scalars into a vector; into an empty accumulator the
+    streamed grads equal the fp32 cast of the plain backward's bit for bit
+    (0 + g ≡ g)."""
+    from repro_torch.core.gateway import acc_tree, grad_slots
     jcfg, jp, tcfg, tp = _setup("tiny_dense")
     (jplan, tplan), = _plans(jcfg, tcfg, "sep_avg", (5,))
     acc = _rand_tree(jp, 9)
@@ -345,23 +346,74 @@ def test_with_acc_execution_matches_jax():
         jp, jb, jax.tree.map(jnp.asarray, acc), jnp.ones(3, jnp.float32))
     tb = dict(tplan.packed.inputs, num_trees=3)
     tacc, tscal = tengine._packed_exec_fn(tcfg, "ref")(
-        tp, tb, params_from_jax(acc, "cpu"), torch.ones(3))
+        tp, tb, tree_leaves(params_from_jax(acc, "cpu")), torch.ones(3))
     np.testing.assert_allclose(tscal.numpy(), np.asarray(jscal), rtol=1e-5)
-    assert _max_rel_grads(tacc, jacc) < 1e-4
-    f1 = tengine._packed_exec_fn(tcfg, "ref", with_acc=False)
-    g1, s1 = f1(tp, tb, torch.zeros(3))
-    zero = map_tree(torch.zeros_like, g1)
-    g2, s2 = tengine._packed_exec_fn(tcfg, "ref")(tp, tb, zero, torch.zeros(3))
-    for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
-        assert torch.equal(a, b)                # 0 + g ≡ g exactly
-    assert torch.equal(s1, s2)
+    assert _max_rel_grads(acc_tree(tp, tacc), jacc) < 1e-4
+    loss, metrics, g1 = value_and_grad(tcfg, tp, tb, "ref")
+    g2, s2 = tengine._packed_exec_fn(tcfg, "ref")(tp, tb, grad_slots(tp),
+                                                  torch.zeros(3))
+    for a, b in zip(tree_leaves(g1), tree_leaves(acc_tree(tp, g2))):
+        assert torch.equal(a.float(), b)        # 0 + g ≡ g exactly
+    assert torch.equal(s2, torch.stack([loss, metrics["nll_sum"],
+                                        metrics["weight_sum"]]).float())
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_chunked_token_nll_matches_the_plain_loss(tied):
+    """``layers.token_nll`` (fp32 logits a few rows at a time, recomputed
+    in the backward) against the plain expression logsumexp − label logit
+    on full logits: values and the grads of h and of the head at 1e-5
+    relative (f32, 7 rows in chunks of 3, 3 and 1)."""
+    from repro_torch.models.layers import token_nll
+    rng = np.random.default_rng(0)
+    D, V = 16, 50
+    h = torch.tensor(rng.normal(size=(1, 7, D)), dtype=torch.float32,
+                     requires_grad=True)
+    w = torch.tensor(rng.normal(size=(V, D) if tied else (D, V)) * 0.3,
+                     dtype=torch.float32, requires_grad=True)
+    labels = torch.tensor(rng.integers(0, V, size=(1, 7)))
+    g = torch.tensor(rng.normal(size=(1, 7)), dtype=torch.float32)
+    emb, head = ({"table": w}, None) if tied else ({"table": None},
+                                                   {"w": w})
+    got = token_nll(emb, head, h, labels, chunk=3 * V)
+    dh, dw = torch.autograd.grad(got, (h, w), g)
+    logits = h @ (w.T if tied else w)
+    want = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, labels[..., None])[..., 0]
+    rh, rw = torch.autograd.grad(want, (h, w), g)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dh, rh, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dw, rw, rtol=1e-5, atol=1e-6)
+
+
+def test_engine_grads_are_freed_without_the_cycle_collector():
+    """The fp32 gradients ``accumulate`` returns are freed as soon as the
+    caller drops them, with Python's cycle collector off: nothing on the
+    step's path (``unflatten_like``, the gradient slots, the backward's
+    hooks) keeps them in a reference cycle, which on the card held one
+    extra gradient set per step until a collection ran."""
+    import gc
+    import weakref
+    jcfg, _, tcfg, tp = _setup("tiny_dense")
+    (_, tplan), = _plans(jcfg, tcfg, "sep_avg", (5,))
+    engine = tengine.TreeTrainEngine(tcfg)
+    gc.collect()
+    gc.disable()
+    try:
+        g, s = engine.accumulate(tp, tplan)
+        refs = [weakref.ref(x) for x in tree_leaves(g)]
+        del g, s
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_plan_with_partition_waves_raises():
-    jcfg, _, tcfg, tp = _setup("tiny_dense")
-    (_, tplan), = _plans(jcfg, tcfg, "sep_avg", (5,))
-    tplan.partition = types.SimpleNamespace(waves=[object()], num_trees=1)
-    engine = tengine.TreeTrainEngine(tcfg, topt.OptimizerConfig())
+    """Partition waves run now (tests/test_torch_waves.py); what still
+    raises is a wave plan for a family whose gateway is not ported (the
+    SSM contexts, ROADMAP.md Queue A item 4)."""
+    from repro_torch.core.gateway import build_partition_plan
+    tcfg = config_from_jax(tiny_cfg("ssm_mamba2"))
+    trees = trees_for_batch(5, n_trees=2, kind="random", vocab_size=89)
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        engine.step(tp, topt.init_opt_state(tp), tplan)
-    assert engine.host_syncs == 0
+        build_partition_plan(tcfg, trees, 16, seq_len=32)
