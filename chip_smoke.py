@@ -108,11 +108,36 @@ the dense model's tensors are freed:
                   relative L2 1e-4, routing flips counted; then, not
                   checked, tree vs baseline at the real capacity factor.
  17. moe timing T — phase 11's training-shape timing at T_moe.
+Then the rest of the dense and MoE archs (Qwen3-8B, Qwen3-32B, Llama-4
+Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
+ 18. arch kernel, arch bwd kernel — phases 2-3 at each of their attention
+                  layouts (H 32, 64 and 40 over Kh 8 at hd 128 on the
+                  Hopper path; H 96/Kh 8 at hd 192 on the simple kernels,
+                  bf16 and f32), at the serving prefill shape (S 1024, B 1)
+                  and at the train rows (B 2, S 4096, real kv_last).  The
+                  plain versions run by whole GQA groups where their dense
+                  scores would pass 4 GB.
+ 19. <arch> serve — each arch at full width and the deepest cut whose bf16
+                  weights fit 69 GB (the head and each layer reckoned by
+                  kind), random weights: one rollout group, the multi-turn
+                  session, decode tokens/s beside the bound of reading
+                  every weight once a step, a profiled decode step; then
+                  parity (b), the session replayed through the plain
+                  attention in bf16 at that depth: every call's logits at
+                  relative L2 ≤ 3e-2 (dense), or phase 13's checks (MoE).
+ 20. <arch> parity — phase 14's check (a) in f32 at the deepest cut that
+                  fits, at most 4 layers (Kimi K2: its dense layer only).
+ 21. qwen3_32b train — phase 6 at the deepest cut whose weights, fp32
+                  grads and AdamW state (14 bytes a parameter) and 1.9 GB
+                  of activations a layer fit 60 GB: 2 SFT steps, 1 RL step;
+                  then phase 7's check on a packed plan.
+ 22. timing <layout> — phase 11's training-shape timing at each layout, at
+                  the serving prefill shape and the train rows.
 
 The line before the last names the card and its power limit; the one before
-it lists the kernels (each with its MoE-shape numbers under ``moe`` and its
-W numbers under ``wave``); the last line is ``{"ok": true, "device":
-{...}}``.
+it lists the kernels (each with its MoE-shape numbers under ``moe``, its
+W numbers under ``wave`` and the five archs' layouts under ``archs``); the
+last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
 """
 from __future__ import annotations
@@ -189,10 +214,23 @@ WAVE_GEN = dict(num_turns=3, turn_len_range=(256, 1536), max_parallel_tools=2)
 WAVE_BATCHES, WAVE_TREES, WAVE_SEED, WAVE_LOOKAHEAD = 4, 2, 1, 2
 WAVE_MIN_ANC = 2048           # some gateway wave must carry this many
 PARITY_CAP, PARITY_ROW, PARITY_TOKENS = 2048, 8192, (6000, 8000)
-# the MoE model (Qwen3-30B-A3B): its attention heads, the depth it trains
-# at, and the memory its serving weights and work may take
+# the MoE model (Qwen3-30B-A3B): its attention heads and the depth it
+# trains at; a serving run's weights and work may take PEAK_LIMIT of the
+# card, 6 GB of it for the caches, activations and parity replays
 MOE_ARCH, MOE_HEADS, MOE_TRAIN_LAYERS = "qwen3_30b_a3b", (32, 4), 2
-MOE_PEAK_LIMIT = 75e9
+PEAK_LIMIT, SERVE_WORK = 75e9, 6e9
+# the rest of the dense and MoE archs: each serves at the deepest cut that
+# fits and is held in f32 at up to PARITY_LAYERS layers; Qwen3-32B also
+# trains at the deepest cut whose bf16 weights, fp32 grads and AdamW state
+# (14 bytes a parameter) and saved activations (TRAIN_ACT_BYTES a layer at
+# 2 rows of 4096) fit TRAIN_LIMIT, 2 SFT steps and 1 RL step
+ARCHS = ("qwen3_8b", "qwen3_32b", "llama4_scout_17b_a16e", "kimi_k2_1t_a32b",
+         "nemotron_4_340b")
+TRAIN_ARCH, TRAIN_LIMIT, TRAIN_ACT_BYTES = "qwen3_32b", 60e9, 1.9e9
+PARITY_LAYERS = 4
+# a plain version runs on whole GQA groups of at most this many score
+# elements (4 GB in f32) a call
+PLAIN_CHUNK = 1 << 30
 DEV = "cuda"
 CARD = ""
 # the profile's kernel families, by a substring of the kernel's name; the
@@ -367,6 +405,46 @@ def moe_kernel_cases(train_kv_last):
     return cases
 
 
+def arch_layouts() -> list:
+    """[(archs, H, Kh, hd)]: each attention layout of ARCHS once, with
+    the archs that run it."""
+    out: dict = {}
+    for arch in ARCHS:
+        a = get_config(arch).attn
+        out.setdefault((a.n_heads, a.n_kv_heads, a.head_dim), []).append(arch)
+    return [(names, *lay) for lay, names in out.items()]
+
+
+def layout_tag(H: int, Kh: int, hd: int) -> str:
+    return f"H {H}/Kh {Kh} hd {hd}"
+
+
+def arch_kernel_cases(train_kv_last):
+    """Each layout of ``arch_layouts`` at the serving prefill shape (S
+    1024, B 1), the session's tool prefill (B 8, S 200 after 1056 cached
+    keys: the q_off path) and the train rows (``train_kv_last``: B 2, S
+    4096, real kv_last), in bf16 (the Hopper path at hd 64/128) and, where
+    bf16 takes the simple kernels (hd 192), in f32 too."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    add = case_adder(np.random.default_rng(40), cases)
+    B, S = train_kv_last.shape
+    tool = np.concatenate([np.full((8, 1056), BIG), np.full((8, 200), 1255)],
+                          1)
+    for names, H, Kh, hd in arch_layouts():
+        hopper = hd in ta.HOPPER_HEAD_DIMS
+        lay = (f"{layout_tag(H, Kh, hd)} ({', '.join(names)}; "
+               f"{'Hopper' if hopper else 'simple'} kernels in bf16)")
+        for dt in (bf16,) if hopper else (bf16, f32):
+            add(f"{lay} path: prefill S=1024 {dt}", dt, 1, 1024, H, Kh, hd,
+                np.full((1, 1024), 1023))
+            add(f"{lay} path: tool prefill S=200 q_off=1056 {dt}", dt, 8, 200,
+                H, Kh, hd, tool, q_off=1056)
+            add(f"{lay} train rows (B={B}, S={S}) {dt}", dt, B, S, H, Kh, hd,
+                train_kv_last)
+    return cases
+
+
 def close(a: torch.Tensor, b: torch.Tensor, tol: float):
     a, b = a.float(), b.float()
     err = (a - b).abs()
@@ -393,12 +471,48 @@ def close_bf16(o: torch.Tensor, ref: torch.Tensor):
     return ok, float(err.max()), rel
 
 
+def kv_head_chunks(q, k) -> list:
+    """(query-head slice, kv-head slice) pairs of whole GQA groups, each
+    with at most PLAIN_CHUNK dense scores [B, Kh', G, S, Skv]: the plain
+    versions materialise them, and a group's heads see no other group's
+    keys, so the chunks' results are the whole call's."""
+    B, S, H, _ = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    per = max(1, PLAIN_CHUNK // (B * G * S * Skv))
+    return [(slice(j * G, min(j + per, Kh) * G), slice(j, min(j + per, Kh)))
+            for j in range(0, Kh, per)]
+
+
 def plain(q, k, v, *args, f32: bool = False, **kw):
     """The kernel's plain version, in the inputs' dtype or (``f32``) in f32
-    from the same values."""
+    from the same values; by whole GQA groups where the dense scores would
+    pass PLAIN_CHUNK."""
     if f32:
         q, k, v = q.float(), k.float(), v.float()
-    return tree_attention_ref_ext(q, k, v, *args, **kw)
+    chunks = kv_head_chunks(q, k)
+    if len(chunks) == 1:
+        return tree_attention_ref_ext(q, k, v, *args, **kw)
+    parts = [tree_attention_ref_ext(q[:, :, hs], k[:, :, ks], v[:, :, ks],
+                                    *args, **kw) for hs, ks in chunks]
+    if kw.get("return_lse"):
+        return (torch.cat([p[0] for p in parts], 2),
+                torch.cat([p[1] for p in parts], 1))
+    return torch.cat(parts, 2)
+
+
+def plain_bwd(q, k, v, kv_last, o, lse, do, scale, **kw):
+    """The backward kernels' plain version (``tree_attention_bwd_ref``),
+    by whole GQA groups where the dense scores would pass PLAIN_CHUNK."""
+    chunks = kv_head_chunks(q, k)
+    if len(chunks) == 1:
+        return tree_attention_bwd_ref(q, k, v, kv_last, o, lse, do, scale,
+                                      **kw)
+    parts = [tree_attention_bwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks],
+                                    kv_last, o[:, :, hs], lse[:, hs],
+                                    do[:, :, hs], scale, **kw)
+             for hs, ks in chunks]
+    return tuple(torch.cat([p[i] for p in parts], 2) for i in range(3))
 
 
 def hold(tag: str, o, ref32, lse=None, lse32=None, o_bf16=None,
@@ -648,8 +762,8 @@ def phase_bwd_kernel(cases) -> dict:
             got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
             again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
             torch.cuda.synchronize()
-            want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
-                                          o.float(), lse, do.float(), sc, **kw)
+            want = plain_bwd(q.float(), k.float(), v.float(), kl, o.float(),
+                             lse, do.float(), sc, **kw)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             dead = kl < 0                   # keys no query sees
             zero = not bool(got[1][dead].any()) and not bool(got[2][dead].any())
@@ -733,7 +847,10 @@ def multiturn(cfg, params, impl: str, gen=None, record=None,
     return fed, logits, timing
 
 
-def phase_serve(cfg, params, tag: str = "serve"):
+def phase_serve(cfg, params, tag: str = "serve", groups: int = 4):
+    """``groups`` rollout groups, the multi-turn session and a profiled
+    decode step.  Returns (the session's fed tokens, its logits, its
+    timing, the run's forward launches)."""
     rc = RolloutConfig(k=8, prompt_len=1024, max_new=64, temperature=1.0)
     gen = torch.Generator(DEV).manual_seed(1)
     rng = np.random.default_rng(7)
@@ -741,7 +858,7 @@ def phase_serve(cfg, params, tag: str = "serve"):
     n_prefill = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for g in range(4):
+        for g in range(groups):
             prompt = rng.integers(0, cfg.vocab_size, rc.prompt_len)
             tree, st = rollout_group(cfg, params, prompt, rc, gen)
             n_prefill += 1
@@ -759,15 +876,17 @@ def phase_serve(cfg, params, tag: str = "serve"):
         n_prefill += 2
     counts = launch_counts()
     launches = counts["tree_attention_fwd"]
-    log(f"{tag}: 4 rollout groups (prompt {rc.prompt_len}, k {rc.k}, "
-        f"max_new {rc.max_new}) in {t_groups:.3f} s ({t_groups / 4:.3f} s a "
-        f"group; prefill_tokens == prompt_len in each); multi-turn session: "
+    log(f"{tag}: {groups} rollout group{'s' * (groups > 1)} (prompt "
+        f"{rc.prompt_len}, k {rc.k}, max_new {rc.max_new}) in {t_groups:.3f} "
+        f"s ({t_groups / groups:.3f} s a group; prefill_tokens == prompt_len "
+        f"in each); multi-turn session: "
         f"prefill {tm['prefill_tok'] / tm['prefill_s']:.1f} tokens/s "
         f"({tm['prefill_tok']} tokens in {tm['prefill_s']:.4f} s), decode "
         f"{tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
         f"({tm['decode_tok']} tokens in {tm['decode_s']:.4f} s)")
     log(f"{tag}: kernel launches {counts} (forward = {cfg.n_layers} layers "
-        f"x {n_prefill} parallel prefills; no backward)")
+        f"x {n_prefill} parallel prefills: {launches / cfg.n_layers:g} a "
+        f"layer, 1 a layer per prefill; no backward)")
     check(launches == cfg.n_layers * n_prefill,
           f"kernel launches {launches} != {cfg.n_layers} x {n_prefill}")
     check(counts["tree_attention_bwd_dq"] == counts["tree_attention_bwd_dkv"]
@@ -1581,6 +1700,35 @@ class RoutingLog:
         return dropped, total
 
 
+class PinnedRouting:
+    """While active, the i-th MoE layer call routes each token to the
+    experts that the i-th call recorded in ``log`` chose for it, weighted
+    by this call's own router probabilities of those experts
+    (renormalised): a replay then makes the recorded run's routing and
+    capacity drops, and differs from it only where the layers' inputs do,
+    not by whole experts where a near-tie flipped."""
+
+    def __init__(self, log: RoutingLog):
+        self.log, self.i = log, 0
+
+    def __enter__(self):
+        real = self._real = moe_layer.route
+
+        def pinned(params, mcfg, xf):
+            logits, probs, _, _ = real(params, mcfg, xf)
+            top_e = self.log.calls[self.i][2]
+            self.i += 1
+            top_p = torch.gather(probs, 1, top_e)
+            return logits, probs, top_p / torch.clamp(
+                top_p.sum(-1, keepdim=True), min=1e-9), top_e
+
+        moe_layer.route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        moe_layer.route = self._real
+
+
 def flipped_tokens(a: RoutingLog, b: RoutingLog) -> list:
     """Per MoE call of two runs over the same inputs: the [N] bool of valid
     tokens whose top-k expert set differs."""
@@ -1594,51 +1742,100 @@ def share(n: int, d: int) -> str:
     return f"{n} of {d} ({100 * n / max(d, 1):.3f}%)"
 
 
-def moe_serve_depth(cfg) -> int:
-    """The deepest cut of ``cfg`` whose bf16 weights, with 6 GB for the
-    caches, activations and the parity replays, stay under
-    ``MOE_PEAK_LIMIT``."""
-    one = cfg.replace(n_layers=1)
-    head = cfg.replace(n_layers=0).param_count() * 2
-    per_layer = one.param_count() * 2 - head \
-        + 2 * cfg.d_model * cfg.moe.num_experts        # the fp32 router
-    return min(cfg.n_layers, int((MOE_PEAK_LIMIT - 6e9 - head) // per_layer))
+def head_bytes(cfg) -> int:
+    """Bytes of the weights outside the layers, as ``init_params`` makes
+    them: the embedding and LM head over the padded vocabulary, and the
+    final norm."""
+    n = cfg.padded_vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return (n + cfg.d_model) * (2 if cfg.dtype == "bfloat16" else 4)
 
 
-def phase_moe_serve(cfg_full):
-    """Qwen3-30B-A3B at full width and the deepest cut that fits (all 48
-    layers on an 80 GB card): the serve phase's rollout groups and session,
-    then teacher-forced replays of the session up to its second prefill
-    with the kernels and with the plain attention, recording the routing: the dropped share of
-    (token, slot) pairs, prefill logits parity in bf16 and the routing
-    agreement.  Returns (the serve run's forward launches, the depth)."""
-    L = moe_serve_depth(cfg_full)
-    cfg = cfg_full.replace(n_layers=L)
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
-    torch.cuda.synchronize()
-    cut = "" if L == cfg_full.n_layers else (
-        f" (reduced: {L} of {cfg_full.n_layers} layers fit "
-        f"{MOE_PEAK_LIMIT / 1e9:.0f} GB)")
-    log(f"moe serve: {cfg.name} {L} layers{cut} d {cfg.d_model} heads "
-        f"{cfg.attn.n_heads}/{cfg.attn.n_kv_heads} hd {cfg.attn.head_dim} "
-        f"qk_norm, {cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_expert "
-        f"{cfg.moe.d_expert} capacity factor {cfg.moe.capacity_factor}, "
-        f"{cfg.dtype} (router fp32): {cfg.param_count() / 1e9:.3f} B params, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, random weights in "
-        f"{time.perf_counter() - t0:.2f} s")
-    calls, logits, tm, launches = phase_serve(cfg, params, "moe serve")
-    # a decode step multiplies every expert at capacity 1: it reads every
-    # weight but the embedding table
+def layer_bytes(cfg, kind: str) -> int:
+    """Bytes of one ``kind`` ('dense' or 'moe') layer's weights, as
+    ``init_params`` makes them (an MoE layer's router is fp32)."""
+    D, a = cfg.d_model, cfg.attn
+    n = 2 * D + 2 * D * a.q_dim + 2 * D * a.kv_dim
+    n += (a.q_dim + 2 * a.kv_dim) * a.qkv_bias + 2 * a.head_dim * a.qk_norm
+    mult = 3 if cfg.mlp_activation == "swiglu" else 2
+    router = 0
+    if kind == "moe":
+        m = cfg.moe
+        n += (m.num_experts + m.num_shared_experts) * mult * D * m.d_expert
+        router = 4 * D * m.num_experts
+    else:
+        n += mult * D * cfg.d_ff + (cfg.d_ff + D) * cfg.mlp_bias
+    return n * (2 if cfg.dtype == "bfloat16" else 4) + router
+
+
+def fit_depth(cfg, limit: float, scale: float = 1.0,
+              per_layer: float = 0.0) -> int:
+    """The deepest cut of ``cfg`` (its layers in order, the leading dense
+    ones first) for which ``scale`` × the weights' bytes, plus
+    ``per_layer`` bytes a layer, stay within ``limit``.  The head and each
+    layer are reckoned directly (``head_bytes``, ``layer_bytes``), not as
+    ``param_count`` differences, which go negative for a cut above
+    ``first_dense_layers``."""
+    used, depth = scale * head_bytes(cfg), 0
+    for kind, n in layer_groups(cfg):
+        for _ in range(n):
+            used += scale * layer_bytes(cfg, kind) + per_layer
+            if used > limit:
+                return depth
+            depth += 1
+    return depth
+
+
+def serve_depth(cfg) -> int:
+    """The deepest cut whose weights, with SERVE_WORK for the caches,
+    activations and parity replays, stay within PEAK_LIMIT."""
+    return fit_depth(cfg, PEAK_LIMIT - SERVE_WORK)
+
+
+def weights_match(cfg, params) -> bool:
+    """Whether ``head_bytes`` and ``layer_bytes`` count the model's
+    weights to the byte."""
+    got = sum(t.numel() * t.element_size() for _, t in flatten_tree(params))
+    return got == head_bytes(cfg) + sum(
+        n * layer_bytes(cfg, kind) for kind, n in layer_groups(cfg))
+
+
+def decode_bound(cfg, params, tm, tag: str) -> None:
+    """Log the session's decode rate against its bound: a decode step of 8
+    branches reads every weight but the embedding table once (an MoE
+    layer multiplies every expert, at capacity 1)."""
     step_bytes = sum(t.numel() * t.element_size()
                      for p, t in flatten_tree(params) if p[0] != "embed")
     bound_s = step_bytes / PEAK_BYTES
-    log(f"moe serve: decode {tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
+    cap = ("" if cfg.moe is None else
+           f" (every expert multiplies at capacity "
+           f"{moe_layer.capacity(8, cfg.moe)})")
+    log(f"{tag}: decode {tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
         f"(8 branches, {tm['decode_s'] / (tm['decode_tok'] / 8) * 1e3:.2f} ms "
         f"a step) against its bound: a step reads {step_bytes / 1e9:.2f} GB "
-        f"of weights (every expert multiplies at capacity "
-        f"{moe_layer.capacity(8, cfg.moe)}), >= {bound_s * 1e3:.2f} ms at "
+        f"of weights{cap}, >= {bound_s * 1e3:.2f} ms at "
         f"{PEAK_BYTES / 1e12:.2f} TB/s, so at most {8 / bound_s:.1f} tokens/s")
+
+
+def moe_serve_checks(cfg, params, calls, logits, tag: str) -> None:
+    """Teacher-forced replays of the session up to its second prefill,
+    through the kernels and the plain attention, with the routing
+    recorded: the dropped share of (token, slot) pairs and the routing
+    balance, then bf16 parity (b), four checks:
+
+    - pinned: every call's logits at relative L2 ≤ 5e-2 against a third
+      replay, through the plain attention with the kernel replay's routing
+      pinned (``PinnedRouting``): the attention alone, at equal routing;
+    - unpinned, where top-k > 1: the prefill calls' logits at relative L2
+      ≤ 5e-2 against the plain replay that routes for itself.  With top-1 a
+      near-tie that the two attentions' rounding flips replaces the
+      token's whole routed FFN output, and each later layer compounds it,
+      so a top-1 arch's unpinned logits are reported, not checked;
+    - routing agreement at the prompt's first MoE layer, where no earlier
+      flip has compounded: ≥ 95% of its tokens choose the same experts;
+    - where top-k = 1: the prefill calls' routing agreement over every
+      (token, MoE layer) ≥ 90%.
+
+    A kernel fault that moves the routing fails the last three."""
     with torch.inference_mode():
         # the replays end at the second prefill: both prefills and the 32
         # decode steps between them
@@ -1648,8 +1845,15 @@ def phase_moe_serve(cfg_full):
         with RoutingLog() as rr:
             _, lr, _ = multiturn(cfg, params, "ref", record=calls,
                                  tail_steps=0)
+        with PinnedRouting(rk) as pin:
+            _, lp, _ = multiturn(cfg, params, "ref", record=calls,
+                                 tail_steps=0)
+    check(pin.i == len(rk.calls), f"{tag}: the pinned replay made "
+          f"{pin.i} MoE calls, the kernel replay {len(rk.calls)}")
     same = all(torch.equal(a, b) for a, b in zip(lk, logits))
     pre = [i for i, k in enumerate(tmk["kinds"]) if k == "prefill"]
+    e_pin = max(rel_l2(a, b) for a, b in zip(lk, lp))
+    e_pin_pre = max(rel_l2(lk[i], lp[i]) for i in pre)
     e_pre = max(rel_l2(lk[i], lr[i]) for i in pre)
     e_all = max(rel_l2(a, b) for a, b in zip(lk, lr))
     flips = flipped_tokens(rk, rr)
@@ -1657,43 +1861,114 @@ def phase_moe_serve(cfg_full):
     n_dec = sum(int(f.sum()) for f, c in zip(flips, rk.calls) if c[1] == 1)
     d_pre = sum(int(c[4].sum()) for c in rk.calls if c[1] > 1)
     d_dec = sum(int(c[4].sum()) for c in rk.calls if c[1] == 1)
-    log(f"moe serve: share of (token, slot) pairs dropped (capacity "
+    log(f"{tag}: share of (token, slot) pairs dropped (capacity "
         f"{cfg.moe.capacity_factor} x N·K/E per call, N the call's tokens): "
         f"prefill {share(*rk.drop_share(False))}, decode "
         f"{share(*rk.drop_share(True))} (capacity "
         f"{moe_layer.capacity(8, cfg.moe)} at 8 branches)")
-    busy = rk.busiest(0, L)     # the prompt's prefill, layer by layer
+    n_moe = sum(n for kind, n in layer_groups(cfg) if kind == "moe")
+    busy = rk.busiest(0, n_moe)     # the prompt's prefill, layer by layer
+    by_layer = [int(f.sum()) for f in flips[:n_moe]]
     m = cfg.moe
-    log(f"moe serve: routing balance of the prompt's prefill (1024 tokens, "
+    log(f"{tag}: routing balance of the prompt's prefill (1024 tokens, "
         f"top-{m.top_k} of {m.num_experts}: "
         f"{100 * m.top_k / m.num_experts:.2f}% each if uniform, capacity "
         f"{100 * moe_layer.capacity(1024, m) / 1024:.2f}%): "
         f"the busiest expert takes {100 * busy[0]:.1f}% of the tokens at "
-        f"layer 0, {100 * statistics.median(busy):.1f}% at the median layer, "
-        f"{100 * max(busy):.1f}% at most (layer {busy.index(max(busy))})")
-    log(f"moe serve parity (b): {L} layers bf16, kernel vs plain attention, "
-        f"teacher-forced multi-turn replay: relative L2 of the prefill logits "
-        f"{e_pre:.3e} (limit 5e-2; {len(pre)} prefill calls), of every call's "
-        f"{e_all:.3e} (not checked); routing agreement over (token, layer): "
-        f"prefill {100 - 100 * n_pre / max(d_pre, 1):.3f}% ({n_pre} of "
-        f"{d_pre} differ), decode {100 - 100 * n_dec / max(d_dec, 1):.3f}% "
-        f"({n_dec} of {d_dec}); the kernel replay reproduces the timed run's "
-        f"logits bit for bit: {same}")
-    check(e_pre <= 5e-2, "moe serve parity (b)")
-    del params, logits, lk, lr, rk, rr
+        f"the first MoE layer, {100 * statistics.median(busy):.1f}% at the "
+        f"median MoE layer, {100 * max(busy):.1f}% at most (MoE layer "
+        f"{busy.index(max(busy))})")
+    agree_pre = 1 - n_pre / max(d_pre, 1)
+    agree_first = 1 - by_layer[0] / max(int(rk.calls[0][4].sum()), 1)
+    held = m.top_k > 1
+    log(f"{tag} parity (b): {cfg.n_layers} layers bf16, kernel vs plain "
+        f"attention, teacher-forced multi-turn replay with the kernel "
+        f"replay's routing pinned: max relative L2 of logits {e_pin:.3e} "
+        f"over {len(lk)} calls (limit 5e-2; prefill calls {e_pin_pre:.3e}); "
+        f"each routing for itself: prefill logits {e_pre:.3e} "
+        f"({'limit 5e-2' if held else 'top-1, not checked'}), every call's "
+        f"{e_all:.3e} (not checked); routing agreement over (token, MoE "
+        f"layer): the prompt's first MoE layer {100 * agree_first:.3f}% "
+        f"(limit 95%), prefill {100 * agree_pre:.3f}% "
+        f"({'limit 90%' if not held else 'not checked'}; {n_pre} of {d_pre} "
+        f"differ; the prompt's prefill by MoE layer: {by_layer}), decode "
+        f"{100 - 100 * n_dec / max(d_dec, 1):.3f}% ({n_dec} of {d_dec}); the "
+        f"kernel replay reproduces the timed run's logits bit for bit: "
+        f"{same}")
+    check(e_pin <= 5e-2, f"{tag} parity (b), pinned routing")
+    check(not held or e_pre <= 5e-2, f"{tag} parity (b), own routing")
+    check(agree_first >= 0.95, f"{tag} parity (b), routing agreement at the "
+                               f"first MoE layer")
+    check(held or agree_pre >= 0.90, f"{tag} parity (b), prefill routing "
+                                     f"agreement")
+
+
+def load_cut(cfg_full, L: int, tag: str, why: str):
+    """``cfg_full`` cut to ``L`` layers with random bf16 weights from seed
+    0 (the MoE router fp32), checked against ``head_bytes`` and
+    ``layer_bytes``; logs the cut, the parameters and the memory."""
+    cfg = cfg_full.replace(n_layers=L)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    check(weights_match(cfg, params), f"{tag}: head_bytes + layer_bytes do "
+          f"not count the weights")
+    a = cfg.attn
+    cut = "" if L == cfg_full.n_layers else (
+        f" (reduced: {L} of {cfg_full.n_layers} layers, {why})")
+    kinds = ", ".join(f"{n} {kind}" for kind, n in layer_groups(cfg))
+    moe = "" if cfg.moe is None else (
+        f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_expert "
+        f"{cfg.moe.d_expert} + {cfg.moe.num_shared_experts} shared, capacity "
+        f"factor {cfg.moe.capacity_factor} (router fp32)")
+    log(f"{tag}: {cfg.name} {L} layers{cut} [{kinds}] d {cfg.d_model} d_ff "
+        f"{cfg.d_ff} {cfg.mlp_activation} vocab {cfg.vocab_size} heads "
+        f"{a.n_heads}/{a.n_kv_heads} hd {a.head_dim}"
+        f"{' qk_norm' if a.qk_norm else ''}{moe}, {cfg.dtype}: "
+        f"{cfg.param_count() / 1e9:.3f} B params ({cfg_full.param_count() / 1e9:.3f} B "
+        f"at full depth), {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, random weights in {time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def phase_arch_serve(arch: str, tag: str = "", groups: int = 1):
+    """One arch at full width and the deepest cut whose bf16 weights fit
+    (``serve_depth``; all 48 layers of Qwen3-30B-A3B): ``groups`` rollout
+    groups, the multi-turn session and a profiled decode step
+    (``phase_serve``), the decode rate against its bound, then parity (b),
+    the session replayed teacher-forced through the plain attention at the
+    same depth in bf16: every call's logits at relative L2 ≤ 3e-2 for a
+    dense arch, ``moe_serve_checks`` for an MoE arch.  Returns (the serve
+    run's forward launches, the depth)."""
+    cfg_full = get_config(arch)
+    L = serve_depth(cfg_full)
+    tag = tag or f"{arch} serve"
+    cfg, params = load_cut(cfg_full, L, tag, f"the bf16 weights fit "
+                           f"{(PEAK_LIMIT - SERVE_WORK) / 1e9:.0f} GB")
+    calls, logits, tm, launches = phase_serve(cfg, params, tag, groups)
+    decode_bound(cfg, params, tm, tag)
+    if cfg.moe is not None:
+        moe_serve_checks(cfg, params, calls, logits, tag)
+    else:
+        e = replay_error(cfg, params, calls, logits, rel_l2)
+        log(f"{tag} parity (b): {L} layers bf16, kernel vs plain attention, "
+            f"teacher-forced multi-turn: max relative L2 of logits {e:.3e} "
+            f"(limit 3e-2)")
+        check(e <= 3e-2, f"{tag} parity (b)")
+    del params, logits
     torch.cuda.empty_cache()
     return launches, L
 
 
-def phase_moe_parity(cfg_full):
-    """(a) 2 layers at full width in f32: the multi-turn session through
-    the kernels, replayed teacher-forced through the plain attention, with
-    routing recorded.  A (token, layer) whose expert set differs between the
-    two (a near-tie in the top-8 of 128 flipped by sub-1e-6 differences) is
-    reported, and the logits rows it can reach are left out of the check:
-    its own branch from that call on, every branch if it lies in the shared
-    prompt."""
-    cfg = cfg_full.replace(n_layers=2, dtype="float32")
+def phase_f32_parity(cfg_full, layers: int, tag: str):
+    """(a) ``layers`` layers at full width in f32: the multi-turn session
+    through the kernels, replayed teacher-forced through the plain
+    attention, with routing recorded.  A (token, layer) whose expert set
+    differs between the two (a near-tie in the top-k flipped by sub-1e-6
+    differences) is reported, and the logits rows it can reach are left
+    out of the check: its own branch from that call on, every branch if
+    it lies in the shared prompt.  A dense cut has no routing to flip."""
+    cfg = cfg_full.replace(n_layers=layers, dtype="float32")
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
     with torch.inference_mode():
         with RoutingLog() as rk:
@@ -1719,13 +1994,13 @@ def phase_moe_parity(cfg_full):
         excluded += a.shape[0] - len(keep)
     n_flip = sum(int(f.sum()) for f in flips)
     n_dec = sum(int(c[4].sum()) for c in rk.calls)
-    log(f"moe parity (a): 2 layers f32 at full width, kernel vs plain "
+    log(f"{tag} (a): {layers} layers f32 at full width, kernel vs plain "
         f"attention, teacher-forced multi-turn: max relative error of logits "
         f"{worst:.3e} (limit 1e-4) over {compared} rows; routing flips "
-        f"{n_flip} of {n_dec} (token, layer) decisions, {excluded} logits "
-        f"rows left out for them")
-    check(compared > 0, "moe parity (a): every row was left out")
-    check(worst <= 1e-4, "moe parity (a)")
+        f"{n_flip} of {n_dec} (token, MoE layer) decisions, {excluded} "
+        f"logits rows left out for them")
+    check(compared > 0, f"{tag} (a): every row was left out")
+    check(worst <= 1e-4, f"{tag} (a)")
     del params
 
 
@@ -1949,10 +2224,11 @@ def phase_timing_serve() -> dict:
     return out
 
 
-def profiler_kernel_ms(fn, reps: int = 5) -> float:
+def profiler_kernel_ms(fn, reps: int = 5):
     """Device time of one call of ``fn`` as the sum of the durations of the
     CUDA kernels it launches, from a torch.profiler trace of ``reps`` calls
-    after one warm-up (for calls a CUDA graph cannot capture)."""
+    after one warm-up (for calls a CUDA graph cannot capture); None, and a
+    line naming what the trace held, where it holds no kernel event."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1967,20 +2243,29 @@ def profiler_kernel_ms(fn, reps: int = 5) -> float:
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    return sum(e["dur"] for e in events if e.get("ph") == "X"
-               and e.get("cat") == "kernel") / 1e3 / reps
+    kernels = [e["dur"] for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    if not kernels:
+        cats = sorted({str(e.get("cat")) for e in events})
+        log(f"timing: the profiler's trace of {reps} calls holds no kernel "
+            f"event ({len(events)} events of {cats}): no device time")
+        return None
+    return sum(kernels) / 1e3 / reps
 
 
 def phase_timing_train(train_kv_last, step_s, n_layers: int,
-                       heads=(12, 2), tag: str = "T", q_off: int = 0):
+                       heads=(12, 2), tag: str = "T", q_off: int = 0,
+                       hd: int = 128):
     """All three kernels at a training shape (a train step's rows and
     their real kv_last over Skv keys, of which the first ``q_off`` are
     gateway ancestors; ``heads`` = (H, Kh)), with bounds on visible pairs.
-    ``step_s`` (None: not reported) relates them to a step."""
+    ``step_s`` (None: not reported) relates them to a step.  The plain
+    versions run by whole GQA groups where their dense scores pass
+    PLAIN_CHUNK, and are then timed over 5 calls after one warm-up."""
     rng = np.random.default_rng(10)
     B, Skv = train_kv_last.shape
     S = Skv - q_off
-    (H, Kh), hd, dt = heads, 128, torch.bfloat16
+    (H, Kh), dt = heads, torch.bfloat16
     kl = i32(train_kv_last)
     q, k, v = qkv(rng, B, S, Skv, H, Kh, hd, dt)
     qo = dict(q_off=q_off)
@@ -2001,10 +2286,12 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
         if not fused:     # the backward still runs the torch reduction
             ms["delta"] = time_ms(lambda: tab.delta(o, do))
         dev = {"fwd": graph_ms(fwd), "dq": graph_ms(dq), "dkv": graph_ms(dkv)}
-        ms["plain_fwd"] = time_ms(lambda: tree_attention_ref_ext(
-            q, k, v, kl, sc, return_lse=True, **qo))
-        ms["plain_bwd"] = time_ms(lambda: tree_attention_bwd_ref(
-            q, k, v, kl, o, lse, do, sc, **qo))
+        reps = dict(reps=5, warm=1) if len(kv_head_chunks(q, k)) > 1 \
+            else {}
+        ms["plain_fwd"] = time_ms(lambda: plain(
+            q, k, v, kl, sc, return_lse=True, **qo), **reps)
+        ms["plain_bwd"] = time_ms(lambda: plain_bwd(
+            q, k, v, kl, o, lse, do, sc, **qo), **reps)
     mask = dense_mask(kl, S, q_off)
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
     kt, vt = (t.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
@@ -2043,7 +2330,7 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
                         library_device_ms=lib_dev)
         what = "forward" if key == "fwd" else "backward (dq, dk, dv)"
         log(f"timing {key} at {tag} (B={B}, S={S}, Skv={Skv}, q_off={q_off}, "
-            f"H={H}, Kh={Kh}, hd=128, bf16, "
+            f"H={H}, Kh={Kh}, hd={hd}, bf16, "
             f"real kv_last, {pairs} visible pairs; CUDA events, median of 20 "
             f"after 3 warm-up): kernel {ms[key]:.4f} ms, bound {bnd:.4f} ms "
             f"by {by} ({per_pair}·hd·H FLOPs per visible pair = "
@@ -2065,7 +2352,7 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
     if None not in (dev["fwd"], dev["dq"], dev["dkv"]):
         log(f"timing at {tag}, device time: fwd {dev['fwd']:.4f} ms, dq + "
             f"dk/dv {dev['dq'] + dev['dkv']:.4f} ms (CUDA graphs); sdpa "
-            f"backward {dev['lib_bwd']:.4f} ms (the sum of its kernels in "
+            f"backward {fmt_ms(dev['lib_bwd'])} (the sum of its kernels in "
             f"torch.profiler: autograd runs it outside a capturing stream)")
     if step_s is not None:
         att = n_layers * (ms["fwd"] + bwd_sum + ms.get("delta", 0.0)) / 1e3
@@ -2074,6 +2361,56 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
             f"the {step_s:.3f} s median step ({100 * att / step_s:.1f}%)")
     out["dq"]["delta_in_kernel"] = fused
     return out
+
+
+def run_archs(timed) -> dict:
+    """The rest of the dense and MoE archs (ARCHS): the three kernels at
+    their attention layouts against the plain versions, each arch served
+    at the deepest cut that fits (``phase_arch_serve``) and held in f32 at
+    up to PARITY_LAYERS layers, Qwen3-32B trained at its cut (2 SFT steps,
+    1 RL step, tree vs baseline, the profiled step, determinism), each
+    layout timed at the serving prefill and train-row shapes.  ``timed``
+    runs and times one phase.  Returns the kernels' worst errors, each
+    arch's (serve launches, depth), the train step's launches and config,
+    and the layouts' timings."""
+    tcfg = get_config(TRAIN_ARCH)
+    tcfg = tcfg.replace(n_layers=fit_depth(tcfg, TRAIN_LIMIT, scale=7,
+                                           per_layer=TRAIN_ACT_BYTES))
+    asft = train_plans(tcfg, "agentic", "sep_avg", 2)
+    arl = train_plans(tcfg, "grpo", "rl", 1)
+    kl_a = np.asarray(asft[0].packed.inputs["kv_last"])
+    arch_err = {"fwd": timed("arch kernel", phase_kernel,
+                             arch_kernel_cases(kl_a), False)}
+    arch_err.update(timed("arch bwd kernel", phase_bwd_kernel,
+                          arch_kernel_cases(kl_a)))
+    arch_runs = {}
+    for arch in ARCHS:
+        arch_runs[arch] = timed(f"{arch} serve", phase_arch_serve, arch)
+        f32 = get_config(arch).replace(dtype="float32")
+        timed(f"{arch} parity", phase_f32_parity, get_config(arch),
+              min(PARITY_LAYERS, fit_depth(f32, PEAK_LIMIT - SERVE_WORK)),
+              f"{arch} parity")
+        torch.cuda.empty_cache()
+    params, t_counts, t_step_s = timed(
+        f"{TRAIN_ARCH} train", phase_train, tcfg, asft, arl,
+        f"{TRAIN_ARCH} train")
+    timed(f"{TRAIN_ARCH} determinism", phase_determinism, tcfg, params,
+          [("packed", asft[0])], f"{TRAIN_ARCH} determinism")
+    del params
+    torch.cuda.empty_cache()
+    timing_arch = {}
+    for names, H, Kh, hd in arch_layouts():
+        lay = layout_tag(H, Kh, hd)
+        trains = TRAIN_ARCH in names
+        timing_arch[lay] = dict(archs=names, prefill=timed(
+            f"timing {lay} prefill", phase_timing_train,
+            np.full((1, 1024), 1023), None, 0, (H, Kh),
+            f"{lay} serving prefill S=1024", 0, hd), train=timed(
+            f"timing {lay} train", phase_timing_train, kl_a,
+            t_step_s if trains else None, tcfg.n_layers, (H, Kh),
+            f"{lay} train rows", 0, hd))
+    return dict(err=arch_err, runs=arch_runs, train_counts=t_counts,
+                train_cfg=tcfg, timing=timing_arch)
 
 
 def main() -> int:
@@ -2149,8 +2486,9 @@ def main() -> int:
                                      moe_kernel_cases(kl_m), False))
     worst_m = timed("moe bwd kernel", phase_bwd_kernel, moe_kernel_cases(kl_m))
     worst_bwd = {k: max(worst_bwd[k], worst_m[k]) for k in worst_bwd}
-    moe_serve_launches, moe_depth = timed("moe serve", phase_moe_serve, mcfg)
-    timed("moe parity", phase_moe_parity, mcfg)
+    moe_serve_launches, moe_depth = timed("moe serve", phase_arch_serve,
+                                            MOE_ARCH, "moe serve", 4)
+    timed("moe parity", phase_f32_parity, mcfg, 2, "moe parity")
     params, moe_counts, moe_step_s = timed("moe train", phase_train,
                                            mcfg_train, msft, mrl, "moe train")
     timed("moe determinism", phase_determinism, mcfg_train, params,
@@ -2160,6 +2498,11 @@ def main() -> int:
     timed("moe train parity", phase_moe_train_parity, mcfg)
     timing_moe = timed("moe timing T", phase_timing_train, kl_m, moe_step_s,
                        MOE_TRAIN_LAYERS, MOE_HEADS, "T_moe")
+
+    # the rest of the dense and MoE archs, once the MoE model is gone
+    archs = run_archs(timed)
+    worst_fwd = max(worst_fwd, archs["err"]["fwd"])
+    worst_bwd = {k: max(worst_bwd[k], archs["err"][k]) for k in worst_bwd}
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
@@ -2188,6 +2531,20 @@ def main() -> int:
             shape=f"T_moe: the {MOE_TRAIN_LAYERS}-layer Qwen3-30B-A3B train "
                   f"step's rows, H 32, Kh 4, bf16, hd 128",
             launches_train=moe_counts[name], **timing_moe[key])
+        e["archs"] = {"max_abs_err": archs["err"][key], **{lay: dict(
+            archs=t["archs"],
+            launches_serve={a: archs["runs"][a][0] if key == "fwd" else 0
+                            for a in t["archs"]},
+            launches_train=({TRAIN_ARCH: archs["train_counts"][name]}
+                            if TRAIN_ARCH in t["archs"] else {}),
+            prefill=dict(shape="serving prefill: B 1, S 1024, bf16",
+                         **t["prefill"][key]),
+            train=dict(shape=f"train rows of the "
+                             f"{archs['train_cfg'].n_layers}-layer "
+                             f"{TRAIN_ARCH} step: B 2, S {TRAIN_SEQ}, real "
+                             f"kv_last, bf16", **t["train"][key]))
+            for lay, t in archs["timing"].items()}}
+        e["archs"]["serve_layers"] = {a: archs["runs"][a][1] for a in ARCHS}
         if key == "fwd":
             e["launches_serve"] = serve_launches
             e["moe"]["launches_serve"] = moe_serve_launches

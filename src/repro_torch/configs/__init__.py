@@ -1,13 +1,28 @@
-"""Architecture registry of the port: the archs copied from
-``repro/configs`` so far.  Each module exposes ``config()`` (published
-dims) and ``smoke()`` (a reduced same-family variant for CPU tests)."""
+"""Architecture registry of the port: the dense and MoE archs of
+``repro/configs``, in the reference's order.  Each module exposes
+``config()`` (published dims) and ``smoke()`` (a reduced same-family
+variant for CPU tests).  ``long_context_variant`` is the reference's
+sliding-window variant.  The reference's ``supports_long_decode`` /
+``supports_shape`` and ``INPUT_SHAPES`` serve its dry-run tooling, which
+is not ported yet (ROADMAP.md Queue A item 7)."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import AttnCfg, ModelConfig, config_from_dict
 
-ARCH_IDS = ["qwen1p5_0p5b", "qwen2_1p5b", "qwen3_30b_a3b"]
+ARCH_IDS = [
+    "qwen3_8b",
+    "llama4_scout_17b_a16e",
+    "qwen1p5_0p5b",
+    "kimi_k2_1t_a32b",
+    "nemotron_4_340b",
+    "qwen2_1p5b",
+    # the paper's own table models
+    "qwen3_32b",
+    "qwen3_30b_a3b",
+]
 
 
 def _canon(arch: str) -> str:
@@ -21,3 +36,13 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
                        f"see ROADMAP.md Queue A")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke() if smoke else mod.config()
+
+
+def long_context_variant(cfg: ModelConfig, window: int = 8192) -> ModelConfig:
+    """Sub-quadratic variant for long decodes: sliding-window attention for
+    the full-attention layers (the reference's ``configs/__init__.py:60``).
+    A windowed session prefills through the step loop, as the reference's
+    does."""
+    if cfg.attn is None:
+        return cfg
+    return cfg.replace(attn=dataclasses.replace(cfg.attn, window=window))

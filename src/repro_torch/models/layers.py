@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, RoPE, the MLP, embeddings, the LM head.
+"""Shared layer primitives: norms, RoPE, the MLPs, embeddings, the LM head.
 
 Port of the dense slice of ``repro/models/layers.py``: plain functions on
 tensors, taking the reference's parameter dicts (same names, ``x @ W``
@@ -15,12 +15,19 @@ import torch
 import torch.nn.functional as F
 
 
+# the largest fp32 draw of ``_dense_init``: one layer of Kimi K2's 384
+# experts is 22.5 GB of fp32 as a single draw
+_DRAW_BYTES = 4 << 30
+
+
 def _dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     """N(0, 1/fan_in) (or N(0, scale²)) drawn in fp32, cast to ``dtype``.
     A stacked leaf (ndim ≥ 3) is drawn one slice of its leading dim at a
     time into the ``dtype`` tensor, so no fp32 copy of a whole stack exists
-    (48 layers of Qwen3-30B-A3B's experts would be 39 GB of it)."""
+    (48 layers of Qwen3-30B-A3B's experts would be 39 GB of it); a slice
+    whose fp32 draw would pass ``_DRAW_BYTES`` is drawn a slice of its own
+    leading dim at a time, and so on down."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
     draw = lambda sh: (torch.randn(sh, generator=generator,
@@ -29,9 +36,18 @@ def _dense_init(generator: torch.Generator, shape, scale: Optional[float] = None
     if len(shape) < 3:
         return draw(shape)
     out = torch.empty(shape, dtype=dtype, device=device)
-    for i in range(shape[0]):
-        out[i] = draw(shape[1:])
+    _fill(out, draw)
     return out
+
+
+def _fill(out: torch.Tensor, draw) -> None:
+    """``out[i] = draw(out.shape[1:])`` for each i, or recursively into
+    ``out[i]`` where that draw's fp32 copy would pass ``_DRAW_BYTES``."""
+    for i in range(out.shape[0]):
+        if out.dim() > 3 and out[i].numel() * 4 > _DRAW_BYTES:
+            _fill(out[i], draw)
+        else:
+            out[i] = draw(out.shape[1:])
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None, lead=()) -> dict:
@@ -59,22 +75,45 @@ def rope(x: torch.Tensor, pos_ids: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def init_mlp(generator, d_model: int, d_ff: int, dtype=torch.float32,
-             device=None, lead=()) -> dict:
-    """SwiGLU MLP weights (the dense family's activation in the port);
-    ``lead`` prepends stacked-layer dims."""
+def init_mlp(generator, d_model: int, d_ff: int, activation: str = "swiglu",
+             bias: bool = False, dtype=torch.float32, device=None,
+             lead=()) -> dict:
+    """MLP weights in the reference's keys: swiglu has ``wi_gate`` and
+    ``wi_up``, the non-gated activations ``wi_up`` alone; ``bias`` adds
+    zero ``bi`` [d_ff] and ``bo`` [d_model].  ``lead`` prepends
+    stacked-layer dims."""
     kw = dict(dtype=dtype, device=device)
-    return {"wi_gate": _dense_init(generator, (*lead, d_model, d_ff), **kw),
-            "wi_up": _dense_init(generator, (*lead, d_model, d_ff), **kw),
-            "wo": _dense_init(generator, (*lead, d_ff, d_model), **kw)}
+    p: dict = {}
+    if activation == "swiglu":
+        p["wi_gate"] = _dense_init(generator, (*lead, d_model, d_ff), **kw)
+    p["wi_up"] = _dense_init(generator, (*lead, d_model, d_ff), **kw)
+    p["wo"] = _dense_init(generator, (*lead, d_ff, d_model), **kw)
+    if bias:
+        p["bi"] = torch.zeros((*lead, d_ff), **kw)
+        p["bo"] = torch.zeros((*lead, d_model), **kw)
+    return p
 
 
 def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
-    if activation != "swiglu":
-        raise NotImplementedError(
-            f"mlp activation {activation!r} is not ported yet (swiglu only)")
-    h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
-    return h @ params["wo"]
+    """The reference's ``mlp`` step for step: swiglu; squared_relu, which
+    is relu(x @ wi_up + bi)² in x's dtype; relu, which (as the reference)
+    adds no ``bi``; then ``wo`` and ``bo``."""
+    if activation == "swiglu":
+        h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
+    elif activation == "squared_relu":
+        h = x @ params["wi_up"]
+        if "bi" in params:
+            h = h + params["bi"]
+        r = F.relu(h)
+        h = r * r
+    elif activation == "relu":
+        h = F.relu(x @ params["wi_up"])
+    else:
+        raise ValueError(activation)
+    y = h @ params["wo"]
+    if "bo" in params:
+        y = y + params["bo"]
+    return y
 
 
 def init_embedding(generator, vocab: int, d_model: int, dtype=torch.float32,

@@ -39,9 +39,6 @@ def _layer_kinds(cfg: ModelConfig) -> list[str]:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense and moe only); "
             f"see ROADMAP.md Queue A (SSM/hybrid, enc-dec/VLM items)")
-    if cfg.mlp_activation != "swiglu" or cfg.mlp_bias:
-        raise NotImplementedError("decoder layers are ported with a "
-                                  "bias-free swiglu MLP only")
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         return ["dense"] * fd + ["moe"] * (cfg.n_layers - fd)
@@ -72,7 +69,8 @@ def _init_layers(cfg: ModelConfig, kind: str, n: int, generator, dtype,
     if kind == "moe":
         p["moe"] = init_moe(generator, cfg.moe, D, cfg.mlp_activation, **kw)
     else:
-        p["mlp"] = init_mlp(generator, D, cfg.d_ff, **kw)
+        p["mlp"] = init_mlp(generator, D, cfg.d_ff, cfg.mlp_activation,
+                            cfg.mlp_bias, **kw)
     return p
 
 

@@ -71,6 +71,14 @@ def test_source_has_no_jax_or_reference_import(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, n)
 
 
+def test_every_registered_config_module_is_scanned():
+    """Each arch of the registry is a module of the port that the import
+    check and the source scan above cover."""
+    from repro_torch.configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        assert PORT / "configs" / f"{arch}.py" in SOURCES, arch
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is valid")

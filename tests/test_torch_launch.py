@@ -33,7 +33,12 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _train(*args, cwd):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # one intra-op thread: the CPU's BLAS (MKL) may pick another thread
+    # count, and so another summation order, from call to call when its
+    # dynamic threading is on (its default) and the machine is loaded, and
+    # the resume test compares runs bit for bit
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "qwen1p5_0p5b", "--smoke", "--seq-len", "1024", "--device", "cpu",

@@ -298,3 +298,94 @@ def test_grafted_schedule_matches_independent_per_tree_grads():
 def _leaves(tree):
     from repro_torch.device import tree_leaves
     return tree_leaves(tree)
+
+
+# ---------------------------------------------------------------------------
+# schedule invariants over seeded random forests
+# ---------------------------------------------------------------------------
+
+def _window_invariants(cfg, lc, pc, window) -> tuple[int, int]:
+    """tests/test_planner.py's window invariants for the port's planner,
+    with the replica count ``R`` taken from ``pc.num_replicas`` before any
+    step (the reference's copy binds it only for steps with packed rows):
+    row counts divisible by R with the non-empty rows of R contiguous
+    shards within 1 of each other, packed and wave rows alike; parents in
+    earlier waves than their children; every generated tree packed,
+    partitioned or dropped, and with auto partition every token trained
+    and nothing dropped.  Returns (steps, steps holding only oversized
+    trees)."""
+    R = pc.num_replicas
+    steps = tplanner.plan_window(cfg, dataclasses.replace(lc), pc, window)
+    gen_tokens = sum(t.num_unique_tokens() for b in window for t in b)
+    gen_trees = sum(len(b) for b in window)
+    got_tokens = dropped = seen_trees = only_oversized = 0
+    for ps in steps:
+        sb = ps.step_batch()
+        dropped += sb.dropped
+        seen_trees += sb.num_trees
+        only_oversized += sb.tb is None and bool(sb.oversized)
+        if sb.tb is not None:
+            B = sb.tb.tokens.shape[0]
+            assert B % R == 0
+            got_tokens += int(sb.tb.valid.sum())
+            per = B // R
+            nonempty = sb.tb.valid.any(axis=1)
+            counts = [int(nonempty[i * per:(i + 1) * per].sum())
+                      for i in range(R)]
+            assert max(counts) - min(counts) <= 1
+        got_tokens += sum(t.num_unique_tokens() for t in sb.oversized)
+        if sb.oversized:
+            for w, wp in enumerate(ps.execution_plan().partition.waves):
+                assert all(ref.wave < w for ref in wp.parents)
+                Bb = wp.batch["tokens"].shape[0]
+                assert Bb % R == 0
+                per = Bb // R
+                loads = [int(wp.batch["valid"][r].sum()) + wp.A_real[r]
+                         for r in range(Bb)]
+                nz = [sum(ld > 0 for ld in loads[i * per:(i + 1) * per])
+                      for i in range(R)]
+                assert max(nz) - min(nz) <= 1, (w, loads, nz)
+    assert seen_trees + dropped == gen_trees
+    if lc.mode == "tree" and lc.auto_partition:
+        assert dropped == 0 and got_tokens == gen_tokens
+    elif lc.mode == "tree":
+        assert got_tokens <= gen_tokens
+    return len(steps), only_oversized
+
+
+def _seeded_forest(seed, n, min_tokens=0):
+    """``n`` random trees (segments of 2-9 tokens, depth ≤ 4) with more
+    than ``min_tokens`` unique tokens each."""
+    rng, out = np.random.default_rng(seed), []
+    while len(out) < n:
+        t = tsyn.random_tree(rng, vocab_size=97, max_depth=4,
+                             seg_len_range=(2, 9))
+        if t.num_unique_tokens() > min_tokens:
+            out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("mode,route,min_tokens", [
+    ("tree", True, 0), ("tree", False, 0), ("baseline", False, 0),
+    ("tree", True, 64)])
+def test_planner_window_invariants_seeded(mode, route, min_tokens):
+    """Seeded forests through ``plan_window`` at lookahead 1-3 and 1-2
+    replicas.  The last case's trees are all larger than a row of 64, so
+    its steps hold only oversized trees: the windows that the reference's
+    property test can draw and then fails on (its ``R`` is unbound
+    there)."""
+    cfg = config_from_jax(tiny_cfg("dense"))
+    only = 0
+    for seed in range(3):
+        for W, R in ((1, 1), (2, 2), (3, 2)):
+            lc = tloader.LoaderConfig(seq_len=64, batch_rows=3,
+                                      trees_per_batch=4, mode=mode, seed=seed,
+                                      auto_partition=route, capacity=48)
+            pc = tplanner.PlannerConfig(lookahead=W, num_replicas=R)
+            window = [_seeded_forest(100 * seed + b, 4, min_tokens)
+                      for b in range(W)]
+            n, o = _window_invariants(cfg, lc, pc, window)
+            assert n > 0
+            only += o
+    if min_tokens:
+        assert only > 0

@@ -133,4 +133,4 @@ def test_config_copy_and_param_layout_match_jax():
     assert cfg.param_count() == jax_get_config("qwen2_1p5b",
                                                smoke=True).param_count()
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3_8b")
+        get_config("rwkv6_1p6b")
