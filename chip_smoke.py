@@ -9,8 +9,9 @@ Phases, each of which ends the run non-zero if it fails:
                   dk/dv) in parallel, one process each; print every kernel
                   instance's registers and spills from ptxas's report and
                   its wgmma (HGMMA) and TMA-load (UTMALDG) instruction
-                  counts; each Hopper instance (bf16 hd 64/128) must show
-                  both and spill nothing.
+                  counts; each Hopper instance (bf16: the forward and
+                  dk/dv at hd 64, 128 and 192, dq at hd 64 and 128) must
+                  be there, show both and spill nothing.
   2. kernel     — hold the forward kernel against its plain PyTorch version
                   on the card, computed in f32 from the same inputs (o and
                   lse at 1e-4; a bf16 o within its rounding: 2^-7 of it plus
@@ -80,8 +81,9 @@ Phases, each of which ends the run non-zero if it fails:
                   wave of phase 8, q_off = A_max, the largest it ran),
                   beside the H100's bound and as a percentage of it;
                   kernel and library call also as device time, replayed
-                  from a CUDA graph (SDPA's backward, which a graph cannot
-                  capture: the sum of its kernels in torch.profiler).
+                  from a CUDA graph (SDPA's backward: a graph of forward
+                  and backward less one of the forward, since autograd
+                  runs the backward on the forward's stream).
 Then the MoE model, Qwen3-30B-A3B (H 32, Kh 4, 128 experts top-8), once
 the dense model's tensors are freed:
  12. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
@@ -112,9 +114,12 @@ Then the rest of the dense and MoE archs (Qwen3-8B, Qwen3-32B, Llama-4
 Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
  18. arch kernel, arch bwd kernel — phases 2-3 at each of their attention
                   layouts (H 32, 64 and 40 over Kh 8 at hd 128 on the
-                  Hopper path; H 96/Kh 8 at hd 192 on the simple kernels,
-                  bf16 and f32), at the serving prefill shape (S 1024, B 1)
-                  and at the train rows (B 2, S 4096, real kv_last).  The
+                  Hopper paths; H 96/Kh 8 at hd 192 in bf16 on the
+                  forward's and dk/dv's Hopper paths and dq's simple
+                  kernel, and in f32 on the simple kernels), at the serving
+                  prefill shape (S 1024, B 1), the tool prefill (B 8, S
+                  200, q_off 1056) and the train rows (B 2, S 4096, real
+                  kv_last).  Each case names each kernel's bf16 path.  The
                   plain versions run by whole GQA groups where their dense
                   scores would pass 4 GB.
  19. <arch> serve — each arch at full width and the deepest cut whose bf16
@@ -132,7 +137,8 @@ Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
                   of activations a layer fit 60 GB: 2 SFT steps, 1 RL step;
                   then phase 7's check on a packed plan.
  22. timing <layout> — phase 11's training-shape timing at each layout, at
-                  the serving prefill shape and the train rows.
+                  the serving prefill shape, the tool prefill and the train
+                  rows; the kernels line names each row's bf16 path.
 
 The line before the last names the card and its power limit; the one before
 it lists the kernels (each with its MoE-shape numbers under ``moe``, its
@@ -198,6 +204,11 @@ TOL_BF16_PLAIN = 2e-2         # against the plain version run in bf16
 TOL_BWD_L2 = 1e-2             # bf16 backward: relative L2 per output
 TOL_BWD_ELEM = 5e-2           # bf16 backward: 5e-2 + 5e-2·|ref| per element
 SOURCES = (ta.SOURCE, *tab.SOURCES)
+# each source's Hopper instances (kernel, head dim), by the head dims each
+# kernel's bf16 path takes (kernel_path): the forward and dk/dv at hd 64,
+# 128 and 192, dq at hd 64 and 128
+HOPPER_INSTANCES = {src: [(kern, hd) for hd in ta.HOPPER_PATH_HEAD_DIMS[kern]]
+                    for src, kern in zip(SOURCES, ("fwd", "dq", "dkv"))}
 KERNELS = {"tree_attention_fwd": ta.tree_attention,
            "tree_attention_bwd_dq": tab.bwd_dq,
            "tree_attention_bwd_dkv": tab.bwd_dkv}
@@ -309,6 +320,14 @@ def i32(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=DEV)
 
 
+def tool_kv_last() -> np.ndarray:
+    """kv_last of the session's tool-output prefill: 8 branches of 200 new
+    tokens, each after 1056 cached keys that every query sees (q_off
+    1056)."""
+    return np.concatenate([np.full((8, 1056), BIG), np.full((8, 200), 1255)],
+                          1)
+
+
 def gateway(kv_main, pos_main, A: int, pad_rows):
     """The gateway layout models/attention.py assembles: A ancestors in
     front (kv_last 2^30, or −1 on front-padded rows), DFS indices shifted."""
@@ -371,8 +390,7 @@ def kernel_cases(train_kv_last=None):
     add("path: prefill S=1024 bf16", bf16, 1, 1024, 12, 2, 128,
         np.full((1, 1024), 1023))
     add("path: tool prefill S=200 q_off=1056 bf16", bf16, 8, 200, 12, 2, 128,
-        np.concatenate([np.full((8, 1056), BIG), np.full((8, 200), 1255)],
-                       1), q_off=1056)
+        tool_kv_last(), q_off=1056)
     if train_kv_last is not None:
         B, S = train_kv_last.shape
         add(f"train shape T (B={B}, S={S}) bf16", bf16, B, S, 12, 2, 128,
@@ -396,9 +414,7 @@ def moe_kernel_cases(train_kv_last):
     add(f"H {H}/Kh {Kh} path: prefill S=1024 bf16", bf16, 1, 1024, H, Kh,
         128, np.full((1, 1024), 1023))
     add(f"H {H}/Kh {Kh} path: tool prefill S=200 q_off=1056 bf16", bf16, 8,
-        200, H, Kh, 128, np.concatenate(
-            [np.full((8, 1056), BIG), np.full((8, 200), 1255)], 1),
-        q_off=1056)
+        200, H, Kh, 128, tool_kv_last(), q_off=1056)
     B, S = train_kv_last.shape
     add(f"H {H}/Kh {Kh} MoE train shape T (B={B}, S={S}) bf16", bf16, B, S,
         H, Kh, 128, train_kv_last)
@@ -419,23 +435,31 @@ def layout_tag(H: int, Kh: int, hd: int) -> str:
     return f"H {H}/Kh {Kh} hd {hd}"
 
 
+def bf16_paths(hd: int) -> str:
+    """Which path each kernel's bf16 instance takes at head dim ``hd``."""
+    return ", ".join(f"{kern} {ta.kernel_path(kern, torch.bfloat16, hd)}"
+                     for kern in ("fwd", "dq", "dkv"))
+
+
 def arch_kernel_cases(train_kv_last):
     """Each layout of ``arch_layouts`` at the serving prefill shape (S
     1024, B 1), the session's tool prefill (B 8, S 200 after 1056 cached
     keys: the q_off path) and the train rows (``train_kv_last``: B 2, S
-    4096, real kv_last), in bf16 (the Hopper path at hd 64/128) and, where
-    bf16 takes the simple kernels (hd 192), in f32 too."""
+    4096, real kv_last), in bf16 (the Hopper paths at hd 64/128; at hd 192
+    the forward's and dk/dv's, with dq's simple kernel) and, where a
+    kernel's bf16 instance is the simple one (dq at hd 192), in f32 too,
+    the simple kernels' accuracy path."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     add = case_adder(np.random.default_rng(40), cases)
     B, S = train_kv_last.shape
-    tool = np.concatenate([np.full((8, 1056), BIG), np.full((8, 200), 1255)],
-                          1)
+    tool = tool_kv_last()
     for names, H, Kh, hd in arch_layouts():
-        hopper = hd in ta.HOPPER_HEAD_DIMS
-        lay = (f"{layout_tag(H, Kh, hd)} ({', '.join(names)}; "
-               f"{'Hopper' if hopper else 'simple'} kernels in bf16)")
-        for dt in (bf16,) if hopper else (bf16, f32):
+        simple = any(ta.kernel_path(kern, bf16, hd) == "simple"
+                     for kern in ("fwd", "dq", "dkv"))
+        lay = (f"{layout_tag(H, Kh, hd)} ({', '.join(names)}; bf16 paths: "
+               f"{bf16_paths(hd)})")
+        for dt in (bf16, f32) if simple else (bf16,):
             add(f"{lay} path: prefill S=1024 {dt}", dt, 1, 1024, H, Kh, hd,
                 np.full((1, 1024), 1023))
             add(f"{lay} path: tool prefill S=200 q_off=1056 {dt}", dt, 8, 200,
@@ -687,6 +711,12 @@ def phase_build() -> float:
                 check(st == ld == 0, f"{name} spills")
                 check(sass is None or (sass[0] > 0 and sass[1] > 0),
                       f"{name}: no wgmma or no TMA load in its SASS")
+        for kern, hd in HOPPER_INSTANCES[src]:
+            # demangled, or mangled where c++filt is missing
+            forms = (f"{kern}_hopper_kernel<{hd}>",
+                     f"{kern}_hopper_kernelILi{hd}E")
+            check(any(f in r[0] for r in rows for f in forms),
+                  f"{src}: no {forms[0]} in ptxas's report")
     log(f"build: {len(SOURCES)} sources, one nvcc {' '.join(build.NVCC_FLAGS)}"
         f" each, all started together: {total:.2f} s in all")
     return total
@@ -780,7 +810,7 @@ def phase_bwd_kernel(cases) -> dict:
             if tab.fuses_delta(q):
                 hold_dq_delta(name, q, k, v, kl, o, lse, do, sc, kw,
                               got[0])
-            if dt == torch.bfloat16 and q.shape[-1] in ta.HOPPER_HEAD_DIMS:
+            if ta.kernel_path("dkv", dt, q.shape[-1]) == "hopper":
                 # the dk/dv launch's schedule pass against its plain version
                 order = tab.dkv_order(kl, q.shape[1], q_off)
                 check(torch.equal(order, tab.dkv_schedule(kl, q.shape[1],
@@ -2224,33 +2254,20 @@ def phase_timing_serve() -> dict:
     return out
 
 
-def profiler_kernel_ms(fn, reps: int = 5):
-    """Device time of one call of ``fn`` as the sum of the durations of the
-    CUDA kernels it launches, from a torch.profiler trace of ``reps`` calls
-    after one warm-up (for calls a CUDA graph cannot capture); None, and a
-    line naming what the trace held, where it holds no kernel event."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out_dir = Path(__file__).resolve().parent / "build"
-    out_dir.mkdir(exist_ok=True)
-    path = out_dir / "kernel_sum_trace.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
-    kernels = [e["dur"] for e in events if e.get("ph") == "X"
-               and e.get("cat") == "kernel"]
-    if not kernels:
-        cats = sorted({str(e.get("cat")) for e in events})
-        log(f"timing: the profiler's trace of {reps} calls holds no kernel "
-            f"event ({len(events)} events of {cats}): no device time")
-        return None
-    return sum(kernels) / 1e3 / reps
+def sdpa_bwd_device_ms(q, k, v, dout, **kw):
+    """Device time of SDPA's backward: a CUDA graph of its forward and
+    backward together (``torch.autograd.grad`` to q, k, v), less a graph of
+    the forward alone, both on fresh leaves.  Autograd runs a node's
+    backward on the stream its forward ran on, so the pair is captured on
+    the capturing stream, where the backward of a forward run outside it is
+    not (nor may an autograd node of such a forward still be alive: the
+    engine would sync with the stream it was made on).  Depends on no
+    profiler trace.  None where either capture fails."""
+    leaves = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+    fwd = lambda: F.scaled_dot_product_attention(*leaves, **kw)
+    both = graph_ms(lambda: torch.autograd.grad(fwd(), leaves, dout))
+    alone = graph_ms(fwd)
+    return None if both is None or alone is None else both - alone
 
 
 def phase_timing_train(train_kv_last, step_s, n_layers: int,
@@ -2303,12 +2320,12 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
     lib_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                           retain_graph=True)
     ms["lib_bwd"] = time_ms(lib_bwd)
+    del ot
     dev["lib_fwd"] = graph_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), attn_mask=mask, scale=sc))
-    # autograd runs the backward outside the capturing stream, so no graph:
-    # its device time is the sum of its kernels in torch.profiler
-    dev["lib_bwd"] = profiler_kernel_ms(lib_bwd)
-    del ot, qt, kt, vt, mask
+    dev["lib_bwd"] = sdpa_bwd_device_ms(qt, kt, vt, dot, attn_mask=mask,
+                                        scale=sc)
+    del qt, kt, vt, mask
     io = 2 * (q.numel() + k.numel() + v.numel())      # bf16 q, k, v
     meta = kl.numel() * 4
     rows = 2 * B * H * S * 4                           # lse and Δ, f32
@@ -2341,7 +2358,7 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
             f"{lib_ms:.4f} ms; device time: kernel {fmt_ms(dev[key])} (CUDA "
             f"graph), sdpa {fmt_ms(lib_dev)} ("
             + ("CUDA graph" if key == "fwd" else
-               "sum of its kernels in torch.profiler") + ")")
+               "CUDA graph of forward + backward less the forward") + ")")
     d_txt = ("Δ computed inside the dq kernel, no torch reduction" if fused
              else f"plus the wrapper's Δ reduction {ms['delta']:.4f} ms")
     log(f"timing at {tag}: backward kernels dq + dk/dv {bwd_sum:.4f} ms "
@@ -2352,8 +2369,8 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
     if None not in (dev["fwd"], dev["dq"], dev["dkv"]):
         log(f"timing at {tag}, device time: fwd {dev['fwd']:.4f} ms, dq + "
             f"dk/dv {dev['dq'] + dev['dkv']:.4f} ms (CUDA graphs); sdpa "
-            f"backward {fmt_ms(dev['lib_bwd'])} (the sum of its kernels in "
-            f"torch.profiler: autograd runs it outside a capturing stream)")
+            f"backward {fmt_ms(dev['lib_bwd'])} (CUDA graph of forward + "
+            f"backward less the forward)")
     if step_s is not None:
         att = n_layers * (ms["fwd"] + bwd_sum + ms.get("delta", 0.0)) / 1e3
         log(f"timing at {tag}: attention share of a train step: {n_layers} x "
@@ -2399,13 +2416,17 @@ def run_archs(timed) -> dict:
     del params
     torch.cuda.empty_cache()
     timing_arch = {}
+    tool = tool_kv_last()
     for names, H, Kh, hd in arch_layouts():
         lay = layout_tag(H, Kh, hd)
         trains = TRAIN_ARCH in names
-        timing_arch[lay] = dict(archs=names, prefill=timed(
+        timing_arch[lay] = dict(archs=names, hd=hd, prefill=timed(
             f"timing {lay} prefill", phase_timing_train,
             np.full((1, 1024), 1023), None, 0, (H, Kh),
-            f"{lay} serving prefill S=1024", 0, hd), train=timed(
+            f"{lay} serving prefill S=1024", 0, hd), tool=timed(
+            f"timing {lay} tool prefill", phase_timing_train, tool, None, 0,
+            (H, Kh), f"{lay} tool prefill S=200 q_off=1056", 1056, hd),
+            train=timed(
             f"timing {lay} train", phase_timing_train, kl_a,
             t_step_s if trains else None, tcfg.n_layers, (H, Kh),
             f"{lay} train rows", 0, hd))
@@ -2537,8 +2558,12 @@ def main() -> int:
                             for a in t["archs"]},
             launches_train=({TRAIN_ARCH: archs["train_counts"][name]}
                             if TRAIN_ARCH in t["archs"] else {}),
+            path=ta.kernel_path(key, torch.bfloat16, t["hd"]),
             prefill=dict(shape="serving prefill: B 1, S 1024, bf16",
                          **t["prefill"][key]),
+            tool_prefill=dict(shape="tool prefill: B 8, S 200 after 1056 "
+                                    "cached keys (q_off), bf16",
+                              **t["tool"][key]),
             train=dict(shape=f"train rows of the "
                              f"{archs['train_cfg'].n_layers}-layer "
                              f"{TRAIN_ARCH} step: B 2, S {TRAIN_SEQ}, real "

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tree-attention kernels'
 // tensor-core paths (tree_attention_fwd.cu, tree_attention_bwd_dq.cu,
-// tree_attention_bwd_dkv.cu): mbarriers, TMA tile loads, wgmma descriptors
-// and the wgmma instructions themselves, written as inline PTX so that the
-// build needs no CUTLASS; and the key-tile producer warp that the forward
-// and dq share (produce_key_tiles).
+// tree_attention_bwd_dkv.cu): mbarriers, named barriers, TMA tile loads,
+// wgmma descriptors and the wgmma instructions themselves (N = 32 and 64
+// from shared memory; N = 64, 128 and 192 with A from registers), written
+// as inline PTX so that the build needs no CUTLASS; and the key-tile
+// producer warp that the forward and dq share (produce_key_tiles).
 //
 // Tile layout.  Every bf16 tile is 64 rows of a [B, rows, heads, hd] tensor
 // for one head, brought in by TMA as hd/64 boxes of 64 rows × 64 columns
@@ -73,6 +74,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - t0 > (1ll << 32)) __trap();
   } while (!done);
+}
+
+// ---- named barriers --------------------------------------------------------
+// Hardware barrier `id` (1-15; 0 is __syncthreads) over `n` threads, a
+// multiple of 32.  arrive signals and goes on (release); sync signals and
+// waits for the other arrivals (acquire): one group of threads hands shared
+// memory to another.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- small asynchronous copies ---------------------------------------------
@@ -225,17 +238,51 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64×192] += A·B, A from registers (bf16 pairs), B from shared memory
+// MN-major: the instruction walks the three 64-column boxes of B at the
+// descriptor's leading byte offset (one 8 KB box), as n128 walks two.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(HD == 64 || HD == 128, "wgmma path: hd 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 192, "wgmma path: hd 64, 128 or 192");
   if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 // ---- the key-tile producer of the forward and of dq ------------------------
-// Both kernels give one block a (64-query tile, head, batch row) and walk
-// its causal key tiles; the producer warp below is the one both run, so the
+// Both kernels give one block a (query tile, head, batch row): 64 queries,
+// or 128 in the forward at hd 192 (two consumer warpgroups), and walk its
+// causal key tiles; the producer warp below is the one both run, so the
 // two skip the same tiles by construction.
 
 constexpr int KT = 64;       // keys per tile
@@ -255,10 +302,13 @@ struct KeyRing {
 // 64-row tiles (tile i at RES + i·TILE), then the K/V ring of STAGES
 // stages, its metadata and its barriers.  The host sizes the launch by
 // ALLOC, which leaves room to align the base to 1 KB (the swizzle's unit).
+// hd 128 runs two blocks an SM (2 stages: 80 KB for the forward, 96 KB
+// for dq); hd 64 and the one-block-an-SM forward at hd 192 (two Q tiles,
+// 48 KB, and 48 KB a stage: 192 KB) take 3.
 template <int HD, int NRES>
 struct KeyTileLayout {
   static constexpr int TILE = KT * HD * 2;       // one 64-row bf16 tile
-  static constexpr int STAGES = HD <= 64 ? 3 : 2;
+  static constexpr int STAGES = HD == 128 ? 2 : 3;
   static constexpr int RES = 0;
   static constexpr int KV = RES + NRES * TILE;   // stage s: K at KV + 2·s·TILE, V after it
   static constexpr int KL = KV + STAGES * 2 * TILE;
@@ -299,8 +349,10 @@ struct KeyTileLayout {
 };
 
 // The producer warp of one (query tile q0..q0+nrows−1, head h, batch b):
-//  1. brings the NRES resident 64-row tiles res[i] (rows q0.., head h) to
-//     res_smem + i·tile by TMA, completing on `resbar` (count 1);
+//  1. brings the NRES resident 64-row tiles res[i] (rows q0 + i·res_step..,
+//     head h) to res_smem + i·tile by TMA, completing on `resbar` (count
+//     1); a tile whose first row lies past S is not loaded (its consumers
+//     have no rows);
 //  2. walks the causal key tiles SCAN at a time, reading kv_last (and
 //     pos_k) for all of them first and then reducing each tile with one
 //     warp-wide max: the reference's block_live(q_start, q_end, k0,
@@ -316,17 +368,22 @@ __device__ __forceinline__ void produce_key_tiles(
     uint64_t* resbar, const CUtensorMap* kmap, const CUtensorMap* vmap, const KeyRing& ring,
     const int* __restrict__ kv_last, const int* __restrict__ pos_q,
     const int* __restrict__ pos_k, int b, int h, int kh, int S, int Skv, int q0, int nrows,
-    int q_off, int window) {
+    int q_off, int window, int res_step = 0) {
   constexpr int TILE = KT * HD * 2;
   constexpr int NA = HD / 64;
   const int q_start = q_off + q0, q_end = q_start + nrows - 1;
   const bool windowed = pos_q != nullptr;
   if (lane == 0) {
-    mbar_arrive_expect_tx(resbar, NRES * TILE);
+    int nres = 0;
+#pragma unroll
+    for (int i = 0; i < NRES; ++i) nres += q0 + i * res_step < S;
+    mbar_arrive_expect_tx(resbar, nres * TILE);
 #pragma unroll
     for (int i = 0; i < NRES; ++i)
-      for (int a = 0; a < NA; ++a)
-        tma_load_4d(res_smem + i * TILE + a * ATOM, res[i], resbar, 64 * a, h, q0, b);
+      if (q0 + i * res_step < S)
+        for (int a = 0; a < NA; ++a)
+          tma_load_4d(res_smem + i * TILE + a * ATOM, res[i], resbar, 64 * a, h,
+                      q0 + i * res_step, b);
   }
   int qp_min = INT_MAX;
   if (windowed) {

@@ -6,7 +6,8 @@
 // _bwd_dkv (kernel body :185-243, pallas_call :278).  Same function: with
 // p_ij = exp(scale·q_i·k_j − lse_i) on visible pairs (0 elsewhere),
 // Δ_i = Σ_d do_id·o_id (handed over by the dq launch before it, whose
-// kernel computes it on the bf16 hd 64/128 path) and
+// kernel computes it on the bf16 hd 64/128 path; a torch reduction in the
+// wrapper computes it elsewhere, hd 192 included) and
 // ds_ij = p_ij · (do_i·v_j − Δ_i) · scale,
 //   dv_j = Σ_{h in j's GQA group} Σ_i p_ij · do_i,
 //   dk_j = Σ_{h in j's GQA group} Σ_i ds_ij · q_i,
@@ -16,7 +17,7 @@
 // Two paths compute the same function, with no atomics on dk, dv or their
 // partials: two launches give bit-identical dk and dv.
 //
-// Hopper path (bf16 at hd 64 and 128, the models' head dims), in
+// Hopper path (bf16 at hd 64, 128 and 192, the models' head dims), in
 // FlashAttention-3's backward orientation: the key tile is wgmma's M.  One
 // CUDA block of 160 threads owns one (64-key tile, kv head, batch row, part
 // of the GQA group): a consumer warpgroup (warps 0-3) and a producer warp
@@ -42,14 +43,30 @@
 // Ragged S and Skv read as zero from TMA and are masked; keys no query
 // sees get exactly 0.
 //
-// Simple path (fp32 inputs and bf16 at hd 16, 24, 32, 96 and 192).  One
+// hd 192 (Nemotron-4 340B).  dK and dV would take 96 + 96 fp32 registers a
+// thread, and Sᵀ, dPᵀ, their bf16 fragments and the addresses push one
+// warpgroup past the 255-register limit: it would spill.  So a block has
+// two consumer warpgroups (288 threads with the producer warp, one block
+// an SM, ≤ 224 registers a thread) that split the work by operand, not by
+// columns, so that no product is computed twice: warpgroup 0 computes
+// Sᵀ = K·Qᵀ (m64n64k16 over the whole 64-query tile), forms Pᵀ, and owns
+// dV += Pᵀ·dO; warpgroup 1 computes dPᵀ = V·dOᵀ, forms dSᵀ from the fp32
+// Pᵀ that warpgroup 0 leaves in shared memory (16 KB, handed over on two
+// named barriers: full, then free again), and owns dK += dSᵀ·Q.  Each
+// holds one 96-register accumulator and a 32-register product tile; the
+// dV/dK products are wgmma m64n192k16 with the accumulator's A fragment
+// from registers.  K, V and a 3-stage Q/dO ring take ~212 KB.  The
+// producer, the schedule pass, the GQA parts and their fixed-order sum are
+// the hd 64/128 path's.
+//
+// Simple path (fp32 inputs and bf16 at hd 16, 24, 32 and 96).  One
 // block of 256 threads owns one (key tile, kv head, batch row) and keeps
 // that tile's K and V in shared memory.  It loops over the G query heads of
 // the group and, inside, over the 64-query tiles, accumulating dK and dV in
 // fp32 shared memory; it writes dk and dv once.  The query loop starts at
 // the first tile whose global end reaches the key tile's start and tests
 // every tile after it with block_live before any load.  The key tile is 64
-// wide where that fits in shared memory, 32 at hd 192.  bf16 with hd a
+// wide where that fits in shared memory, 32 at hd 192 (f32).  bf16 with hd a
 // multiple of 16 uses WMMA (P and dS rounded to bf16 before the last two
 // products, as on the Hopper path); fp32 uses FMA, matching the plain
 // version to summation order.
@@ -275,12 +292,21 @@ tree_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// Hopper path: warp-specialised wgmma kernel (bf16, hd 64 and 128)
+// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 128 and 192)
 // --------------------------------------------------------------------------
 
-constexpr int WG_THREADS = 128;               // the consumer warpgroup
-constexpr int HOP_THREADS = WG_THREADS + 32;  // + the producer warp
+constexpr int WG_THREADS = 128;               // one consumer warpgroup
 constexpr int HBK = 64;                       // keys per block (wgmma's M)
+// hd 192's two consumer warpgroups hand Pᵀ over through shared memory on
+// these named barriers (0 is __syncthreads)
+constexpr int BAR_P_FULL = 1, BAR_P_FREE = 2;
+
+// Consumer warpgroups a block: 1 at hd 64/128, 2 at hd 192 (one forms Pᵀ
+// and owns dV, the other dSᵀ and dK: see the header).
+template <int HD>
+__host__ __device__ constexpr int dkv_wgs() { return HD == 192 ? 2 : 1; }
+template <int HD>  // + the producer warp
+__host__ __device__ constexpr int dkv_threads() { return dkv_wgs<HD>() * WG_THREADS + 32; }
 
 struct DkvMaps {
   CUtensorMap q, k, v, dout;
@@ -299,7 +325,8 @@ struct HopLayout {
   static constexpr int KL = PQ + STAGES * BQ * 4;
   static constexpr int PK = KL + HBK * 4;
   static constexpr int Q0 = PK + HBK * 4;
-  static constexpr int BAR = Q0 + 64;
+  static constexpr int XCH = Q0 + 64;            // hd 192: Pᵀ, fp32 [32][WG_THREADS]
+  static constexpr int BAR = XCH + (dkv_wgs<HD>() == 2 ? 32 * WG_THREADS * 4 : 0);
   static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
   static constexpr int ALLOC = BYTES + 1024;     // room to align the base to 1 KB
 };
@@ -384,9 +411,12 @@ cudaError_t launch_schedule(const void* kv_last, void* sched, int B, int S, int 
 // At hd 128 the two register accumulators (128 fp32 a thread) and the
 // 64×32 Sᵀ/dPᵀ tiles need ~200 registers: two blocks of five warps on an
 // SM cap a thread at 168 (three warps share a 16K-register quarter), which
-// spills and serialises the wgmmas, so hd 128 runs one block per SM.
+// spills and serialises the wgmmas, so hd 128 runs one block per SM.  At
+// hd 192 the two accumulators alone would be 192 registers a thread, so
+// two consumer warpgroups split them (one block per SM, nine warps: 224
+// registers a thread at most).
 template <int HD>
-__global__ void __launch_bounds__(HOP_THREADS, HD <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(dkv_threads<HD>(), HD <= 64 ? 2 : 1)
 dkv_hopper_kernel(const __grid_constant__ DkvMaps maps, const int* __restrict__ kv_last,
                   const int* __restrict__ pos_q, const int* __restrict__ pos_k,
                   const float* __restrict__ lse, const float* __restrict__ delta,
@@ -395,6 +425,7 @@ dkv_hopper_kernel(const __grid_constant__ DkvMaps maps, const int* __restrict__ 
                   int Skv, int H, int Kh, int parts, float scale, int q_off, int window) {
   using L = HopLayout<HD>;
   constexpr int NA = HD / 64;
+  constexpr int NWG = dkv_wgs<HD>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   float* lse_s = reinterpret_cast<float*>(sm + L::LSE);
@@ -419,16 +450,16 @@ dkv_hopper_kernel(const __grid_constant__ DkvMaps maps, const int* __restrict__ 
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
       hop::mbar_init(&full[s], 33);              // 32 lanes' copies + lane 0
-      hop::mbar_init(&empty[s], WG_THREADS);     // every consumer thread
+      hop::mbar_init(&empty[s], NWG * WG_THREADS);   // every consumer thread
     }
     hop::mbar_init(kvbar, 32);
     hop::fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= WG_THREADS) {
+  if (tid >= NWG * WG_THREADS) {
     // ---------------- producer warp ----------------
-    const int lane = tid - WG_THREADS;
+    const int lane = tid - NWG * WG_THREADS;
     // the key tile's kv_last / pos_k, and their max over its real keys
     int kmax = -1, kpmax = INT_MIN;
     for (int c = lane; c < HBK; c += 32) {
@@ -505,6 +536,129 @@ dkv_hopper_kernel(const __grid_constant__ DkvMaps maps, const int* __restrict__ 
     if (lane == 0) {
       q0_s[stage] = -1;
       hop::mbar_arrive(&full[stage]);
+    }
+    return;
+  }
+
+  if constexpr (NWG == 2) {
+    // ---------------- hd 192: two consumer warpgroups, rows are keys ----------------
+    // Warpgroup 0 computes Sᵀ = K·Qᵀ, forms Pᵀ and owns dV += Pᵀ·dO;
+    // warpgroup 1 computes dPᵀ = V·dOᵀ, forms dSᵀ = Pᵀ∘(dPᵀ − Δ)·scale
+    // with the fp32 Pᵀ that warpgroup 0 leaves in `xch`, and owns
+    // dK += dSᵀ·Q.  The same thread index holds the same (key, query)
+    // elements in both, so the hand-over is elementwise and conflict-free.
+    const int wg = tid / WG_THREADS, t = tid % WG_THREADS;
+    const int warp = t / 32, lane = t % 32;
+    const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;   // this thread's two keys
+    const int cq = 2 * (lane % 4);                      // its first column in each 8
+    const int key0 = k0 + r0, key1 = k0 + r1;
+    const float sl2 = scale * hop::LOG2E;
+    float* xch = reinterpret_cast<float*>(sm + L::XCH);
+    float acc[HD / 2];                                  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    hop::mbar_wait(kvbar, 0);
+    const int kl0 = kl_s[r0], kl1 = kl_s[r1];
+    const int pk0 = windowed ? pk_s[r0] : 0, pk1 = windowed ? pk_s[r1] : 0;
+    const uint32_t a_base = hop::smem_u32(sm + (wg == 0 ? L::K : L::V));
+    int st = 0, n = 0;
+    uint32_t ph = 0;
+    for (;; ++n) {
+      hop::mbar_wait(&full[st], ph);
+      const int qs = q0_s[st];
+      if (qs < 0) break;
+      const int nrows = min(BQ, S - qs), qg = q_off + qs;
+      const uint32_t q_base = hop::smem_u32(sm + L::QD + st * 2 * L::TILE);
+      const uint32_t do_base = q_base + L::TILE;
+      // B of the first product (K-major) and of the second (MN-major)
+      const uint32_t b1 = wg == 0 ? q_base : do_base, b2 = wg == 0 ? do_base : q_base;
+      float x[32];                                      // Sᵀ or dPᵀ [64 keys × 64 queries]
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = 0.f;
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        hop::wgmma_ss_n64(x, hop::desc_k(a_base, ks), hop::desc_k(b1, ks), ks > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(x);
+      if (wg == 0) {
+        // Pᵀ = exp(s·scale − lse) on visible pairs, 0 elsewhere
+        const float* ls = lse_s + st * BQ;
+        const int* pqs = pq_s + st * BQ;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + cq + e, iq = qg + c;
+            const float lg = ls[c] * hop::LOG2E;
+            bool v0 = c < nrows && key0 <= iq && kl0 >= iq;
+            bool v1 = c < nrows && key1 <= iq && kl1 >= iq;
+            if (windowed) {
+              v0 = v0 && pqs[c] - pk0 < window;
+              v1 = v1 && pqs[c] - pk1 < window;
+            }
+            x[4 * j + e] = v0 ? exp2f(fmaf(x[4 * j + e], sl2, -lg)) : 0.f;
+            x[4 * j + 2 + e] = v1 ? exp2f(fmaf(x[4 * j + 2 + e], sl2, -lg)) : 0.f;
+          }
+        if (n > 0) hop::named_bar_sync(BAR_P_FREE, 2 * WG_THREADS);   // last Pᵀ read
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xch[i * WG_THREADS + t] = x[i];
+        hop::named_bar_arrive(BAR_P_FULL, 2 * WG_THREADS);
+      } else {
+        // dSᵀ = Pᵀ∘(dPᵀ − Δ)·scale
+        const float* dls = dl_s + st * BQ;
+        hop::named_bar_sync(BAR_P_FULL, 2 * WG_THREADS);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dl = dls[8 * j + cq + e];
+            const int i0 = 4 * j + e, i1 = 4 * j + 2 + e;
+            x[i0] = xch[i0 * WG_THREADS + t] * (x[i0] - dl) * scale;
+            x[i1] = xch[i1 * WG_THREADS + t] * (x[i1] - dl) * scale;
+          }
+        hop::named_bar_arrive(BAR_P_FREE, 2 * WG_THREADS);
+      }
+      // dV += Pᵀ·dO or dK += dSᵀ·Q over the 64 queries (depth = queries)
+      uint32_t xa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          xa[kk][i] = hop::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_rs<HD>(acc, xa[kk], hop::desc_mn(b2 + kk * 16 * 128));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[st]);
+      if (++st == L::STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    if (wg == 0 && n > 0) hop::named_bar_sync(BAR_P_FREE, 2 * WG_THREADS);   // the last one
+    // this warpgroup's dv (0) or dk (1) rows, written once
+    const size_t ne = size_t(B) * Skv * Kh * HD;
+    __nv_bfloat16* out = wg == 0 ? dv : dk;
+    float* part_out =
+        parts == 1 ? nullptr : partial + size_t(wg == 0 ? parts + part : part) * ne;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = rr ? key1 : key0;
+      if (key >= Skv) continue;
+      const size_t off = ((size_t(b) * Skv + key) * Kh + kh) * HD + cq;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const float lo = acc[4 * j + 2 * rr], hi = acc[4 * j + 2 * rr + 1];
+        if (parts == 1)
+          *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * j) = __floats2bfloat162_rn(lo, hi);
+        else
+          *reinterpret_cast<float2*>(part_out + off + 8 * j) = make_float2(lo, hi);
+      }
     }
     return;
   }
@@ -666,10 +820,11 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v, const voi
     if (err != cudaSuccess) return err;
   }
   constexpr int bytes = HopLayout<HD>::ALLOC;
+  static_assert(bytes <= MAX_SMEM, "dk/dv Hopper tile does not fit shared memory");
   auto kern = dkv_hopper_kernel<HD>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kern<<<B * nk * Kh * parts, HOP_THREADS, bytes, stream>>>(
+  kern<<<B * nk * Kh * parts, dkv_threads<HD>(), bytes, stream>>>(
       maps, static_cast<const int*>(kv_last), static_cast<const int*>(pos_q),
       static_cast<const int*>(pos_k), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(sched),
@@ -718,7 +873,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, dk,
                                     dv, B, S, Skv, H, Kh, scale, q_off, window, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD == 64 || HD == 128)
+  if constexpr (HD == 64 || HD == 128 || HD == 192)
     return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, sched, dk, dv,
                              partial, parts, B, S, Skv, H, Kh, scale, q_off, window, stream);
   else
@@ -732,10 +887,10 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  pos_q/pos_k null ⇒ no window.  The
-// bf16 hd 64/128 path also takes `sched`, int32 scratch of B·nk elements
-// (nk = ceil(Skv/64)) where it first writes the key tiles' order, and
-// splits each GQA group into `parts` parts (a divisor of H/Kh); with
-// parts > 1, `partial` is fp32 scratch of 2·parts·B·Skv·Kh·hd elements.
+// bf16 Hopper path (hd 64, 128, 192) also takes `sched`, int32 scratch of
+// B·nk elements (nk = ceil(Skv/64)) where it first writes the key tiles'
+// order, and splits each GQA group into `parts` parts (a divisor of H/Kh);
+// with parts > 1, `partial` is fp32 scratch of 2·parts·B·Skv·Kh·hd elements.
 // The other instances ignore the three.  Returns cudaGetLastError() after
 // the launches (0 = ok).
 int tree_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* kv_last,
@@ -763,7 +918,7 @@ int tree_attention_bwd_dkv(const void* q, const void* k, const void* v, const vo
 #undef TREE_ATTN_HD
 }
 
-// The key tiles' order alone (what the bf16 hd 64/128 path computes first),
+// The key tiles' order alone (what the bf16 Hopper path computes first),
 // into int32 sched[B·ceil(Skv/64)]; for checking it against its plain version.
 int tree_attention_bwd_dkv_schedule(const void* kv_last, void* sched, int B, int S, int Skv,
                                     int q_off, void* stream) {

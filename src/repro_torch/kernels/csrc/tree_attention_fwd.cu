@@ -11,10 +11,11 @@
 //
 // Two paths compute the same function.
 //
-// Hopper path (bf16 at hd 64 and 128, the models' head dims).  One CUDA
-// block of 160 threads owns one (64-query tile, head, batch row): a
-// consumer warpgroup (warps 0-3, wgmma's native 64 rows) and a producer
-// warp (warp 4).  The producer loads the Q tile by TMA, then walks the
+// Hopper path (bf16 at hd 64, 128 and 192, the models' head dims).  At hd
+// 64 and 128 one CUDA block of 160 threads owns one (64-query tile, head,
+// batch row): a consumer warpgroup (warps 0-3, wgmma's native 64 rows) and
+// a producer warp (warp 4).  At hd 192 see below.  The producer loads the
+// Q tile by TMA, then walks the
 // causal key tiles.  It decides each tile's liveness from the tile's max
 // kv_last (and, windowed, its max pos_k against the query tile's min
 // pos_q) with the reference's block_live predicate (src/repro/kernels/
@@ -38,8 +39,22 @@
 // logits are −inf and the running max starts at the finite −1e30, so no
 // exp2f ever sees a NaN).
 //
+// hd 192 (Nemotron-4 340B).  A Q tile is 24 KB and a K/V stage 48 KB, so
+// one 64-row block (24 KB + 2 stages, ~121 KB) fits once on an SM (228
+// KB) and would leave a single warpgroup to hide every wgmma and softmax
+// latency.  So a block owns 128 query rows instead, FlashAttention-3's
+// layout: two consumer warpgroups (warps 0-7, rows 0-63 and 64-127, each
+// with its own resident Q tile) share one 3-stage K/V ring fed by the
+// producer warp (warp 8), 288 threads and ~199 KB a block, one block an
+// SM.  While one warpgroup runs its softmax the other's wgmmas keep the
+// tensor cores busy.  The producer tests block_live over all 128 rows, so
+// a warpgroup may compute a tile that is dead for its own rows (masked to
+// zero: the same result).  O += P·V is one wgmma m64n192k16 a 16-key step
+// (96 fp32 accumulators a thread; ≤ 224 registers, no spill).  A last tile
+// of ≤ 64 rows leaves the second warpgroup idle: it only releases stages.
+//
 // Simple path (fp32 inputs, the accuracy path, and bf16 at the other head
-// dims 16, 24, 32, 96, 192).  One block of 256 threads per (64-query
+// dims 16, 24, 32, 96).  One block of 256 threads per (64-query
 // tile, head, batch row) walks the key tiles, tests block_live before any
 // load, and runs the products on WMMA (bf16 with hd a multiple of 16) or
 // fp32 FMA through shared memory.  Every accumulator is fp32 on both paths.
@@ -330,54 +345,78 @@ tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// Hopper path: warp-specialised wgmma kernel (bf16, hd 64 and 128)
+// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 128 and 192)
 // --------------------------------------------------------------------------
 
-constexpr int WG_THREADS = 128;               // the consumer warpgroup
-constexpr int HOP_THREADS = WG_THREADS + 32;  // + the producer warp
+constexpr int WG_THREADS = 128;               // one consumer warpgroup
 
 struct FwdMaps {
   CUtensorMap q, k, v;
 };
 
+// Consumer warpgroups a block: 1 at hd 64/128 (64 query rows, two blocks
+// an SM), 2 at hd 192 (128 rows, one block an SM: see the header).
 template <int HD>
-using FwdLayout = hop::KeyTileLayout<HD, 1>;     // Q resident
+__host__ __device__ constexpr int fwd_wgs() { return HD == 192 ? 2 : 1; }
+template <int HD>  // + the producer warp
+__host__ __device__ constexpr int fwd_threads() { return fwd_wgs<HD>() * WG_THREADS + 32; }
 
 template <int HD>
-__global__ void __launch_bounds__(HOP_THREADS, 2)
+using FwdLayout = hop::KeyTileLayout<HD, fwd_wgs<HD>()>;   // a Q tile a warpgroup, resident
+
+template <int HD>
+__global__ void __launch_bounds__(fwd_threads<HD>(), HD == 192 ? 1 : 2)
 fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ kv_last,
                   const int* __restrict__ pos_q, const int* __restrict__ pos_k,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int S,
                   int Skv, int H, int Kh, float scale, int q_off, int window) {
   using L = FwdLayout<HD>;
+  constexpr int NWG = fwd_wgs<HD>();
+  constexpr int BM = NWG * BQ;                  // query rows a block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = L::base(smem_raw);
   const hop::KeyRing ring = L::ring(sm);
   const int *kl_s = ring.kl, *pk_s = ring.pk, *k0_s = ring.k0;
   uint64_t *full = ring.full, *empty = ring.empty, *qbar = L::resbar(sm);
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (S + BM - 1) / BM;
   const int qi = nq - 1 - static_cast<int>(blockIdx.x) / (B * H);   // heaviest first
   const int b = (blockIdx.x / H) % B, h = blockIdx.x % H;
   const int kh = h / (H / Kh);
-  const int q0 = qi * BQ, nrows = min(BQ, S - q0);
+  const int q0 = qi * BM, nrows = min(BM, S - q0);
   const int q_start = q_off + q0;
   const bool windowed = pos_q != nullptr;
   const int tid = threadIdx.x;
-  L::init(sm, WG_THREADS);
+  L::init(sm, NWG * WG_THREADS);
 
-  if (tid >= WG_THREADS) {
+  if (tid >= NWG * WG_THREADS) {
     // ---------------- producer warp (hopper.cuh) ----------------
-    const CUtensorMap* const res[1] = {&maps.q};
-    hop::produce_key_tiles<HD, L::STAGES>(tid - WG_THREADS, res, sm + L::RES, qbar, &maps.k,
-                                          &maps.v, ring, kv_last, pos_q, pos_k, b, h, kh, S,
-                                          Skv, q0, nrows, q_off, window);
+    const CUtensorMap* res[NWG];
+    for (int i = 0; i < NWG; ++i) res[i] = &maps.q;      // rows q0 + 64·i
+    hop::produce_key_tiles<HD, L::STAGES>(tid - NWG * WG_THREADS, res, sm + L::RES, qbar,
+                                          &maps.k, &maps.v, ring, kv_last, pos_q, pos_k, b, h,
+                                          kh, S, Skv, q0, nrows, q_off, window, BQ);
     return;
   }
 
-  // ---------------- consumer warpgroup ----------------
-  const int warp = tid / 32, lane = tid % 32;
-  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;     // this thread's two rows
+  // ---------------- consumer warpgroup wg: rows 64·wg.. of the block ----------------
+  const int wg = tid / WG_THREADS;
+  if (BQ * wg >= nrows) {
+    // hd 192's second warpgroup on a last tile of ≤ 64 rows: no rows to
+    // compute (its Q tile was not loaded), but each stage awaits its release
+    uint32_t ph = 0;
+    for (int st = 0;;) {
+      hop::mbar_wait(&full[st], ph);
+      if (k0_s[st] < 0) return;
+      hop::mbar_arrive(&empty[st]);
+      if (++st == L::STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+  }
+  const int warp = (tid % WG_THREADS) / 32, lane = tid % 32;
+  const int r0 = BQ * wg + 16 * warp + lane / 4, r1 = r0 + 8;   // this thread's two rows
   const int cq = 2 * (lane % 4);                        // its first column in each 8
   const int iq0 = q_start + r0, iq1 = q_start + r1;
   const bool ok0 = r0 < nrows, ok1 = r1 < nrows;
@@ -391,7 +430,7 @@ fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ 
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 domain
-  const uint32_t q_base = hop::smem_u32(sm + L::RES);
+  const uint32_t q_base = hop::smem_u32(sm + L::RES + wg * L::TILE);
   hop::mbar_wait(qbar, 0);
 
   int stage = 0;
@@ -518,11 +557,13 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v, const voi
   if (err == cudaSuccess) err = hop::tile_map(&maps.v, v, B, Skv, Kh, HD);
   if (err != cudaSuccess) return err;
   constexpr int bytes = FwdLayout<HD>::ALLOC;
+  static_assert(bytes <= 232448, "does not fit an H100 block's shared memory");
   auto kern = fwd_hopper_kernel<HD>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int nq = (S + BQ - 1) / BQ;
-  kern<<<nq * H * B, HOP_THREADS, bytes, stream>>>(
+  const int bm = fwd_wgs<HD>() * BQ;
+  const int nq = (S + bm - 1) / bm;
+  kern<<<nq * H * B, fwd_threads<HD>(), bytes, stream>>>(
       maps, static_cast<const int*>(kv_last), static_cast<const int*>(pos_q),
       static_cast<const int*>(pos_k), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       B, S, Skv, H, Kh, scale, q_off, window);
@@ -557,7 +598,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, o, lse, B, S, Skv, H,
                                     Kh, scale, q_off, window, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD == 64 || HD == 128)
+  if constexpr (HD == 64 || HD == 128 || HD == 192)
     return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, o, lse, B, S, Skv, H, Kh, scale,
                              q_off, window, stream);
   else

@@ -3,17 +3,20 @@ the ctypes wrapper of the CUDA kernel ``csrc/tree_attention_fwd.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/tree_attention.py::
 tree_attention`` (body :146-218, ``pallas_call`` :248).  A block owns a
-(64-query tile, head, batch row) and runs an online softmax over the key
+(query tile, head, batch row) and runs an online softmax over the key
 tiles that ``block_live`` keeps; a dead tile is skipped before its loads.
 Ragged S and Skv are masked in-kernel, ``q_off`` is a runtime int, and GQA
 maps head h to kv head h // (H/Kh).
 
-Two paths (``csrc/tree_attention_fwd.cu``): bf16 at hd 64 and 128
-(``HOPPER_HEAD_DIMS``, the models' head dims) runs a warp-specialised
-kernel, a TMA producer warp that hands live key tiles through an mbarrier
-ring to a wgmma consumer warpgroup with its accumulators in registers; fp32
-(the accuracy path) and bf16 at the other head dims run the simple kernel
-(WMMA or FMA through shared memory).
+Two paths (``csrc/tree_attention_fwd.cu``): bf16 at hd 64, 128 and 192
+(``HOPPER_PATH_HEAD_DIMS["fwd"]``, the models' head dims) runs a
+warp-specialised kernel, a TMA producer warp that hands live key tiles
+through an mbarrier ring to wgmma consumer warpgroups with their
+accumulators in registers (one warpgroup and 64 query rows a block at hd
+64/128, two and 128 rows at hd 192); fp32 (the accuracy path) and bf16 at
+the other head dims run the simple kernel (WMMA or FMA through shared
+memory).  ``kernel_path`` says which path each of the three kernels takes:
+the backward's dq kernel has no hd 192 Hopper path yet.
 
 Bound on the H100: at the serving path's shapes (hd 128) the forward does
 about 4·hd FLOPs per visible pair for 2·hd·2 bytes per key read, so the
@@ -37,10 +40,20 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLOCK_Q = BLOCK_K = 64        # the kernel's tile (BQ, BK in the .cu source)
 HEAD_DIMS = (16, 24, 32, 64, 96, 128, 192)
-HOPPER_HEAD_DIMS = (64, 128)  # bf16 at these takes the wgmma/TMA path
+# bf16 at these head dims takes each kernel's warp-specialised wgmma/TMA
+# path; fp32, and bf16 at the other head dims, its simple kernel
+HOPPER_PATH_HEAD_DIMS = {"fwd": (64, 128, 192), "dq": (64, 128),
+                         "dkv": (64, 128, 192)}
 SOURCE = "tree_attention_fwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+
+
+def kernel_path(kernel: str, dtype: torch.dtype, hd: int) -> str:
+    """Which path of ``kernel`` ("fwd", "dq" or "dkv") runs inputs of
+    ``dtype`` at head dim ``hd`` on the card: "hopper" or "simple"."""
+    return ("hopper" if dtype == torch.bfloat16
+            and hd in HOPPER_PATH_HEAD_DIMS[kernel] else "simple")
 
 
 def block_kmax_flat(kv_last, B: int, nk: int, block_k: int) -> np.ndarray:

@@ -9,7 +9,8 @@ recomputation: the forward saved only ``lse`` [B,H,S]; with
 tile under the forward's mask and block-skip rule:
 
   - ``bwd_dq``: one CUDA block per (64-query tile, head, batch) loops over
-    the key tiles and writes dq once.  bf16 at hd 64 and 128 runs a
+    the key tiles and writes dq once.  bf16 at hd 64 and 128
+    (``HOPPER_PATH_HEAD_DIMS["dq"]``) runs a
     warp-specialised wgmma kernel whose producer warp is the forward's
     (``csrc/hopper.cuh::produce_key_tiles``: Q and dO resident, live K/V
     tiles through a TMA ring), S and dP taken 32 keys at a time, dQ in
@@ -17,11 +18,14 @@ tile under the forward's mask and block-skip rule:
     it for the dk/dv launch that follows on the same stream, so the
     reference's Δ pre-pass (:331) runs in no torch op there.  fp32 and the
     other head dims keep the simple kernel (WMMA or FMA through shared
-    memory), with Δ from ``delta`` (a torch reduction, its plain version);
+    memory), with Δ from ``delta`` (a torch reduction, its plain version),
+    hd 192 among them;
   - ``bwd_dkv``: dk and dv over the full Skv (ancestor rows [0, q_off)
-    included), the GQA reduction with no atomics.  bf16 at hd 64 and 128
-    runs a warp-specialised wgmma kernel in FlashAttention-3's orientation
-    (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dK and dV in registers across the loop): one
+    included), the GQA reduction with no atomics.  bf16 at hd 64, 128 and
+    192 (``HOPPER_PATH_HEAD_DIMS["dkv"]``) runs a warp-specialised wgmma
+    kernel in FlashAttention-3's orientation (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dK
+    and dV in registers across the loop; at hd 192 two consumer warpgroups,
+    one forming Pᵀ and owning dV, the other dSᵀ and dK): one
     block per (64-key tile, kv head, batch row, part of the GQA group), the
     key tiles heaviest first (a one-block schedule pass in the same launch;
     ``dkv_schedule`` is its plain version), each group split into
@@ -50,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.tree_attention import (_DTYPES, BLOCK_K, HEAD_DIMS,
-                                                HOPPER_HEAD_DIMS, _aligned)
+                                                _aligned, kernel_path)
 
 SOURCES = ("tree_attention_bwd_dq.cu", "tree_attention_bwd_dkv.cu")
 BLOCK = BLOCK_K          # the dk/dv kernel's key and query tiles
@@ -81,7 +85,7 @@ def _library(source: str, entry: str, n_out: int) -> ctypes.CDLL:
 
 def dkv_schedule(kv_last: torch.Tensor, S: int, q_off: int = 0):
     """The dk/dv kernel's key-tile order, heaviest first: the plain version
-    of the schedule pass that the bf16 hd 64/128 path runs on the card
+    of the schedule pass that its bf16 Hopper path runs on the card
     before its main kernel (``csrc/tree_attention_bwd_dkv.cu::
     dkv_schedule_kernel``; ``dkv_order`` launches it alone).
 
@@ -141,9 +145,10 @@ def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def fuses_delta(q: torch.Tensor) -> bool:
-    """Whether the dq kernel computes Δ itself for inputs like ``q`` (bf16
-    at hd 64 and 128, its Hopper path)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in HOPPER_HEAD_DIMS
+    """Whether the dq kernel computes Δ itself for inputs like ``q``: on
+    its Hopper path (bf16 at hd 64 and 128), not at hd 192, where the
+    dk/dv kernel's Hopper path reads the ``delta`` that ``bwd_dq`` makes."""
+    return kernel_path("dq", q.dtype, q.shape[-1]) == "hopper"
 
 
 def _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k):
@@ -234,16 +239,16 @@ def bwd_dq(q, k, v, kv_last, o, lse, do, scale: float, *, q_off: int = 0,
 def bwd_dkv(q, k, v, kv_last, lse, dl, do, scale: float, *, q_off: int = 0,
             window: Optional[int] = None, pos_q=None, pos_k=None,
             parts: Optional[int] = None):
-    """Launch the dk/dv kernel (inputs already checked, ``dl`` = Δ).  The
-    bf16 hd 64/128 instances order the key tiles heaviest first (a schedule
-    pass in the same launch, whose plain version is ``dkv_schedule``) and
-    split each GQA group into ``parts`` (default ``head_parts``), summing
-    fp32 partials in a fixed order."""
+    """Launch the dk/dv kernel (inputs already checked, ``dl`` = Δ).  Its
+    Hopper path (bf16 at hd 64, 128 and 192) orders the key tiles heaviest
+    first (a schedule pass in the same launch, whose plain version is
+    ``dkv_schedule``) and splits each GQA group into ``parts`` (default
+    ``head_parts``), summing fp32 partials in a fixed order."""
     B, S, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     sched = partial = None
-    if q.dtype == torch.bfloat16 and hd in HOPPER_HEAD_DIMS:
+    if kernel_path("dkv", q.dtype, hd) == "hopper":
         units = B * -(-Skv // BLOCK)
         sched = torch.empty(units, dtype=torch.int32, device=q.device)
         if parts is None:
@@ -275,9 +280,9 @@ def tree_attention_bwd(q, k, v, kv_last, o, lse, do, scale: float, *,
     pos_q [B,S] and pos_k [B,Skv] int32.  Returns (dq, dk, dv) in the
     inputs' dtype; dk/dv cover the full Skv, ancestor rows included.
 
-    The dq launch comes first and hands Δ to the dk/dv launch; on the bf16
-    hd 64/128 path the dq kernel writes that Δ, so the two launches must
-    stay in this order on one stream."""
+    The dq launch comes first and hands Δ to the dk/dv launch; where
+    ``fuses_delta`` holds (bf16 at hd 64/128) the dq kernel writes that Δ,
+    so the two launches must stay in this order on one stream."""
     _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k)
     kw = dict(q_off=q_off, window=window, pos_q=pos_q, pos_k=pos_k)
     dq, dl = bwd_dq(q, k, v, kv_last, o, lse, do, scale, **kw)

@@ -113,7 +113,8 @@ def _case(name):
     if name.startswith("ring_tail"):
         # a causal chain of 6 key tiles, the last ragged (357 = 5·64 + 37)
         # and live: it lands in the last stage of the forward's key-tile
-        # ring at both head dims (2 stages at hd 128, 3 at hd 64)
+        # ring at each head dim (2 stages at hd 128, 3 at hd 64 and 192;
+        # at hd 192 the last 128-row query tile holds 101 rows)
         hd = int(name.rsplit("hd", 1)[1])
         return (2, 357, 12, 2, hd, np.full((2, 357), 356), 0, None, None,
                 None)
@@ -123,7 +124,8 @@ def _case(name):
         kl, _, _ = _gateway_meta(19, 2, 200, 37, (5, 0))
         return 2, 200, 12, 2, 128, kl, 37, None, None, None
     if name.startswith("heads"):
-        # heads{H}_{Kh}_hd{hd}: GQA 12/2 and MHA at the models' head dims
+        # heads{H}_{Kh}_hd{hd}: GQA 12/2 and MHA at the models' head dims,
+        # and Nemotron-4 340B's 96/8 (a group of 12) at hd 192
         H, rest = name[5:].split("_", 1)
         Kh, hd = rest.split("_hd")
         kl, _ = _tree_meta(23, 2, 256)
@@ -135,7 +137,8 @@ CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20", "window",
          "gateway_window", "packed_gqa_hd128", "dead_tiles", "ring_tail_hd64",
          "ring_tail_hd128", "ragged_gateway", "heads12_2_hd64",
          "heads12_2_hd128", "heads4_4_hd64", "heads4_4_hd128",
-         "packed_gqa32_4_hd128", "heads32_4_hd128"]
+         "packed_gqa32_4_hd128", "heads32_4_hd128", "ring_tail_hd192",
+         "heads96_8_hd192"]
 
 
 def _inputs(name, dtype, dev, hd=None):
@@ -281,7 +284,7 @@ def _delta_close(got, o, do):
         (err / scale.clamp_min(1e-30)).max())
 
 
-@pytest.mark.parametrize("hd", ta.HOPPER_HEAD_DIMS)
+@pytest.mark.parametrize("hd", ta.HOPPER_PATH_HEAD_DIMS["dq"])
 @pytest.mark.parametrize("name", CASES)
 def test_cuda_dq_hopper_matches_plain(dev, name, hd):
     """The dq kernel's Hopper path (bf16 at hd 64 and 128) on every case:
@@ -313,6 +316,55 @@ def test_cuda_dq_hopper_matches_plain(dev, name, hd):
     assert not bool(dq[masked].any())
     if name == "padding":                           # queries 16.. see nothing
         assert bool(masked[0, 16:].all())
+
+
+# the reference's parity cases (ROADMAP Queue B): MHA, GQA, MQA, padding
+# keys, gateway ancestors, window × branching, gateway × window (bf16 + GQA
+# + ancestors), ragged tails, dead tiles between live ones, and Nemotron's
+# group of 12
+HD192_CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20",
+               "window", "gateway_window", "ragged_gateway", "dead_tiles",
+               "ring_tail_hd192", "heads96_8_hd192"]
+
+
+@pytest.mark.parametrize("name", HD192_CASES)
+def test_cuda_hd192_hopper_fwd_and_dkv_match_plain(dev, name):
+    """bf16 at hd 192 runs the forward's and dk/dv's Hopper paths and dq's
+    simple kernel with Δ from ``delta``: o and lse against the plain
+    version in f32 at the forward's bf16 limits, dq/dk/dv against the plain
+    backward at the bf16 limits, every output bit-identical over two
+    launches, dk/dv exactly 0 on keys no query sees."""
+    q, k, v, kl, kw, do = _inputs(name, torch.bfloat16, dev, hd=192)
+    sc = 192 ** -0.5
+    bf16 = torch.bfloat16
+    assert [ta.kernel_path(kern, bf16, 192) for kern in ("fwd", "dq", "dkv")
+            ] == ["hopper", "simple", "hopper"]
+    assert not tab.fuses_delta(q)
+    with torch.inference_mode():
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True, **kw)
+        o2, lse2 = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
+                                     **kw)
+        ro, rl = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                        sc, return_lse=True, **kw)
+        got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                      o.float(), lse, do.float(), sc, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
+    err = (o.float() - ro).abs()
+    rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _hold_bwd(got, want, bf16)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    Skv = k.shape[1]
+    first = torch.arange(Skv, device=dev).clamp(min=kw["q_off"])
+    dead = kl < first                 # no query i ≥ max(j, q_off) sees key j
+    assert not bool(got[1][dead].any()) and not bool(got[2][dead].any())
+    if name == "padding":
+        assert bool(dead[0, 16:].all())
 
 
 def test_cuda_moe_train_step_makes_no_hidden_sync(dev):

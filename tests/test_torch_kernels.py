@@ -249,3 +249,57 @@ def test_dkv_head_split_partials_sum_to_jax(parts):
                                rtol=1e-4)
     np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), atol=1e-4,
                                rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# which path each kernel takes, and the forward at Nemotron-4 340B's head
+# dim 192 with a GQA group of 12 against the reference's Pallas kernel
+# --------------------------------------------------------------------------
+
+# (kernel, dtype, hd) → path on the card: bf16 at hd 64 and 128 takes every
+# kernel's Hopper path; at hd 192 the forward's and dk/dv's, while dq keeps
+# its simple kernel; fp32 and the other head dims take the simple kernels
+_HOPPER = {("fwd", 64), ("fwd", 128), ("fwd", 192), ("dq", 64), ("dq", 128),
+           ("dkv", 64), ("dkv", 128), ("dkv", 192)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_kernel_path_table(kernel, dtype):
+    dt = getattr(torch, dtype)
+    for hd in ta.HEAD_DIMS:
+        want = ("hopper" if dtype == "bfloat16" and (kernel, hd) in _HOPPER
+                else "simple")
+        assert ta.kernel_path(kernel, dt, hd) == want, (kernel, dtype, hd)
+    q = torch.zeros(1, 1, 1, 192, dtype=dt)
+    assert tab.fuses_delta(q) is False            # no dq Hopper path at 192
+    assert tab.fuses_delta(q[..., :128]) is (dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("q_off", [0, 20])
+def test_op_hd192_gqa12_matches_jax(q_off):
+    """Nemotron-4 340B's attention layout at small size: hd 192, 12 query
+    heads on one kv head (its GQA group of 12), packed trees, with and
+    without gateway ancestors; o and lse against the reference's Pallas
+    forward in interpret mode at its tolerance (2e-5, f32)."""
+    B, S, H, Kh, hd = 1, 64, 12, 1, 192
+    rng = np.random.default_rng(192 + q_off)
+    mk = lambda *s: rng.normal(size=s).astype(np.float32)
+    if q_off:
+        kl = np.asarray(_gateway_meta(9, B, S, q_off, (3,))[0])
+    else:
+        kl = np.asarray(_tree_meta(9, B, S)[0])
+    q, k, v = mk(B, S, H, hd), mk(B, q_off + S, Kh, hd), mk(B, q_off + S, Kh,
+                                                            hd)
+    sc = hd ** -0.5
+    pad = -k.shape[1] % 32                # the Pallas forward wants Skv % bk
+    kp, vp = (np.pad(a, ((0, 0), (0, pad), (0, 0), (0, 0))) for a in (k, v))
+    klp = np.pad(kl, ((0, 0), (0, pad)), constant_values=-1)
+    jo, jl = jta.tree_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(klp), sc,
+        block_q=32, block_k=32, q_off=q_off, save_residuals=True,
+        interpret=True)
+    o, lse = _port(q, k, v, kl, q_off, None, None, None, save_residuals=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=TOL,
+                               rtol=TOL)

@@ -258,3 +258,63 @@ def test_tree_attention_bwd_hands_dq_delta_to_dkv(monkeypatch):
     x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
     out = tab.tree_attention_bwd(x, x, x, None, x, None, x, 0.1)
     assert out == ("dq", "dk", "dv") and calls == ["dq", "dkv"]
+
+
+def test_hd192_dkv_hopper_path_reads_the_wrappers_delta(monkeypatch):
+    """bf16 at hd 192 (Nemotron-4 340B: a GQA group of 12): the dq kernel
+    has no Hopper path there, so ``fuses_delta`` is false and ``bwd_dq``
+    computes Δ = ``delta(o, do)`` before its launch; the dk/dv launch, on
+    its Hopper path (a schedule buffer, and fp32 partials when the group is
+    split), receives that same Δ.  The launches are replaced here (the
+    kernels need the card) and record what they were given."""
+    B, S, H, Kh, hd = 1, 70, 12, 1, 192
+    rng = np.random.default_rng(192)
+    t = lambda *s: torch.from_numpy(_np(rng, *s)).to(torch.bfloat16)
+    q, o, do = t(B, S, H, hd), t(B, S, H, hd), t(B, S, H, hd)
+    k, v = t(B, S, Kh, hd), t(B, S, Kh, hd)
+    kl = torch.full((B, S), S - 1, dtype=torch.int32)
+    lse = torch.zeros(B, H, S)
+    seen = []
+    monkeypatch.setattr(tab, "_check", lambda *a: None)
+    monkeypatch.setattr(tab.torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count":
+                                                   132}))
+    monkeypatch.setattr(tab, "_launch", lambda src, entry, outs, *a, **kw:
+                        seen.append(dict(entry=entry, dl=a[5], **kw)))
+    assert not tab.fuses_delta(q)
+    n = (tab.bwd_dq.launches, tab.bwd_dkv.launches)
+    dq, dk, dv = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, 0.1)
+    assert (tab.bwd_dq.launches, tab.bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    assert [c["entry"] for c in seen] == ["tree_attention_bwd_dq",
+                                          "tree_attention_bwd_dkv"]
+    dl = seen[0]["dl"]
+    assert seen[1]["dl"] is dl
+    torch.testing.assert_close(dl, tab.delta(o, do), atol=0, rtol=0)
+    sched, partial = seen[1]["extra"]
+    parts = seen[1]["parts"]
+    assert sched is not None and sched.numel() == B * -(-S // tab.BLOCK)
+    assert parts == tab.head_parts(H // Kh, B * Kh * -(-S // tab.BLOCK), 132)
+    assert (partial is None) == (parts == 1)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_op_hd192_gqa12_grads_match_jax(dtype, tol):
+    """The plain forward and backward at Nemotron-4 340B's head dim 192
+    with its GQA group of 12 (12 query heads on one kv head), gateway
+    ancestors (one row front-padded) and packed trees, against
+    ``jax.vjp`` through the reference's Pallas kernels in interpret mode,
+    at the reference's tolerances (1e-4 in f32, 5e-2 in bf16)."""
+    rng = np.random.default_rng(1920)
+    B, S, A, H, Kh, hd = 1, 64, 20, 12, 1, 192
+    kl = np.asarray(_gateway_meta(13, B, S, A, pad_rows=(3,))[0])
+    q, do = _np(rng, B, S, H, hd), _np(rng, B, S, H, hd)
+    k, v = _np(rng, B, A + S, Kh, hd), _np(rng, B, A + S, Kh, hd)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _jax_grads(q, k, v, kl, do, hd ** -0.5, 32, 32, dtype=jdt,
+                      q_off=A)
+    got, raw = _port_grads(q, k, v, kl, do, hd ** -0.5, dtype=tdt, q_off=A)
+    assert all(g.dtype == tdt for g in raw)
+    _close(got, want, tol)
+    assert not got[1][0, :3].any() and not got[2][0, :3].any()   # padded
+    assert np.abs(got[1][:, 3:A]).max() > 1e-3     # real ancestor cotangents
