@@ -9,9 +9,9 @@ Phases, each of which ends the run non-zero if it fails:
                   dk/dv) in parallel, one process each; print every kernel
                   instance's registers and spills from ptxas's report and
                   its wgmma (HGMMA) and TMA-load (UTMALDG) instruction
-                  counts; each Hopper instance (bf16: the forward and
-                  dk/dv at hd 64, 128 and 192, dq at hd 64 and 128) must
-                  be there, show both and spill nothing.
+                  counts; each Hopper instance (bf16: the three kernels
+                  at hd 64, 128 and 192) must be there, show both and
+                  spill nothing.
   2. kernel     — hold the forward kernel against its plain PyTorch version
                   on the card, computed in f32 from the same inputs (o and
                   lse at 1e-4; a bf16 o within its rounding: 2^-7 of it plus
@@ -27,8 +27,8 @@ Phases, each of which ends the run non-zero if it fails:
                   5e-2 + 5e-2·|ref|.  The forward's cases plus the training
                   shape T; two launches must be bit-identical, invisible
                   keys get exactly zero dk/dv.  Where the dq kernel computes
-                  Δ itself (bf16 hd 64/128) its Δ is held against the plain
-                  ``delta`` at 1e-5 of Σ|do·o| per row, dq and Δ must be
+                  Δ itself (bf16 hd 64/128/192) its Δ is held against the
+                  plain ``delta`` at 1e-5 of Σ|do·o| per row, dq and Δ must be
                   bit-identical over two launches and dq exactly 0 on rows
                   that see no key.
   4. serve      — Qwen2-1.5B at full width, random bf16 weights: 4 rollout
@@ -115,11 +115,10 @@ Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
  18. arch kernel, arch bwd kernel — phases 2-3 at each of their attention
                   layouts (H 32, 64 and 40 over Kh 8 at hd 128 on the
                   Hopper paths; H 96/Kh 8 at hd 192 in bf16 on the
-                  forward's and dk/dv's Hopper paths and dq's simple
-                  kernel, and in f32 on the simple kernels), at the serving
-                  prefill shape (S 1024, B 1), the tool prefill (B 8, S
-                  200, q_off 1056) and the train rows (B 2, S 4096, real
-                  kv_last).  Each case names each kernel's bf16 path.  The
+                  Hopper paths, and in f32 on the simple kernels), at the
+                  serving prefill shape (S 1024, B 1), the tool prefill
+                  (B 8, S 200, q_off 1056) and the train rows (B 2, S
+                  4096, real kv_last).  Each case names each kernel's bf16 path.  The
                   plain versions run by whole GQA groups where their dense
                   scores would pass 4 GB.
  19. <arch> serve — each arch at full width and the deepest cut whose bf16
@@ -142,7 +141,9 @@ Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
 
 The line before the last names the card and its power limit; the one before
 it lists the kernels (each with its MoE-shape numbers under ``moe``, its
-W numbers under ``wave`` and the five archs' layouts under ``archs``); the
+W numbers under ``wave``, the five archs' layouts under ``archs`` and
+every instance its source built, with registers, spills, HGMMA and
+UTMALDG, under ``instances``); the
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
 """
@@ -205,8 +206,7 @@ TOL_BWD_L2 = 1e-2             # bf16 backward: relative L2 per output
 TOL_BWD_ELEM = 5e-2           # bf16 backward: 5e-2 + 5e-2·|ref| per element
 SOURCES = (ta.SOURCE, *tab.SOURCES)
 # each source's Hopper instances (kernel, head dim), by the head dims each
-# kernel's bf16 path takes (kernel_path): the forward and dk/dv at hd 64,
-# 128 and 192, dq at hd 64 and 128
+# kernel's bf16 path takes (kernel_path): all three at hd 64, 128 and 192
 HOPPER_INSTANCES = {src: [(kern, hd) for hd in ta.HOPPER_PATH_HEAD_DIMS[kern]]
                     for src, kern in zip(SOURCES, ("fwd", "dq", "dkv"))}
 KERNELS = {"tree_attention_fwd": ta.tree_attention,
@@ -239,11 +239,17 @@ ARCHS = ("qwen3_8b", "qwen3_32b", "llama4_scout_17b_a16e", "kimi_k2_1t_a32b",
          "nemotron_4_340b")
 TRAIN_ARCH, TRAIN_LIMIT, TRAIN_ACT_BYTES = "qwen3_32b", 60e9, 1.9e9
 PARITY_LAYERS = 4
+# the archs' head dims whose f32 (simple) kernels the arch phases hold at
+# the archs' shapes: hd 192 (Nemotron-4 340B), which no other phase runs
+# at a real size; hd 128's f32 path is held at Qwen2-1.5B's shapes
+ARCH_F32_HEAD_DIMS = (192,)
 # a plain version runs on whole GQA groups of at most this many score
 # elements (4 GB in f32) a call
 PLAIN_CHUNK = 1 << 30
 DEV = "cuda"
 CARD = ""
+# {source: {kernel instance: its ptxas and SASS numbers}}, from phase_build
+INSTANCES: dict = {}
 # the profile's kernel families, by a substring of the kernel's name; the
 # first family that matches takes the kernel
 PROFILE_FAMILIES = (
@@ -445,21 +451,18 @@ def arch_kernel_cases(train_kv_last):
     """Each layout of ``arch_layouts`` at the serving prefill shape (S
     1024, B 1), the session's tool prefill (B 8, S 200 after 1056 cached
     keys: the q_off path) and the train rows (``train_kv_last``: B 2, S
-    4096, real kv_last), in bf16 (the Hopper paths at hd 64/128; at hd 192
-    the forward's and dk/dv's, with dq's simple kernel) and, where a
-    kernel's bf16 instance is the simple one (dq at hd 192), in f32 too,
-    the simple kernels' accuracy path."""
+    4096, real kv_last), in bf16 (the Hopper paths) and, at the head dims
+    of ARCH_F32_HEAD_DIMS, in f32 too: the simple kernels' accuracy
+    path."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     add = case_adder(np.random.default_rng(40), cases)
     B, S = train_kv_last.shape
     tool = tool_kv_last()
     for names, H, Kh, hd in arch_layouts():
-        simple = any(ta.kernel_path(kern, bf16, hd) == "simple"
-                     for kern in ("fwd", "dq", "dkv"))
         lay = (f"{layout_tag(H, Kh, hd)} ({', '.join(names)}; bf16 paths: "
                f"{bf16_paths(hd)})")
-        for dt in (bf16, f32) if simple else (bf16,):
+        for dt in (bf16, f32) if hd in ARCH_F32_HEAD_DIMS else (bf16,):
             add(f"{lay} path: prefill S=1024 {dt}", dt, 1, 1024, H, Kh, hd,
                 np.full((1, 1024), 1023))
             add(f"{lay} path: tool prefill S=200 q_off=1056 {dt}", dt, 8, 200,
@@ -703,6 +706,10 @@ def phase_build() -> float:
             f"instances, max {max(r[1] for r in rows)} registers, "
             f"{sum(r[2] for r in rows)} bytes spill stores in all")
         for name, regs, st, ld, sass in rows:
+            INSTANCES.setdefault(src, {})[name] = dict(
+                registers=regs, spill_store_bytes=st, spill_load_bytes=ld,
+                hgmma=None if sass is None else sass[0],
+                utmaldg=None if sass is None else sass[1])
             ins = ("" if sass is None else
                    f"; SASS: {sass[0]} HGMMA (wgmma), {sass[1]} UTMALDG (TMA)")
             log(f"build:   {name}: {regs} registers, {st} bytes spill stores, "
@@ -2539,7 +2546,7 @@ def main() -> int:
     for name, key, file, replaces, err in rows:
         e = dict(name=name, route="cuda", source=src + file,
                  replaces=replaces, launches=counts[name], max_abs_err=err,
-                 **timing[key])
+                 **timing[key], instances=INSTANCES.get(file, {}))
         e["shape"] = "T: the first train step's rows, bf16, hd 128"
         e["wave"] = dict(
             shape=f"W: a gateway wave of the waves phase, "

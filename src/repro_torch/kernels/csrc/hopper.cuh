@@ -88,6 +88,16 @@ __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
+// ---- shared-memory loads ---------------------------------------------------
+// A 32-bit load the compiler may neither hoist out of a loop nor merge with
+// another: a value re-read this way each iteration is rebuilt there, where
+// one computed once would be held in registers (or spilled) across the loop.
+__device__ __forceinline__ uint32_t ld_volatile_shared(const void* p) {
+  uint32_t v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];" : "=r"(v) : "r"(smem_u32(p)) : "memory");
+  return v;
+}
+
 // ---- small asynchronous copies ---------------------------------------------
 // 4 bytes global → shared without stalling the issuing thread; zero-filled
 // (nothing read) when !pred.
@@ -281,8 +291,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)
 
 // ---- the key-tile producer of the forward and of dq ------------------------
 // Both kernels give one block a (query tile, head, batch row): 64 queries,
-// or 128 in the forward at hd 192 (two consumer warpgroups), and walk its
-// causal key tiles; the producer warp below is the one both run, so the
+// or 128 at hd 192 (two consumer warpgroups), and walk its causal key
+// tiles; the producer warp below is the one both run, so the
 // two skip the same tiles by construction.
 
 constexpr int KT = 64;       // keys per tile
@@ -298,17 +308,18 @@ struct KeyRing {
   uint64_t* empty;     // [STAGES] the consumers are done with it (128)
 };
 
+// The most dynamic shared memory one block may take on an H100.
+constexpr int MAX_BLOCK_SMEM = 232448;
+
 // Shared memory of a block that runs produce_key_tiles: NRES resident
-// 64-row tiles (tile i at RES + i·TILE), then the K/V ring of STAGES
+// 64-row tiles (tile i at RES + i·TILE), then the K/V ring of STAGES_
 // stages, its metadata and its barriers.  The host sizes the launch by
 // ALLOC, which leaves room to align the base to 1 KB (the swizzle's unit).
-// hd 128 runs two blocks an SM (2 stages: 80 KB for the forward, 96 KB
-// for dq); hd 64 and the one-block-an-SM forward at hd 192 (two Q tiles,
-// 48 KB, and 48 KB a stage: 192 KB) take 3.
-template <int HD, int NRES>
-struct KeyTileLayout {
+// KeyTileLayout below picks the stage count.
+template <int HD, int NRES, int STAGES_>
+struct KeyTileRingLayout {
   static constexpr int TILE = KT * HD * 2;       // one 64-row bf16 tile
-  static constexpr int STAGES = HD == 128 ? 2 : 3;
+  static constexpr int STAGES = STAGES_;
   static constexpr int RES = 0;
   static constexpr int KV = RES + NRES * TILE;   // stage s: K at KV + 2·s·TILE, V after it
   static constexpr int KL = KV + STAGES * 2 * TILE;
@@ -320,6 +331,7 @@ struct KeyTileLayout {
 
   // The block's 1 KB-aligned base in its dynamic shared memory.
   __device__ static unsigned char* base(unsigned char* raw) {
+    static_assert(ALLOC <= MAX_BLOCK_SMEM, "does not fit an H100 block's shared memory");
     return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   }
   __device__ static KeyRing ring(unsigned char* sm) {
@@ -348,8 +360,18 @@ struct KeyTileLayout {
   }
 };
 
+// hd 128 runs two blocks an SM (2 stages: 80 KB for the forward, 96 KB
+// for dq).  The others take 3 stages where they fit one block: hd 64, and
+// the forward at hd 192 (two 24 KB Q tiles and 48 KB a stage: 199,288
+// bytes).  dq at hd 192 holds four resident tiles (Q and dO of two 64-row
+// halves, 96 KB), so 3 stages (248,440 bytes) would pass MAX_BLOCK_SMEM
+// and it takes 2 (198,760 bytes).
+template <int HD, int NRES>
+using KeyTileLayout = KeyTileRingLayout<
+    HD, NRES, (HD == 128 || KeyTileRingLayout<HD, NRES, 3>::ALLOC > MAX_BLOCK_SMEM) ? 2 : 3>;
+
 // The producer warp of one (query tile q0..q0+nrows−1, head h, batch b):
-//  1. brings the NRES resident 64-row tiles res[i] (rows q0 + i·res_step..,
+//  1. brings the NRES resident 64-row tiles res[i] (rows q0 + res_row[i]..,
 //     head h) to res_smem + i·tile by TMA, completing on `resbar` (count
 //     1); a tile whose first row lies past S is not loaded (its consumers
 //     have no rows);
@@ -368,7 +390,7 @@ __device__ __forceinline__ void produce_key_tiles(
     uint64_t* resbar, const CUtensorMap* kmap, const CUtensorMap* vmap, const KeyRing& ring,
     const int* __restrict__ kv_last, const int* __restrict__ pos_q,
     const int* __restrict__ pos_k, int b, int h, int kh, int S, int Skv, int q0, int nrows,
-    int q_off, int window, int res_step = 0) {
+    int q_off, int window, const int (&res_row)[NRES]) {
   constexpr int TILE = KT * HD * 2;
   constexpr int NA = HD / 64;
   const int q_start = q_off + q0, q_end = q_start + nrows - 1;
@@ -376,14 +398,14 @@ __device__ __forceinline__ void produce_key_tiles(
   if (lane == 0) {
     int nres = 0;
 #pragma unroll
-    for (int i = 0; i < NRES; ++i) nres += q0 + i * res_step < S;
+    for (int i = 0; i < NRES; ++i) nres += q0 + res_row[i] < S;
     mbar_arrive_expect_tx(resbar, nres * TILE);
 #pragma unroll
     for (int i = 0; i < NRES; ++i)
-      if (q0 + i * res_step < S)
+      if (q0 + res_row[i] < S)
         for (int a = 0; a < NA; ++a)
           tma_load_4d(res_smem + i * TILE + a * ATOM, res[i], resbar, 64 * a, h,
-                      q0 + i * res_step, b);
+                      q0 + res_row[i], b);
   }
   int qp_min = INT_MAX;
   if (windowed) {

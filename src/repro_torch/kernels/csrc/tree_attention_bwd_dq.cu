@@ -12,37 +12,66 @@
 // Two paths compute the same function.  No atomics on either: two
 // launches give bit-identical dq (and Δ).
 //
-// Hopper path (bf16 at hd 64 and 128, the models' head dims).  One CUDA
-// block of 160 threads owns one (64-query tile, head, batch row), latest
-// (heaviest) query tiles first: a consumer warpgroup (warps 0-3) and a
-// producer warp (warp 4).  The producer is the forward's
-// (hopper.cuh::produce_key_tiles), so the two skip the same key tiles: it
-// loads the Q and dO tiles once by TMA, walks the causal key tiles with
-// the reference's block_live rule (16 tiles per pass, one warp reduction
-// each; window and q_off included) and brings only live K/V tiles by TMA
-// into an mbarrier ring of 2 (hd 128) or 3 (hd 64) stages, with each
-// tile's kv_last/pos_k staged by cp.async.  The consumers first compute Δ
-// of their own rows: each thread owns two rows (wgmma's accumulator
-// layout), reads a quarter of each row's O from global memory and of its
-// dO from the resident swizzled tile, sums the bf16 products in fp32 and
-// closes the sum over the row's four threads by shuffles; Δ is written to
-// its [B,H,S] buffer for the dk/dv launch that follows on the same stream.
-// Then, for each live key tile and each half of it (32 keys):
-// S = Q·Kᵀ and dP = dO·Vᵀ as wgmma m64n32k16 (both operands K-major);
-// P = exp(S·scale − lse) on visible pairs with the reference's guarded
-// exponent (a fully masked row, lse = −1e30, gets p = 0 and dq = 0);
-// dS = P∘(dP − Δ)·scale in the accumulators' registers, rounded to bf16
-// there and fed as wgmma's register A operand of dQ += dS·K, with K read
-// MN-major from the same swizzled tile through the transpose bit (as the
-// forward reads V in P·V).  dQ stays in fp32 registers across the whole
-// key loop and is written once.  Half-tile S and dP keep a thread at
-// 64 (dQ, hd 128) + 16 + 16 accumulator registers, so two blocks fit on
-// an SM (the ptxas line in chip_smoke.py's build phase says how many
-// registers it took).  Ragged S and Skv tails read as zero from TMA and are
-// masked.
+// Hopper path (bf16 at hd 64, 128 and 192, the models' head dims).  At hd
+// 64 and 128 one CUDA block of 160 threads owns one (64-query tile, head,
+// batch row), latest (heaviest) query tiles first: a consumer warpgroup
+// (warps 0-3) and a producer warp (warp 4).  At hd 192 see below.  The
+// producer is the forward's (hopper.cuh::produce_key_tiles), so the two
+// skip the same key tiles: it loads the Q and dO tiles once by TMA, walks
+// the causal key tiles with the reference's block_live rule (16 tiles per
+// pass, one warp reduction each; window and q_off included) and brings
+// only live K/V tiles by TMA into an mbarrier ring of 2 (hd 128 and 192)
+// or 3 (hd 64) stages, with each tile's kv_last/pos_k staged by cp.async.
+// The consumers first compute Δ of their own rows: each thread owns two
+// rows (wgmma's accumulator layout), reads a quarter of each row's O from
+// global memory and of its dO from the resident swizzled tile, sums the
+// bf16 products in fp32 and closes the sum over the row's four threads by
+// shuffles; Δ is written to its [B,H,S] buffer for the dk/dv launch that
+// follows on the same stream.  Then, for each live key tile and each half
+// of it (32 keys): S = Q·Kᵀ and dP = dO·Vᵀ as wgmma m64n32k16 (both
+// operands K-major); P = exp(S·scale − lse) on visible pairs with the
+// reference's guarded exponent (a fully masked row, lse = −1e30, gets
+// p = 0 and dq = 0); dS = P∘(dP − Δ)·scale in the accumulators' registers,
+// rounded to bf16 there and fed as wgmma's register A operand of
+// dQ += dS·K, with K read MN-major from the same swizzled tile through the
+// transpose bit (as the forward reads V in P·V).  dQ stays in fp32
+// registers across the whole key loop and is written once.  Half-tile S
+// and dP keep a thread at 64 (dQ, hd 128) + 16 + 16 accumulator registers,
+// so two blocks fit on an SM (the ptxas line in chip_smoke.py's build
+// phase says how many registers it took).  Ragged S and Skv tails read as
+// zero from TMA and are masked.
+//
+// hd 192 (Nemotron-4 340B): a block owns 128 query rows, split by rows as
+// the forward at hd 192 is.  Two consumer warpgroups (warps 0-7, rows 0-63
+// and 64-127), each with its own resident Q and dO tiles, share one K/V
+// ring fed by the producer warp (warp 8): 288 threads, one block an SM.
+// Each K/V tile brought in then serves 128 rows, and while one warpgroup
+// forms P and dS the other's wgmmas keep the tensor cores busy.
+//   Shared memory: four resident 24 KB tiles (96 KB) and 48 KB a K/V
+//   stage.  Three stages would take 248,440 bytes, past the 232,448 a
+//   block may have, so the ring has two (198,760 bytes; KeyTileLayout
+//   picks the stage count from the resident tiles).
+//   Registers: dQ is m64n192, 96 fp32 a thread, beside 16 + 16 for the
+//   half-tile S and dP and 8 for the bf16 dS fragment; the Δ prologue's
+//   12 uint4 of O (48 registers) are dead before the key loop.  The cap
+//   is 168 a thread, not 65,536 / 288: each quarter of the SM's register
+//   file serves every fourth warp, so one quarter holds three of the nine.
+//   That leaves ~40 registers for everything else, so the Q and dO
+//   descriptors (HD/8 a half) are rebuilt each half from addresses re-read
+//   from shared memory, not held across the loop, and the warpgroup index
+//   that the branches test is made warp-uniform by a shuffle (ptxas:
+//   159 registers, 0 bytes spilled; chip_smoke.py's build phase prints it).
+// The other way out, two warpgroups splitting one 64-row tile's key tiles
+// and summing partial dQs through shared memory, was not taken: it reads
+// every K/V tile for 64 rows only, and its fixed-order sum needs 48 KB
+// more shared memory or a pass after the loop.  The producer tests
+// block_live over all 128 rows, so a warpgroup may compute a tile that is
+// dead for its own rows (masked to zero: the same result).  A last tile of
+// ≤ 64 rows leaves the second warpgroup without rows: it only releases
+// stages.
 //
 // Simple path (fp32 inputs, the accuracy path, and bf16 at the other head
-// dims 16, 24, 32, 96, 192; Δ computed by the wrapper).  One block of 256
+// dims 16, 24, 32, 96; Δ computed by the wrapper).  One block of 256
 // threads per (64-query tile, head, batch row) walks the key tiles, tests
 // each with block_live before any load, and runs S = Q·Kᵀ, dP = dO·Vᵀ and
 // dQ += dS·K on WMMA (bf16 with hd a multiple of 16; dS rounded to bf16
@@ -232,18 +261,25 @@ tree_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// Hopper path: warp-specialised wgmma kernel (bf16, hd 64 and 128)
+// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 128 and 192)
 // --------------------------------------------------------------------------
 
-constexpr int WG_THREADS = 128;               // the consumer warpgroup
-constexpr int HOP_THREADS = WG_THREADS + 32;  // + the producer warp
+constexpr int WG_THREADS = 128;               // one consumer warpgroup
 
 struct DqMaps {
   CUtensorMap q, dout, k, v;
 };
 
+// Consumer warpgroups a block: 1 at hd 64/128 (64 query rows, two blocks
+// an SM), 2 at hd 192 (128 rows, one block an SM: see the header).
 template <int HD>
-using DqLayout = hop::KeyTileLayout<HD, 2>;      // Q, then dO, resident
+__host__ __device__ constexpr int dq_wgs() { return HD == 192 ? 2 : 1; }
+template <int HD>  // + the producer warp
+__host__ __device__ constexpr int dq_threads() { return dq_wgs<HD>() * WG_THREADS + 32; }
+
+// Resident: warpgroup wg's Q tile at 2·wg, its dO tile at 2·wg + 1.
+template <int HD>
+using DqLayout = hop::KeyTileLayout<HD, 2 * dq_wgs<HD>()>;
 
 // Σ of the 8 bf16 products of two 16-byte chunks, in fp32, in order.
 __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
@@ -259,43 +295,72 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(HOP_THREADS, 2)
+__global__ void __launch_bounds__(dq_threads<HD>(), HD == 192 ? 1 : 2)
 dq_hopper_kernel(const __grid_constant__ DqMaps maps, const int* __restrict__ kv_last,
                  const int* __restrict__ pos_q, const int* __restrict__ pos_k,
                  const float* __restrict__ lse, const __nv_bfloat16* __restrict__ o,
                  float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B, int S,
                  int Skv, int H, int Kh, float scale, int q_off, int window) {
   using L = DqLayout<HD>;
+  constexpr int NWG = dq_wgs<HD>();
+  constexpr int BM = NWG * BQ;                  // query rows a block
   extern __shared__ unsigned char smem_raw[];
+  __shared__ uint32_t res_base[NWG][2];          // each warpgroup's Q and dO tile addresses
   unsigned char* sm = L::base(smem_raw);
   const hop::KeyRing ring = L::ring(sm);
   const int *kl_s = ring.kl, *pk_s = ring.pk, *k0_s = ring.k0;
   uint64_t *full = ring.full, *empty = ring.empty, *qbar = L::resbar(sm);
-  unsigned char* const q_tile = sm + L::RES;
-  unsigned char* const do_tile = q_tile + L::TILE;
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (S + BM - 1) / BM;
   const int qi = nq - 1 - static_cast<int>(blockIdx.x) / (B * H);   // heaviest first
   const int b = (blockIdx.x / H) % B, h = blockIdx.x % H;
   const int kh = h / (H / Kh);
-  const int q0 = qi * BQ, nrows = min(BQ, S - q0);
+  const int q0 = qi * BM, nrows = min(BM, S - q0);
   const int q_start = q_off + q0;
   const bool windowed = pos_q != nullptr;
   const int tid = threadIdx.x;
-  L::init(sm, WG_THREADS);
+  L::init(sm, NWG * WG_THREADS);
+  // the thread's warpgroup (the producer warp's is NWG), taken from lane 0
+  // so that the compiler treats the branches on it as warp-uniform (at hd
+  // 192, branching on tid / 128 instead made ptxas spill)
+  const int wgi = __shfl_sync(0xffffffffu, tid / WG_THREADS, 0);
 
-  if (tid >= WG_THREADS) {
+  if (wgi == NWG) {
     // ---------------- producer warp (hopper.cuh): Q and dO resident ----------------
-    const CUtensorMap* const res[2] = {&maps.q, &maps.dout};
-    hop::produce_key_tiles<HD, L::STAGES>(tid - WG_THREADS, res, q_tile, qbar, &maps.k,
-                                          &maps.v, ring, kv_last, pos_q, pos_k, b, h, kh, S,
-                                          Skv, q0, nrows, q_off, window);
+    const CUtensorMap* res[2 * NWG];
+    int res_row[2 * NWG];
+    for (int i = 0; i < 2 * NWG; ++i) {
+      res[i] = i % 2 ? &maps.dout : &maps.q;
+      res_row[i] = BQ * (i / 2);                         // rows q0 + 64·wg
+    }
+    hop::produce_key_tiles<HD, L::STAGES>(tid - NWG * WG_THREADS, res, sm + L::RES, qbar,
+                                          &maps.k, &maps.v, ring, kv_last, pos_q, pos_k, b, h,
+                                          kh, S, Skv, q0, nrows, q_off, window, res_row);
     return;
   }
 
-  // ---------------- consumer warpgroup: rows are queries ----------------
-  const int warp = tid / 32, lane = tid % 32;
-  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;     // this thread's two rows
+  // ---------------- consumer warpgroup wg: rows 64·wg.. of the block ----------------
+  const int wg = NWG == 1 ? 0 : wgi;
+  if (BQ * wg >= nrows) {
+    // hd 192's second warpgroup on a last tile of ≤ 64 rows: no rows to
+    // compute (its Q and dO tiles were not loaded), but each stage awaits
+    // its release
+    uint32_t ph = 0;
+    for (int st = 0;;) {
+      hop::mbar_wait(&full[st], ph);
+      if (k0_s[st] < 0) return;
+      hop::mbar_arrive(&empty[st]);
+      if (++st == L::STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+  }
+  unsigned char* const q_tile = sm + L::RES + 2 * wg * L::TILE;
+  unsigned char* const do_tile = q_tile + L::TILE;
+  const int warp = (tid % WG_THREADS) / 32, lane = tid % 32;
+  const int lr0 = 16 * warp + lane / 4, lr1 = lr0 + 8;   // this thread's rows in its tiles
+  const int r0 = BQ * wg + lr0, r1 = r0 + 8;            // and in the block
   const int cq = 2 * (lane % 4);                        // its first column in each 8
   const int iq0 = q_start + r0, iq1 = q_start + r1;
   const bool ok0 = r0 < nrows, ok1 = r1 < nrows;
@@ -324,10 +389,10 @@ dq_hopper_kernel(const __grid_constant__ DqMaps maps, const int* __restrict__ kv
 #pragma unroll
   for (int u = 0; u < HD / 32; ++u) {
     const int c = lane % 4 + 4 * u, a = c / 8, cc = c % 8;   // box, chunk in the box
-    const uint4 d0 = *reinterpret_cast<const uint4*>(do_tile + a * hop::ATOM + r0 * 128 +
-                                                     ((cc ^ (r0 & 7)) << 4));
-    const uint4 d1 = *reinterpret_cast<const uint4*>(do_tile + a * hop::ATOM + r1 * 128 +
-                                                     ((cc ^ (r1 & 7)) << 4));
+    const uint4 d0 = *reinterpret_cast<const uint4*>(do_tile + a * hop::ATOM + lr0 * 128 +
+                                                     ((cc ^ (lr0 & 7)) << 4));
+    const uint4 d1 = *reinterpret_cast<const uint4*>(do_tile + a * hop::ATOM + lr1 * 128 +
+                                                     ((cc ^ (lr1 & 7)) << 4));
     dl0 = dot8(ov0[u], d0, dl0);
     dl1 = dot8(ov1[u], d1, dl1);
   }
@@ -344,7 +409,10 @@ dq_hopper_kernel(const __grid_constant__ DqMaps maps, const int* __restrict__ kv
   float dqa[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
-  const uint32_t q_base = hop::smem_u32(q_tile), do_base = hop::smem_u32(do_tile);
+  // every thread of the warpgroup stores the same two addresses: a thread
+  // reads back its own store or an equal one
+  res_base[wg][0] = hop::smem_u32(q_tile);
+  res_base[wg][1] = hop::smem_u32(do_tile);
 
   int stage = 0;
   uint32_t phase = 0;
@@ -366,6 +434,10 @@ dq_hopper_kernel(const __grid_constant__ DqMaps maps, const int* __restrict__ kv
         dp[i] = 0.f;
       }
       const uint32_t roff = half * 32 * 128;   // the half's first key row
+      // the Q and dO tiles' addresses, re-read each half: held across the
+      // loop, their HD/8 descriptors would take registers dQ needs at hd 192
+      const uint32_t q_base = hop::ld_volatile_shared(&res_base[wg][0]);
+      const uint32_t do_base = hop::ld_volatile_shared(&res_base[wg][1]);
       hop::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < HD / 16; ++ks)
@@ -447,8 +519,9 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v, const voi
   auto kern = dq_hopper_kernel<HD>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int nq = (S + BQ - 1) / BQ;
-  kern<<<nq * H * B, HOP_THREADS, bytes, stream>>>(
+  const int bm = dq_wgs<HD>() * BQ;
+  const int nq = (S + bm - 1) / bm;
+  kern<<<nq * H * B, dq_threads<HD>(), bytes, stream>>>(
       maps, static_cast<const int*>(kv_last), static_cast<const int*>(pos_q),
       static_cast<const int*>(pos_k), static_cast<const float*>(lse),
       static_cast<const __nv_bfloat16*>(o), static_cast<float*>(delta),
@@ -487,7 +560,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, dq,
                                     B, S, Skv, H, Kh, scale, q_off, window, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD == 64 || HD == 128)
+  if constexpr (HD == 64 || HD == 128 || HD == 192)
     return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, dq, o, B, S,
                              Skv, H, Kh, scale, q_off, window, stream);
   else
@@ -501,7 +574,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  pos_q/pos_k null ⇒ no window.  The
-// bf16 hd 64/128 path computes Δ [B,H,S] f32 from `o` and `dout` and
+// bf16 hd 64/128/192 path computes Δ [B,H,S] f32 from `o` and `dout` and
 // writes it to `delta`; the other instances read Δ from `delta` and ignore
 // `o`.  Returns cudaGetLastError() after the launch (0 = ok).
 int tree_attention_bwd_dq(const void* q, const void* k, const void* v, const void* kv_last,

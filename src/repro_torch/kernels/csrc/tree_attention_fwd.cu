@@ -392,10 +392,14 @@ fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ 
   if (tid >= NWG * WG_THREADS) {
     // ---------------- producer warp (hopper.cuh) ----------------
     const CUtensorMap* res[NWG];
-    for (int i = 0; i < NWG; ++i) res[i] = &maps.q;      // rows q0 + 64·i
+    int res_row[NWG];
+    for (int i = 0; i < NWG; ++i) {
+      res[i] = &maps.q;                                   // rows q0 + 64·i
+      res_row[i] = BQ * i;
+    }
     hop::produce_key_tiles<HD, L::STAGES>(tid - NWG * WG_THREADS, res, sm + L::RES, qbar,
                                           &maps.k, &maps.v, ring, kv_last, pos_q, pos_k, b, h,
-                                          kh, S, Skv, q0, nrows, q_off, window, BQ);
+                                          kh, S, Skv, q0, nrows, q_off, window, res_row);
     return;
   }
 
@@ -557,7 +561,6 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v, const voi
   if (err == cudaSuccess) err = hop::tile_map(&maps.v, v, B, Skv, Kh, HD);
   if (err != cudaSuccess) return err;
   constexpr int bytes = FwdLayout<HD>::ALLOC;
-  static_assert(bytes <= 232448, "does not fit an H100 block's shared memory");
   auto kern = fwd_hopper_kernel<HD>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

@@ -15,8 +15,8 @@ through an mbarrier ring to wgmma consumer warpgroups with their
 accumulators in registers (one warpgroup and 64 query rows a block at hd
 64/128, two and 128 rows at hd 192); fp32 (the accuracy path) and bf16 at
 the other head dims run the simple kernel (WMMA or FMA through shared
-memory).  ``kernel_path`` says which path each of the three kernels takes:
-the backward's dq kernel has no hd 192 Hopper path yet.
+memory).  ``kernel_path`` says which path each of the three kernels takes;
+the backward's dq and dk/dv kernels take theirs at the same head dims.
 
 Bound on the H100: at the serving path's shapes (hd 128) the forward does
 about 4·hd FLOPs per visible pair for 2·hd·2 bytes per key read, so the
@@ -42,7 +42,7 @@ BLOCK_Q = BLOCK_K = 64        # the kernel's tile (BQ, BK in the .cu source)
 HEAD_DIMS = (16, 24, 32, 64, 96, 128, 192)
 # bf16 at these head dims takes each kernel's warp-specialised wgmma/TMA
 # path; fp32, and bf16 at the other head dims, its simple kernel
-HOPPER_PATH_HEAD_DIMS = {"fwd": (64, 128, 192), "dq": (64, 128),
+HOPPER_PATH_HEAD_DIMS = {"fwd": (64, 128, 192), "dq": (64, 128, 192),
                          "dkv": (64, 128, 192)}
 SOURCE = "tree_attention_fwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

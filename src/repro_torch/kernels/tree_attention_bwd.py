@@ -8,18 +8,19 @@ recomputation: the forward saved only ``lse`` [B,H,S]; with
 Δ = rowsum(dO∘O) [B,H,S] f32 the kernels regenerate p = exp(s − lse) tile by
 tile under the forward's mask and block-skip rule:
 
-  - ``bwd_dq``: one CUDA block per (64-query tile, head, batch) loops over
-    the key tiles and writes dq once.  bf16 at hd 64 and 128
+  - ``bwd_dq``: one CUDA block per (query tile, head, batch) loops over
+    the key tiles and writes dq once.  bf16 at hd 64, 128 and 192
     (``HOPPER_PATH_HEAD_DIMS["dq"]``) runs a
     warp-specialised wgmma kernel whose producer warp is the forward's
     (``csrc/hopper.cuh::produce_key_tiles``: Q and dO resident, live K/V
     tiles through a TMA ring), S and dP taken 32 keys at a time, dQ in
-    registers; it also computes Δ of its own rows from o and do and writes
-    it for the dk/dv launch that follows on the same stream, so the
-    reference's Δ pre-pass (:331) runs in no torch op there.  fp32 and the
-    other head dims keep the simple kernel (WMMA or FMA through shared
-    memory), with Δ from ``delta`` (a torch reduction, its plain version),
-    hd 192 among them;
+    registers (one consumer warpgroup on 64 query rows at hd 64/128, two
+    on 128 rows at hd 192); it also computes Δ of its own rows from o and
+    do and writes it for the dk/dv launch that follows on the same stream,
+    so the reference's Δ pre-pass (:331) runs in no torch op there.  fp32
+    and the other head dims keep the simple kernel (WMMA or FMA through
+    shared memory), with Δ from ``delta`` (a torch reduction, its plain
+    version);
   - ``bwd_dkv``: dk and dv over the full Skv (ancestor rows [0, q_off)
     included), the GQA reduction with no atomics.  bf16 at hd 64, 128 and
     192 (``HOPPER_PATH_HEAD_DIMS["dkv"]``) runs a warp-specialised wgmma
@@ -146,8 +147,8 @@ def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def fuses_delta(q: torch.Tensor) -> bool:
     """Whether the dq kernel computes Δ itself for inputs like ``q``: on
-    its Hopper path (bf16 at hd 64 and 128), not at hd 192, where the
-    dk/dv kernel's Hopper path reads the ``delta`` that ``bwd_dq`` makes."""
+    its Hopper path (bf16 at hd 64, 128 and 192); elsewhere ``bwd_dq``
+    computes ``delta`` before its launch."""
     return kernel_path("dq", q.dtype, q.shape[-1]) == "hopper"
 
 
@@ -281,8 +282,8 @@ def tree_attention_bwd(q, k, v, kv_last, o, lse, do, scale: float, *,
     inputs' dtype; dk/dv cover the full Skv, ancestor rows included.
 
     The dq launch comes first and hands Δ to the dk/dv launch; where
-    ``fuses_delta`` holds (bf16 at hd 64/128) the dq kernel writes that Δ,
-    so the two launches must stay in this order on one stream."""
+    ``fuses_delta`` holds (bf16 at hd 64/128/192) the dq kernel writes that
+    Δ, so the two launches must stay in this order on one stream."""
     _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k)
     kw = dict(q_off=q_off, window=window, pos_q=pos_q, pos_k=pos_k)
     dq, dl = bwd_dq(q, k, v, kv_last, o, lse, do, scale, **kw)

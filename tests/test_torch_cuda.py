@@ -14,7 +14,10 @@ the backward's dq/dk/dv at relative L2 ≤ 1e-2 each and every element within
 The Δ that the dq kernel's Hopper path computes is held against ``delta``
 at 1e-5 of Σ_d |do·o| per row: both sum the same exact fp32 products of
 bf16 values, in another order, and 1e-5 bounds that reordering's rounding
-(hd·2^-24 ≈ 8e-6 of the sum of magnitudes at hd 128, in the worst case).
+(the kernel adds hd/4 products in order on each of a row's four threads
+and closes the four sums by shuffles, at most (hd/4 + 1)·2^-24 ≈ 2.9e-6 of
+the sum of magnitudes at hd 192; one order over all hd products at once
+would be hd·2^-24 ≈ 1.1e-5, in the worst case).
 """
 import numpy as np
 import pytest
@@ -110,6 +113,12 @@ def _case(name):
                 used += s.n
         kl = pack_trees(keep, 2048, batch_size=1).kv_last
         return 1, 2048, 12, 2, 128, kl, 0, None, None, None
+    if name == "short_tail_gateway_hd192":
+        # S 300 = 2·128 + 44: the last 128-row query tile of the hd 192
+        # forward and dq holds 44 rows, so its second consumer warpgroup
+        # has none; gateway ancestors (A 37, two rows front-padded)
+        kl, _, _ = _gateway_meta(37, 2, 300, 37, (5, 0))
+        return 2, 300, 12, 2, 192, kl, 37, None, None, None
     if name.startswith("ring_tail"):
         # a causal chain of 6 key tiles, the last ragged (357 = 5·64 + 37)
         # and live: it lands in the last stage of the forward's key-tile
@@ -138,7 +147,7 @@ CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20", "window",
          "ring_tail_hd128", "ragged_gateway", "heads12_2_hd64",
          "heads12_2_hd128", "heads4_4_hd64", "heads4_4_hd128",
          "packed_gqa32_4_hd128", "heads32_4_hd128", "ring_tail_hd192",
-         "heads96_8_hd192"]
+         "heads96_8_hd192", "short_tail_gateway_hd192"]
 
 
 def _inputs(name, dtype, dev, hd=None):
@@ -287,7 +296,8 @@ def _delta_close(got, o, do):
 @pytest.mark.parametrize("hd", ta.HOPPER_PATH_HEAD_DIMS["dq"])
 @pytest.mark.parametrize("name", CASES)
 def test_cuda_dq_hopper_matches_plain(dev, name, hd):
-    """The dq kernel's Hopper path (bf16 at hd 64 and 128) on every case:
+    """The dq kernel's Hopper path (bf16 at hd 64, 128 and 192) on every
+    case (at hd 192 those of S ≤ 64 leave its second warpgroup no rows):
     dq against the plain backward at the bf16 limits, its Δ against
     ``delta``, dq and Δ bit-identical over two launches, dq exactly 0 on
     rows that see no key, one launch counted per call."""
@@ -320,33 +330,37 @@ def test_cuda_dq_hopper_matches_plain(dev, name, hd):
 
 # the reference's parity cases (ROADMAP Queue B): MHA, GQA, MQA, padding
 # keys, gateway ancestors, window × branching, gateway × window (bf16 + GQA
-# + ancestors), ragged tails, dead tiles between live ones, and Nemotron's
-# group of 12
+# + ancestors), ragged tails, dead tiles between live ones, Nemotron's
+# group of 12, and a last 128-row tile of 44 rows
 HD192_CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20",
                "window", "gateway_window", "ragged_gateway", "dead_tiles",
-               "ring_tail_hd192", "heads96_8_hd192"]
+               "ring_tail_hd192", "heads96_8_hd192",
+               "short_tail_gateway_hd192"]
 
 
 @pytest.mark.parametrize("name", HD192_CASES)
 def test_cuda_hd192_hopper_fwd_and_dkv_match_plain(dev, name):
-    """bf16 at hd 192 runs the forward's and dk/dv's Hopper paths and dq's
-    simple kernel with Δ from ``delta``: o and lse against the plain
-    version in f32 at the forward's bf16 limits, dq/dk/dv against the plain
-    backward at the bf16 limits, every output bit-identical over two
+    """bf16 at hd 192 runs all three Hopper paths, chained as in training:
+    the forward's o and lse, then dq, whose kernel writes Δ, then dk/dv fed
+    that Δ.  o and lse against the plain version in f32 at the forward's
+    bf16 limits, the dq kernel's Δ against ``delta``, dq/dk/dv against the
+    plain backward at the bf16 limits, every output bit-identical over two
     launches, dk/dv exactly 0 on keys no query sees."""
     q, k, v, kl, kw, do = _inputs(name, torch.bfloat16, dev, hd=192)
     sc = 192 ** -0.5
     bf16 = torch.bfloat16
     assert [ta.kernel_path(kern, bf16, 192) for kern in ("fwd", "dq", "dkv")
-            ] == ["hopper", "simple", "hopper"]
-    assert not tab.fuses_delta(q)
+            ] == ["hopper", "hopper", "hopper"]
+    assert tab.fuses_delta(q)
     with torch.inference_mode():
         o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True, **kw)
         o2, lse2 = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
                                      **kw)
         ro, rl = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
                                         sc, return_lse=True, **kw)
-        got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        dq, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **kw)
+        dk, dv = tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc, **kw)
+        got = (dq, dk, dv)
         again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
         want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
                                       o.float(), lse, do.float(), sc, **kw)
@@ -356,6 +370,7 @@ def test_cuda_hd192_hopper_fwd_and_dkv_match_plain(dev, name):
     rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
     assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _delta_close(dl, o, do)
     _hold_bwd(got, want, bf16)
     for a, b in zip(got, again):
         assert torch.equal(a, b)

@@ -256,11 +256,11 @@ def test_dkv_head_split_partials_sum_to_jax(parts):
 # dim 192 with a GQA group of 12 against the reference's Pallas kernel
 # --------------------------------------------------------------------------
 
-# (kernel, dtype, hd) → path on the card: bf16 at hd 64 and 128 takes every
-# kernel's Hopper path; at hd 192 the forward's and dk/dv's, while dq keeps
-# its simple kernel; fp32 and the other head dims take the simple kernels
+# (kernel, dtype, hd) → path on the card: bf16 at hd 64, 128 and 192 takes
+# every kernel's Hopper path; fp32 and the other head dims take the simple
+# kernels
 _HOPPER = {("fwd", 64), ("fwd", 128), ("fwd", 192), ("dq", 64), ("dq", 128),
-           ("dkv", 64), ("dkv", 128), ("dkv", 192)}
+           ("dq", 192), ("dkv", 64), ("dkv", 128), ("dkv", 192)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -272,8 +272,9 @@ def test_kernel_path_table(kernel, dtype):
                 else "simple")
         assert ta.kernel_path(kernel, dt, hd) == want, (kernel, dtype, hd)
     q = torch.zeros(1, 1, 1, 192, dtype=dt)
-    assert tab.fuses_delta(q) is False            # no dq Hopper path at 192
+    assert tab.fuses_delta(q) is (dtype == "bfloat16")
     assert tab.fuses_delta(q[..., :128]) is (dtype == "bfloat16")
+    assert tab.fuses_delta(q[..., :96]) is False
 
 
 @pytest.mark.parametrize("q_off", [0, 20])

@@ -210,12 +210,12 @@ def test_delta_matches_reference_expression(dtype):
 
 @pytest.mark.parametrize("dtype,hd,fused", [
     ("bfloat16", 64, True), ("bfloat16", 128, True), ("bfloat16", 32, False),
-    ("bfloat16", 192, False), ("float32", 64, False), ("float32", 128, False),
+    ("bfloat16", 192, True), ("float32", 64, False), ("float32", 128, False),
 ])
 def test_bwd_dq_computes_delta_only_off_the_hopper_path(monkeypatch, dtype,
                                                         hd, fused):
     """``bwd_dq`` hands the dq kernel a fresh f32 [B,H,S] buffer to write Δ
-    into where ``fuses_delta`` holds (bf16 at hd 64/128), and runs
+    into where ``fuses_delta`` holds (bf16 at hd 64/128/192), and runs
     ``delta`` before the launch elsewhere; it counts one launch per call.
     The launch itself is replaced here (the kernel needs the card)."""
     B, S, H, Kh = 1, 70, 4, 2
@@ -260,16 +260,13 @@ def test_tree_attention_bwd_hands_dq_delta_to_dkv(monkeypatch):
     assert out == ("dq", "dk", "dv") and calls == ["dq", "dkv"]
 
 
-def test_hd192_dkv_hopper_path_reads_the_wrappers_delta(monkeypatch):
-    """bf16 at hd 192 (Nemotron-4 340B: a GQA group of 12): the dq kernel
-    has no Hopper path there, so ``fuses_delta`` is false and ``bwd_dq``
-    computes Δ = ``delta(o, do)`` before its launch; the dk/dv launch, on
-    its Hopper path (a schedule buffer, and fp32 partials when the group is
-    split), receives that same Δ.  The launches are replaced here (the
-    kernels need the card) and record what they were given."""
+def _hd192_backward_launches(monkeypatch, dtype):
+    """``tree_attention_bwd`` at Nemotron-4 340B's layout (hd 192, a GQA
+    group of 12) with both launches replaced (the kernels need the card):
+    returns (q, o, do, the outputs, what each launch was given)."""
     B, S, H, Kh, hd = 1, 70, 12, 1, 192
     rng = np.random.default_rng(192)
-    t = lambda *s: torch.from_numpy(_np(rng, *s)).to(torch.bfloat16)
+    t = lambda *s: torch.from_numpy(_np(rng, *s)).to(dtype)
     q, o, do = t(B, S, H, hd), t(B, S, H, hd), t(B, S, H, hd)
     k, v = t(B, S, Kh, hd), t(B, S, Kh, hd)
     kl = torch.full((B, S), S - 1, dtype=torch.int32)
@@ -281,21 +278,49 @@ def test_hd192_dkv_hopper_path_reads_the_wrappers_delta(monkeypatch):
                                                    132}))
     monkeypatch.setattr(tab, "_launch", lambda src, entry, outs, *a, **kw:
                         seen.append(dict(entry=entry, dl=a[5], **kw)))
-    assert not tab.fuses_delta(q)
     n = (tab.bwd_dq.launches, tab.bwd_dkv.launches)
-    dq, dk, dv = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, 0.1)
+    out = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, 0.1)
     assert (tab.bwd_dq.launches, tab.bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
     assert [c["entry"] for c in seen] == ["tree_attention_bwd_dq",
                                           "tree_attention_bwd_dkv"]
+    assert seen[1]["dl"] is seen[0]["dl"]
+    assert out[0].shape == q.shape and out[1].shape == out[2].shape == k.shape
+    return q, o, do, out, seen
+
+
+def test_hd192_dkv_hopper_path_reads_the_wrappers_delta(monkeypatch):
+    """bf16 at hd 192 (Nemotron-4 340B: a GQA group of 12): the dq kernel's
+    Hopper path computes Δ itself, so ``bwd_dq`` runs no ``delta`` (it
+    raises here) and hands the dq launch a fresh f32 [B,H,S] buffer to
+    write Δ into, with o; the dk/dv launch, on its Hopper path (a schedule
+    buffer, and fp32 partials when the group is split), receives that same
+    buffer."""
+    def no_delta(*a):
+        raise AssertionError("bwd_dq ran delta on the fused path")
+
+    monkeypatch.setattr(tab, "delta", no_delta)
+    q, o, do, _, seen = _hd192_backward_launches(monkeypatch, torch.bfloat16)
+    assert tab.fuses_delta(q)
+    B, S, H, _ = q.shape
     dl = seen[0]["dl"]
-    assert seen[1]["dl"] is dl
-    torch.testing.assert_close(dl, tab.delta(o, do), atol=0, rtol=0)
+    assert dl.dtype == torch.float32 and tuple(dl.shape) == (B, H, S)
+    assert dl.is_contiguous() and seen[0]["extra"][0] is o
     sched, partial = seen[1]["extra"]
     parts = seen[1]["parts"]
     assert sched is not None and sched.numel() == B * -(-S // tab.BLOCK)
-    assert parts == tab.head_parts(H // Kh, B * Kh * -(-S // tab.BLOCK), 132)
+    assert parts == tab.head_parts(12, B * -(-S // tab.BLOCK), 132)
     assert (partial is None) == (parts == 1)
-    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def test_hd192_f32_dq_simple_kernel_reads_the_wrappers_delta(monkeypatch):
+    """f32 at hd 192 keeps the simple kernels: ``bwd_dq`` computes
+    Δ = ``delta(o, do)`` before its launch, and the dk/dv launch (simple:
+    no schedule, no partials) receives that same Δ."""
+    q, o, do, _, seen = _hd192_backward_launches(monkeypatch, torch.float32)
+    assert not tab.fuses_delta(q)
+    torch.testing.assert_close(seen[0]["dl"], tab.delta(o, do), atol=0,
+                               rtol=0)
+    assert seen[1]["extra"] == (None, None) and seen[1]["parts"] == 1
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
