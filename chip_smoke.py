@@ -35,7 +35,8 @@ Phases, each of which ends the run non-zero if it fails:
                   groups (prompt 1024, K=8, 64 new tokens) and one
                   multi-turn agentic session (prefill → fork(8) → 32 steps →
                   a 200-token tool-output prefill on all branches → 32
-                  steps).  Launch counts are reset just before and read just
+                  steps); each session replays a CUDA graph a decode
+                  step.  Launch counts are reset just before and read just
                   after.  Then one decode step of 8 branches under
                   torch.profiler, reported as the train step's (phase 6).
   5. parity     — replay the multi-turn session with the plain attention,
@@ -139,11 +140,43 @@ Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
                   the serving prefill shape, the tool prefill and the train
                   rows; the kernels line names each row's bf16 path.
 
+Then the SSM and hybrid archs (RWKV6-1.6B, the GDN stack, Zamba2-1.2B),
+each at full width and depth, once the other archs' tensors are freed:
+ 23. zamba2 kernel, zamba2 bwd kernel — phases 2-3 at Zamba2's shared
+                  attention layout (H 32/Kh 32, hd 64): the serving-width
+                  prefill (S 1024, B 1) and the first chunk-aligned train
+                  rows (B 2, S 4096; the chunk pads invisible keys, their
+                  dk/dv exactly 0), bf16 and f32.
+ 24. <arch> serve — one rollout group (prompt 1024, K 8, 64 new tokens)
+                  and the multi-turn session, prefilled through the step
+                  loop: prefill and decode tokens/s, the decode bound, a
+                  profiled decode step; no tree-attention kernel launches.
+ 25. <arch> serve parity — the step loop vs the packed forward on 256
+                  tokens, teacher-forced, at full depth and at 4 layers:
+                  f32 (atol = rtol = 5e-4); bf16, both paths against the
+                  f32 forward (the step loop within 1.25x of the bf16
+                  forward's distance; at 4 layers also within 3e-2 of the
+                  bf16 forward); two broken step loops: bf16 states
+                  (reported) and a 2% fault in every SSM mixer's step
+                  (must fail).
+ 26. <arch> train — 3 SFT and 2 RL steps on chunk-aligned rows (2 of
+                  4096): step time, unique tokens/s, chunk-padding share,
+                  peak memory, one host sync (audited), launches (7 of each
+                  kernel a Zamba2 step, none for the pure SSMs), a
+                  profiled step.
+ 27. <arch> determinism, <arch> train parity — phase 7's check; 4 layers
+                  f32: (a) kernel vs plain (Zamba2), (b) tree vs per-branch
+                  baseline (tree state routing), loss 1e-5, grads max-rel
+                  1e-4.
+ 28. timing H 32/Kh 32 hd 64 — phase 11's timing at the prefill and at
+                  the chunk-padded train rows, with the attention share of
+                  a Zamba2 step.
+
 The line before the last names the card and its power limit; the one before
 it lists the kernels (each with its MoE-shape numbers under ``moe``, its
-W numbers under ``wave``, the five archs' layouts under ``archs`` and
-every instance its source built, with registers, spills, HGMMA and
-UTMALDG, under ``instances``); the
+W numbers under ``wave``, the five archs' layouts under ``archs``,
+Zamba2's layout under ``ssm`` and every instance its source built, with
+registers, spills, HGMMA and UTMALDG, under ``instances``); the
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
 """
@@ -172,10 +205,11 @@ from repro_torch.core.gateway import (  # noqa: E402
     packed_partitioned_value_and_grad)
 from repro_torch.core.packing import pack_linear_paths, pack_trees  # noqa: E402
 from repro_torch.core.partition import partition_tree  # noqa: E402
-from repro_torch.core.tree import serialize_tree  # noqa: E402
+from repro_torch.core.tree import (TrajectoryTree, TreeNode,  # noqa: E402
+                                   serialize_tree)
 from repro_torch.data.loader import LoaderConfig, tree_stream  # noqa: E402
 from repro_torch.data.synthetic import agentic_tree, random_tree  # noqa: E402
-from repro_torch.device import flatten_tree  # noqa: E402
+from repro_torch.device import flatten_tree, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
 from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
@@ -183,9 +217,10 @@ from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
                                      tree_attention_ref_ext)
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.layers import logits_from_hidden  # noqa: E402
 from repro_torch.models.model import (batch_arrays,  # noqa: E402
                                       init_params, layer_groups,
-                                      prepare_batch)
+                                      chunk_size_of, prepare_batch)
 from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.rollout import (RolloutConfig, rollout_group,  # noqa: E402
                                        sample_tokens)
@@ -239,6 +274,17 @@ ARCHS = ("qwen3_8b", "qwen3_32b", "llama4_scout_17b_a16e", "kimi_k2_1t_a32b",
          "nemotron_4_340b")
 TRAIN_ARCH, TRAIN_LIMIT, TRAIN_ACT_BYTES = "qwen3_32b", 60e9, 1.9e9
 PARITY_LAYERS = 4
+# the SSM and hybrid archs, each at full width and depth: served (one
+# rollout group and the session, prefilled through the step loop),
+# teacher-forced step loop vs packed forward (SSM_PARITY_TOKENS, f32 and
+# bf16 at full depth and at PARITY_LAYERS layers), trained on chunk-aligned
+# rows (SSM_SFT_STEPS + RL_STEPS), held tree vs baseline at PARITY_LAYERS
+# layers in f32, and checked for deterministic grads; Zamba2's shared
+# attention block runs the three kernels at H 32/Kh 32, hd 64
+SSM_ARCHS = ("rwkv6_1p6b", "qwen3p5_gdn_2b", "zamba2_1p2b")
+HYBRID_ARCH, SSM_SFT_STEPS, SSM_PARITY_TOKENS = "zamba2_1p2b", 3, 256
+# control d of the SSM serve parity: each SSM mixer's step output x this
+SSM_CONTROL_SCALE = 1.02
 # the archs' head dims whose f32 (simple) kernels the arch phases hold at
 # the archs' shapes: hd 192 (Nemotron-4 340B), which no other phase runs
 # at a real size; hd 128's f32 path is held at Qwen2-1.5B's shapes
@@ -1016,14 +1062,17 @@ def multi_row_step(cfg, S: int):
 def row_trees(cfg, S: int, scan: int = 64):
     """The first trees of the agentic stream (first fit, in stream order,
     over its first ``scan`` trees) whose unique tokens fit one row of S,
-    and no path of which is longer than S."""
+    and no path of which is longer than S (both chunk-padded for an SSM
+    model)."""
     lc = LoaderConfig(seq_len=TRAIN_SEQ, trees_per_batch=4, seed=0,
                       gen_kwargs=TRAIN_GEN)
+    cs = chunk_size_of(cfg)
+    pad = (lambda n: n) if cs is None else (lambda n: n + (-n % cs))
     trees, used = [], 0
     for batch in tree_stream(cfg, lc, scan // 4):
         for t in batch:
-            n = serialize_tree(t).n
-            if used + n <= S and max(len(p["tokens"])
+            n = serialize_tree(t, chunk_size=cs).n
+            if used + n <= S and max(pad(len(p["tokens"]))
                                      for p in t.linearize_paths()) <= S:
                 trees.append(t)
                 used += n
@@ -1032,9 +1081,13 @@ def row_trees(cfg, S: int, scan: int = 64):
 
 def tree_and_baseline(cfg, trees, S: int):
     """The trees packed into one row of S (tree mode) and their linearized
-    paths into as many rows of S as they need (baseline)."""
-    tb = pack_trees([serialize_tree(t) for t in trees], S, batch_size=1)
-    bb = pack_linear_paths([t.linearize_paths() for t in trees], S)
+    paths into as many rows of S as they need (baseline), chunk-aligned
+    for an SSM model."""
+    cs = chunk_size_of(cfg)
+    tb = pack_trees([serialize_tree(t, chunk_size=cs) for t in trees], S,
+                    batch_size=1, chunk_size=cs)
+    bb = pack_linear_paths([t.linearize_paths() for t in trees], S,
+                           chunk_size=cs)
     return (prepare_batch(cfg, tb, device=DEV),
             prepare_batch(cfg, bb, device=DEV))
 
@@ -1694,7 +1747,9 @@ class RoutingLog:
     its top-k experts (sorted), which of its (token, slot) pairs its expert
     kept, and whether it is valid.  They are recomputed from the layer's own
     input by ``moe.route`` and ``moe.queue``, the functions the layer calls,
-    so the layer's output is the unwrapped layer's."""
+    so the layer's output is the unwrapped layer's.  Sessions step eagerly
+    meanwhile (``DecodeSession.graph_steps``): a replayed CUDA graph runs
+    no Python, so the log would miss every replayed step."""
 
     def __init__(self):
         # (B, S, top_e sorted [N, K], keep [N, K], valid [N]) per call
@@ -1714,10 +1769,12 @@ class RoutingLog:
             return real(params, mcfg, x, valid, activation, **kw)
 
         transformer.moe = decode.moe = recorded
+        DecodeSession.graph_steps = False
         return self
 
     def __exit__(self, *exc):
         transformer.moe = decode.moe = self._real
+        DecodeSession.graph_steps = True
 
     def busiest(self, first: int, n: int) -> list:
         """For calls first .. first+n−1 (one call's layers): the share of
@@ -1760,10 +1817,12 @@ class PinnedRouting:
                 top_p.sum(-1, keepdim=True), min=1e-9), top_e
 
         moe_layer.route = pinned
+        DecodeSession.graph_steps = False      # see RoutingLog
         return self
 
     def __exit__(self, *exc):
         moe_layer.route = self._real
+        DecodeSession.graph_steps = True
 
 
 def flipped_tokens(a: RoutingLog, b: RoutingLog) -> list:
@@ -2441,6 +2500,444 @@ def run_archs(timed) -> dict:
                 train_cfg=tcfg, timing=timing_arch)
 
 
+# --------------------------------------------------------------------------
+# the SSM and hybrid archs (RWKV6-1.6B, the GDN stack, Zamba2-1.2B)
+# --------------------------------------------------------------------------
+
+def shared_apps(cfg) -> int:
+    """Applications of the hybrid's shared attention block a forward (0
+    for a pure SSM): each launches each kernel once."""
+    return 0 if cfg.hybrid is None else -(-cfg.n_layers
+                                         // cfg.hybrid.attn_every)
+
+
+def ssm_desc(cfg) -> str:
+    s = cfg.ssm
+    att = "" if cfg.attn is None else (
+        f", shared attention block every {cfg.hybrid.attn_every} layers "
+        f"({shared_apps(cfg)} applications) heads {cfg.attn.n_heads}/"
+        f"{cfg.attn.n_kv_heads} hd {cfg.attn.head_dim}")
+    return (f"{cfg.name} {cfg.n_layers} {s.kind} layers d {cfg.d_model} "
+            f"d_ff {cfg.d_ff} vocab {cfg.vocab_size} (padded "
+            f"{cfg.padded_vocab}), SSM heads {s.n_heads(cfg.d_model)} hd "
+            f"{s.head_dim} d_state {s.d_state} conv {s.conv_kernel} chunk "
+            f"{s.chunk_size}{att}, {cfg.dtype}")
+
+
+def zamba2_kernel_cases(train_kv_last):
+    """The three kernels at Zamba2's attention layout (H 32/Kh 32, hd 64):
+    the serving-width prefill (B 1, S 1024) in bf16 and the first
+    chunk-aligned train rows (``train_kv_last``: B 2, S 4096, the
+    chunk-padding tokens inside the rows invisible as keys) in bf16 and
+    f32."""
+    a = get_config(HYBRID_ARCH).attn
+    H, Kh, hd = a.n_heads, a.n_kv_heads, a.head_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    add = case_adder(np.random.default_rng(60), cases)
+    lay = (f"{layout_tag(H, Kh, hd)} ({HYBRID_ARCH}; bf16 paths: "
+           f"{bf16_paths(hd)})")
+    add(f"{lay} path: prefill S=1024 bf16", bf16, 1, 1024, H, Kh, hd,
+        np.full((1, 1024), 1023))
+    B, S = train_kv_last.shape
+    dead = int((train_kv_last < 0).sum())
+    for dt in (bf16, f32):
+        add(f"{lay} chunk-padded train rows (B={B}, S={S}, {dead} invisible "
+            f"keys) {dt}", dt, B, S, H, Kh, hd, train_kv_last)
+    return cases
+
+
+def ssm_decode_bound(cfg, params, tm, tag: str) -> None:
+    """The session's decode rate against its bound: a step of 8 branches
+    reads every weight but the embedding table once, reads and writes
+    every recurrent state and conv/shift tail, and reads the hybrid's KV
+    rings once."""
+    w = sum(t.numel() * t.element_size()
+            for p, t in flatten_tree(params) if p[0] != "embed")
+    cache = decode._init_cache(cfg, 8, 1536, DEV)
+    st = sum(t.numel() * t.element_size()
+             for g, grp in cache.items() for t in grp.values()
+             if "pos" not in grp)
+    ring = sum(t.numel() * t.element_size()
+               for grp in cache.values() if "pos" in grp
+               for t in grp.values())
+    del cache
+    step_bytes = w + 2 * st + ring
+    bound_s = step_bytes / PEAK_BYTES
+    log(f"{tag}: decode {tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
+        f"(8 branches, {tm['decode_s'] / (tm['decode_tok'] / 8) * 1e3:.2f} ms "
+        f"a step) against its bound: a step moves {step_bytes / 1e9:.3f} GB "
+        f"({w / 1e9:.3f} GB of weights, {st / 1e6:.1f} MB of states read "
+        f"and written, {ring / 1e6:.1f} MB of KV rings read), >= "
+        f"{bound_s * 1e3:.3f} ms at {PEAK_BYTES / 1e12:.2f} TB/s, so at most "
+        f"{8 / bound_s:.1f} tokens/s")
+
+
+def phase_ssm_serve(arch: str):
+    """One arch at full width and depth, random bf16 weights: one rollout
+    group (prompt 1024, K 8, 64 new tokens) and the multi-turn session,
+    both prefilled through the step loop as the reference does; prefill
+    and decode tokens/s, the decode bound, a profiled decode step.  No
+    tree-attention kernel may launch (Zamba2's decode attention is the
+    plain one).  Returns (cfg, params, the measured launch counts)."""
+    tag = f"{arch} serve"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in flatten_tree(params))
+    log(f"{tag}: {ssm_desc(cfg)}: {n / 1e9:.3f} B parameters "
+        f"({cfg.param_count() / 1e9:.3f} B by the reference's formula), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, random weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rc = RolloutConfig(k=8, prompt_len=1024, max_new=64, temperature=1.0)
+    gen = torch.Generator(DEV).manual_seed(1)
+    rng = np.random.default_rng(7)
+    reset_launches()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, st = rollout_group(cfg, params, rng.integers(
+            0, cfg.vocab_size, rc.prompt_len), rc, gen)
+        torch.cuda.synchronize()
+        t_group = time.perf_counter() - t0
+        check(st.prefill_tokens == rc.prompt_len
+              and st.decode_tokens == rc.k * (rc.max_new - 1),
+              f"{tag}: group token counts {st}")
+        check(tree.root.size >= rc.prompt_len and tree.num_leaves() == rc.k,
+              f"{tag}: prompt not shared by {rc.k} leaves")
+        calls, logits, tm = multiturn(cfg, params, "kernel", gen)
+    counts = launch_counts()
+    log(f"{tag}: one rollout group (prompt {rc.prompt_len}, k {rc.k}, "
+        f"max_new {rc.max_new}) in {t_group:.3f} s; multi-turn session: "
+        f"prefill {tm['prefill_tok'] / tm['prefill_s']:.1f} tokens/s "
+        f"({tm['prefill_tok']} tokens through the step loop in "
+        f"{tm['prefill_s']:.3f} s), decode "
+        f"{tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
+        f"({tm['decode_tok']} tokens in {tm['decode_s']:.3f} s); kernel "
+        f"launches {counts} (the step loop runs no tree-attention kernel)")
+    check(all(v == 0 for v in counts.values()),
+          f"{tag}: serving launched a tree-attention kernel")
+    ssm_decode_bound(cfg, params, tm, tag)
+    with torch.inference_mode():
+        sess = DecodeSession.create(cfg, params, buf_len=1536)
+        sess.prefill(rng.integers(0, cfg.vocab_size, 16))
+        br = sess.fork(8)
+        tok = torch.zeros(8, dtype=torch.long, device=DEV)
+        for _ in range(2):
+            br.step(tok)
+        profile_step(lambda: (br.step(tok), torch.cuda.synchronize()),
+                     f"{arch}_decode_step_trace", "decode step")
+    del calls, logits, br, sess
+    return cfg, params, counts
+
+
+def forward_logits(cfg, params, toks):
+    """The packed forward's logits at the positions of ``toks`` (one chain,
+    chunk-padded)."""
+    T, cs = len(toks), cfg.ssm.chunk_size
+    tb = pack_trees([serialize_tree(TrajectoryTree(TreeNode(tokens=toks)),
+                                    chunk_size=cs)], T + (-T % cs),
+                    chunk_size=cs)
+    with torch.inference_mode():
+        hidden, _ = transformer.forward(cfg, params,
+                                        prepare_batch(cfg, tb, device=DEV))
+        return logits_from_hidden(params["embed"], params.get("lm_head"),
+                                  hidden[0, :T])
+
+
+def step_logits(cfg, params, toks):
+    """Teacher-forced: the logits of a session stepping ``toks`` one by
+    one."""
+    with torch.inference_mode():
+        sess = DecodeSession.create(cfg, params,
+                                    buf_len=len(toks) + cfg.ssm.chunk_size)
+        return torch.stack([sess.step([int(t)])[0] for t in toks])
+
+
+class BF16States:
+    """While active, new SSM caches keep their fp32 recurrent states in
+    bf16, so each step rounds the state: a deliberately broken step loop
+    (control c of ``serve_parity_at``)."""
+
+    def __enter__(self):
+        real = self._real = decode._ssm_cache
+
+        def broken(*args, **kw):
+            return {k: t.bfloat16() if t.dtype == torch.float32 else t
+                    for k, t in real(*args, **kw).items()}
+
+        decode._ssm_cache = broken
+        return self
+
+    def __exit__(self, *exc):
+        decode._ssm_cache = self._real
+
+
+class ScaledSSMSteps:
+    """While active, every SSM mixer's decode step returns its output
+    times ``SSM_CONTROL_SCALE``: a step-loop fault of a set size (control
+    d of ``serve_parity_at``), which the bf16 parity checks must fail."""
+    NAMES = ("rwkv6_timemix_decode", "mamba2_decode", "gdn_decode")
+
+    def __enter__(self):
+        self._real = {n: getattr(decode, n) for n in self.NAMES}
+        for n, fn in self._real.items():
+            setattr(decode, n, lambda *a, fn=fn, **kw:
+                    fn(*a, **kw) * SSM_CONTROL_SCALE)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._real.items():
+            setattr(decode, n, fn)
+
+
+def serve_parity_at(cfg, params, seed: int, tag: str) -> dict:
+    """The step loop against the packed forward on SSM_PARITY_TOKENS
+    teacher-forced tokens, bf16 ``params`` and the same weights in f32:
+    relative L2 of logits, the bf16 step loop (s), the bf16 forward (f)
+    and two broken bf16 step loops, c (``BF16States``) and d
+    (``ScaledSSMSteps``), each against the f32 forward (F), and s, c, d
+    against f; the f32 step loop against F element by element at atol =
+    rtol = 5e-4.  Logs every number, checks nothing."""
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                SSM_PARITY_TOKENS)
+    p32 = map_tree(lambda t: t.float(), params)
+    cfg32 = cfg.replace(dtype="float32")
+    F = forward_logits(cfg32, p32, toks)
+    ok32, err32 = close(step_logits(cfg32, p32, toks), F, 5e-4)
+    del p32
+    f, s = forward_logits(cfg, params, toks), step_logits(cfg, params, toks)
+    with BF16States():
+        c = step_logits(cfg, params, toks)
+    with ScaledSSMSteps():
+        d = step_logits(cfg, params, toks)
+    e = dict(sF=rel_l2(s, F), fF=rel_l2(f, F), cF=rel_l2(c, F),
+             dF=rel_l2(d, F), sf=rel_l2(s, f), cf=rel_l2(c, f),
+             df=rel_l2(d, f), ok32=ok32, finite=bool(torch.isfinite(s).all()))
+    log(f"{tag}: {cfg.n_layers} layers, {SSM_PARITY_TOKENS} tokens "
+        f"teacher-forced, relative L2 of logits: bf16 step loop vs f32 "
+        f"forward {e['sF']:.3e}, bf16 forward vs f32 forward {e['fF']:.3e} "
+        f"(ratio {e['sF'] / e['fF']:.3f}), bf16 step loop vs bf16 forward "
+        f"{e['sf']:.3e}; control c (states stored in bf16): vs f32 forward "
+        f"{e['cF']:.3e} (ratio {e['cF'] / e['fF']:.3f}), vs bf16 forward "
+        f"{e['cf']:.3e}; control d (each SSM mixer's step output x "
+        f"{SSM_CONTROL_SCALE}): vs f32 forward {e['dF']:.3e} (ratio "
+        f"{e['dF'] / e['fF']:.3f}), vs bf16 forward {e['df']:.3e}; f32 step "
+        f"loop vs f32 forward max abs error "
+        f"{err32:.3e} (atol = rtol = 5e-4: {'ok' if ok32 else 'FAILED'})")
+    return e
+
+
+def phase_ssm_serve_parity(cfg, params):
+    """The step loop (the serving path) against the packed forward (the
+    training path), ``serve_parity_at`` at two depths:
+    - every depth: the f32 step loop within atol = rtol = 5e-4 of the f32
+      forward, the reference's decode bar (tests/test_serve.py:47-48);
+    - full depth and PARITY_LAYERS layers, bf16: the step loop within
+      1.25x the bf16 forward's distance from the f32 forward (the
+      reference's bf16 step loop drifts as far as the port's,
+      tests/test_torch_ssm_model.py), and control d, a 2% fault in every
+      SSM mixer's step, must fail that bar;
+    - PARITY_LAYERS layers, bf16: also the step loop within relative L2
+      3e-2 of the bf16 forward (at full depth the random model's own bf16
+      drift exceeds 3e-2);
+    - control c (states stored in bf16) is reported: it moves the logits
+      by a few per cent of the bf16 drift, below any bar (PERF.md)."""
+    tag = f"{cfg.name} serve parity"
+    e = serve_parity_at(cfg, params, 12, tag)
+    check(e["ok32"], f"{tag} (f32, full depth)")
+    check(e["finite"] and e["sF"] <= 1.25 * e["fF"],
+          f"{tag} (bf16, full depth)")
+    check(e["dF"] > 1.25 * e["fF"], f"{tag}: control d passed the "
+                                    f"full-depth bf16 check")
+    cfg4 = cfg.replace(n_layers=PARITY_LAYERS)
+    p4 = init_params(cfg4, torch.Generator(DEV).manual_seed(0))
+    e4 = serve_parity_at(cfg4, p4, 13, tag)
+    del p4
+    check(e4["ok32"], f"{tag} (f32, {PARITY_LAYERS} layers)")
+    check(e4["finite"] and e4["sf"] <= 3e-2 and e4["sF"] <= 1.25 * e4["fF"],
+          f"{tag} (bf16, {PARITY_LAYERS} layers)")
+    check(e4["dF"] > 1.25 * e4["fF"], f"{tag}: control d passed the "
+                                      f"{PARITY_LAYERS}-layer bf16 check")
+
+
+def chunk_pads(plan) -> tuple[int, int]:
+    """(chunk-padding tokens inside the packed rows: invalid tokens before
+    each row's last real token, row cells)."""
+    v = np.asarray(plan.packed.inputs["valid"])
+    pads = 0
+    for row in v:
+        real = np.nonzero(row)[0]
+        if real.size:
+            pads += int((~row[:real[-1] + 1]).sum())
+    return pads, v.size
+
+
+def phase_ssm_train(cfg, sft, rl, tag: str):
+    """Full width and depth in bf16 through ``TreeTrainEngine.step`` on the
+    planner's chunk-aligned rows (TRAIN_ROWS of TRAIN_SEQ): SFT steps on
+    agentic trees, then RL steps on GRPO trees; each step's chunk-padding
+    share, time, unique tokens/s, launches (each kernel once per
+    application of the shared attention block, none for a pure SSM) and
+    host syncs (exactly one; step 1 audited); then a profiled step.
+    Returns (params, the run's launch counts, each step's launches, the
+    median step s)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    opt_state = init_opt_state(params)
+    n_steps = len(sft) + len(rl)
+    engine = TreeTrainEngine(cfg, OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=n_steps))
+    torch.cuda.synchronize()
+    per_step = shared_apps(cfg)
+    log(f"{tag}: {ssm_desc(cfg)} + fp32 AdamW state: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.2f} s; SSM layers recomputed in the "
+        f"backward (checkpointed)")
+    reset_launches()
+    times, per_tok, pads_all, cells_all, hidden = [], [], 0, 0, []
+    deltas = []
+    for i, (mode, plan) in enumerate([("sep_avg", p) for p in sft]
+                                     + [("rl", p) for p in rl]):
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        if i == 1:
+            (params, opt_state, m), hidden = count_hidden_syncs(
+                engine, lambda: engine.step(params, opt_state, plan))
+        else:
+            params, opt_state, m = engine.step(params, opt_state, plan)
+        dt = time.perf_counter() - t1
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        deltas.append(delta)
+        pads, cells = chunk_pads(plan)
+        pads_all += pads
+        cells_all += cells
+        if i:
+            times.append(dt)
+            per_tok.append(plan.unique_tokens / dt)
+        log(f"{tag} step {i} ({mode}): loss {m['loss']:.4f} nll/tok "
+            f"{m['nll']:.4f} grad_norm {m['grad_norm']:.3f}; "
+            f"{plan.num_trees} trees, {plan.unique_tokens} unique tokens in "
+            f"{cells} cells, chunk padding {share(pads, cells)} of the cells; "
+            f"{dt:.3f} s ({plan.unique_tokens / dt:.0f} unique tokens/s), "
+            f"peak {peak_gb():.2f} GB; launches this step {delta}; host "
+            f"syncs {engine.host_syncs}")
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"{tag} step {i}: non-finite loss or grad norm")
+        check(all(d == per_step for d in delta.values()),
+              f"{tag} step {i}: launches {delta}, want {per_step} each")
+        check(engine.host_syncs == i + 1,
+              f"{tag} step {i}: {engine.host_syncs} host syncs")
+    counts = launch_counts()
+    log(f"{tag}: step 1 under torch.cuda.set_sync_debug_mode('warn') (off "
+        f"inside the engine's _sync): {len(hidden)} other synchronizing "
+        f"calls{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}")
+    check(not hidden, f"{tag}: a train step synchronized outside _sync")
+    step_s = statistics.median(times)
+    log(f"{tag}: {n_steps} steps ({len(sft)} sep_avg, {len(rl)} rl), "
+        f"{TRAIN_ROWS} rows x {TRAIN_SEQ}: step {step_s:.3f} s median after "
+        f"the first (all: {', '.join(f'{t:.3f}' for t in times)}), "
+        f"{statistics.median(per_tok):.0f} unique tokens/s median, chunk "
+        f"padding {share(pads_all, cells_all)} of the cells, "
+        f"{engine.host_syncs} host syncs / {n_steps} steps; launches {counts} "
+        f"({per_step} of each kernel a step)")
+    profile_step(lambda: engine.step(params, opt_state, sft[0]),
+                 f"{cfg.name.replace('.', 'p')}_train_step_trace")
+    del opt_state
+    return params, counts, deltas, step_s
+
+
+def phase_ssm_train_parity(cfg_full):
+    """PARITY_LAYERS layers in f32 on one chunk-aligned row of 2048: (a)
+    for the hybrid, the kernels against the plain attention; (b) tree vs
+    per-branch baseline (Eq. 5 through tree state routing and the tree
+    causal conv), through the kernels: loss 1e-5 relative, grads max-rel
+    1e-4."""
+    tag = f"{cfg_full.name} train parity"
+    cfg = cfg_full.replace(n_layers=PARITY_LAYERS, dtype="float32")
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    trees = row_trees(cfg, 2048)
+    bt, bb = tree_and_baseline(cfg, trees, 2048)
+    lk, _, gk = value_and_grad(cfg, params, bt, "kernel")
+    if cfg.attn is not None:
+        lr, _, gr = value_and_grad(cfg, params, bt, "ref")
+        e_loss = abs(float(lk) - float(lr)) / abs(float(lr))
+        e_g, leaf, l2, _ = grads_rel(gk, gr)
+        log(f"{tag} (a): {PARITY_LAYERS} layers f32, one packed row of 2048 "
+            f"({len(trees)} trees, {int(bt['valid'].sum())} tokens), kernel "
+            f"vs plain attention: loss {float(lk):.6f} vs {float(lr):.6f}, "
+            f"relative error {e_loss:.3e} (limit 1e-5); grads max-rel "
+            f"{e_g:.3e} at {leaf} (limit 1e-4), relative L2 {l2:.3e}")
+        check(e_loss <= 1e-5 and e_g <= 1e-4, f"{tag} (a)")
+        del gr
+    lb, _, gb = value_and_grad(cfg, params, bb, "kernel")
+    e_loss = abs(float(lk) - float(lb)) / abs(float(lb))
+    e_g, leaf, l2, _ = grads_rel(gk, gb)
+    log(f"{tag} (b): {PARITY_LAYERS} layers f32, tree (1 row, "
+        f"{int(bt['valid'].sum())} tokens, {len(trees)} trees) vs per-branch "
+        f"baseline ({bb['tokens'].shape[0]} rows of 2048, "
+        f"{int(bb['valid'].sum())} tokens): loss {float(lk):.6f} vs "
+        f"{float(lb):.6f}, relative error {e_loss:.3e} (limit 1e-5); grads "
+        f"max-rel {e_g:.3e} at {leaf} (limit 1e-4), relative L2 {l2:.3e}")
+    check(e_loss <= 1e-5 and e_g <= 1e-4, f"{tag} (b)")
+    del params, gk, gb
+
+
+def run_ssm(timed) -> dict:
+    """The SSM and hybrid archs (SSM_ARCHS): the three kernels at Zamba2's
+    layout against their plain versions; each arch served, held step loop
+    vs forward, trained (one host sync a step), checked for deterministic
+    grads and held tree vs baseline; the kernels timed at Zamba2's
+    prefill and train rows.  Returns the kernels' worst errors, each
+    arch's measured launches (serving, the train run, each train step)
+    and step time, and the timings."""
+    zcfg = get_config(HYBRID_ARCH)
+    plans_of = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        plans_of[arch] = (train_plans(cfg, "agentic", "sep_avg",
+                                      SSM_SFT_STEPS),
+                          train_plans(cfg, "grpo", "rl", RL_STEPS))
+    kl_z = np.asarray(plans_of[HYBRID_ARCH][0][0].packed.inputs["kv_last"])
+    err = {"fwd": timed("zamba2 kernel", phase_kernel,
+                        zamba2_kernel_cases(kl_z), False)}
+    err.update(timed("zamba2 bwd kernel", phase_bwd_kernel,
+                     zamba2_kernel_cases(kl_z)))
+    runs = {}
+    for arch in SSM_ARCHS:
+        sft, rl = plans_of[arch]
+        cfg, params, serve_counts = timed(f"{arch} serve", phase_ssm_serve,
+                                          arch)
+        timed(f"{arch} serve parity", phase_ssm_serve_parity, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        params, counts, deltas, step_s = timed(
+            f"{arch} train", phase_ssm_train, cfg, sft, rl, f"{arch} train")
+        timed(f"{arch} determinism", phase_determinism, cfg, params,
+              [("packed", sft[0])], f"{arch} determinism")
+        del params
+        torch.cuda.empty_cache()
+        timed(f"{arch} train parity", phase_ssm_train_parity, cfg)
+        torch.cuda.empty_cache()
+        runs[arch] = dict(counts=counts, step_counts=deltas, step_s=step_s,
+                          serve_counts=serve_counts)
+    a = zcfg.attn
+    heads, hd, apps = (a.n_heads, a.n_kv_heads), a.head_dim, shared_apps(zcfg)
+    lay = layout_tag(*heads, hd)
+    timing = dict(prefill=timed(
+        f"timing {lay} prefill", phase_timing_train, np.full((1, 1024), 1023),
+        None, 0, heads, f"{lay} serving prefill S=1024", 0, hd), train=timed(
+        f"timing {lay} train", phase_timing_train, kl_z,
+        runs[HYBRID_ARCH]["step_s"], apps, heads,
+        f"{lay} chunk-padded train rows", 0, hd))
+    return dict(err=err, runs=runs, timing=timing, layout=lay,
+                apps=apps, train_shape=kl_z.shape)
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2531,6 +3028,11 @@ def main() -> int:
     archs = run_archs(timed)
     worst_fwd = max(worst_fwd, archs["err"]["fwd"])
     worst_bwd = {k: max(worst_bwd[k], archs["err"][k]) for k in worst_bwd}
+
+    # the SSM and hybrid archs, once the other archs' tensors are gone
+    ssm = run_ssm(timed)
+    worst_fwd = max(worst_fwd, ssm["err"]["fwd"])
+    worst_bwd = {k: max(worst_bwd[k], ssm["err"][k]) for k in worst_bwd}
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
@@ -2577,6 +3079,25 @@ def main() -> int:
                              f"kv_last, bf16", **t["train"][key]))
             for lay, t in archs["timing"].items()}}
         e["archs"]["serve_layers"] = {a: archs["runs"][a][1] for a in ARCHS}
+        zB, zS = ssm["train_shape"]
+        e["ssm"] = dict(
+            layout=f"{ssm['layout']} ({HYBRID_ARCH}: its shared attention "
+                   f"block, {ssm['apps']} applications a forward)",
+            path=ta.kernel_path(key, torch.bfloat16, 64),
+            max_abs_err=ssm["err"][key],
+            launches_train={a: ssm["runs"][a]["counts"][name]
+                            for a in SSM_ARCHS},
+            launches_per_train_step={
+                a: [d[name] for d in ssm["runs"][a]["step_counts"]]
+                for a in SSM_ARCHS},
+            launches_serve={a: ssm["runs"][a]["serve_counts"][name]
+                            for a in SSM_ARCHS},
+            prefill=dict(shape="serving-width prefill: B 1, S 1024, bf16",
+                         **ssm["timing"]["prefill"][key]),
+            train=dict(shape=f"the {HYBRID_ARCH} step's chunk-aligned rows: "
+                             f"B {zB}, S {zS}, real kv_last with the chunk "
+                             f"pads invisible, bf16",
+                       **ssm["timing"]["train"][key]))
         if key == "fwd":
             e["launches_serve"] = serve_launches
             e["moe"]["launches_serve"] = moe_serve_launches

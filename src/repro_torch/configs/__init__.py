@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense and MoE archs of
-``repro/configs``, in the reference's order.  Each module exposes
+"""Architecture registry of the port: the dense, MoE, SSM and hybrid archs
+of ``repro/configs``, in the reference's order.  Each module exposes
 ``config()`` (published dims) and ``smoke()`` (a reduced same-family
 variant for CPU tests).  ``long_context_variant`` is the reference's
 sliding-window variant.  The reference's ``supports_long_decode`` /
@@ -15,6 +15,8 @@ from repro_torch.configs.base import AttnCfg, ModelConfig, config_from_dict
 ARCH_IDS = [
     "qwen3_8b",
     "llama4_scout_17b_a16e",
+    "zamba2_1p2b",
+    "rwkv6_1p6b",
     "qwen1p5_0p5b",
     "kimi_k2_1t_a32b",
     "nemotron_4_340b",
@@ -22,6 +24,7 @@ ARCH_IDS = [
     # the paper's own table models
     "qwen3_32b",
     "qwen3_30b_a3b",
+    "qwen3p5_gdn_2b",
 ]
 
 

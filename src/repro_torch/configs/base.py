@@ -52,6 +52,12 @@ class SSMCfg:
     conv_kernel: int = 4                # causal conv width (mamba2/gdn)
     chunk_size: int = 64                # tree chunk grid
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclass(frozen=True)
 class HybridCfg:
@@ -100,21 +106,35 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Approximate parameter count of a dense or MoE decoder (the
-        reference's formula)."""
+        """Approximate parameter count (the reference's formula, all
+        experts counted) of a dense, MoE, SSM or hybrid decoder."""
         D, F, L = self.d_model, self.d_ff, self.n_layers
         emb = self.padded_vocab * D * (1 if self.tie_embeddings else 2)
-        a = self.attn
-        per_attn = D * a.q_dim + 2 * D * a.kv_dim + a.q_dim * D
+        per_attn = 0
+        if self.attn is not None:
+            a = self.attn
+            per_attn = D * a.q_dim + 2 * D * a.kv_dim + a.q_dim * D
         mult = 3 if self.mlp_activation == "swiglu" else 2
-        if self.moe is None:
-            return emb + L * (per_attn + mult * D * F)
-        m = self.moe
-        routed = m.num_experts * mult * D * m.d_expert
-        shared = m.num_shared_experts * mult * D * m.d_expert
-        fd = m.first_dense_layers
-        return emb + fd * (per_attn + mult * D * F) + (L - fd) * (
-            per_attn + routed + shared + D * m.num_experts)
+        if self.moe is not None:
+            m = self.moe
+            routed = m.num_experts * mult * D * m.d_expert
+            shared = m.num_shared_experts * mult * D * m.d_expert
+            fd = m.first_dense_layers
+            return emb + fd * (per_attn + mult * D * F) + (L - fd) * (
+                per_attn + routed + shared + D * m.num_experts)
+        if self.ssm is not None and self.family == "ssm":
+            s = self.ssm
+            if s.kind == "rwkv6":
+                return emb + L * (5 * D * D + 2 * D * F)
+            per_ssm = D * (2 * s.d_inner(D) + 2 * s.d_state * s.n_heads(D)) \
+                + s.d_inner(D) * D
+            return emb + L * (per_ssm + mult * D * F)
+        if self.hybrid is not None:
+            s = self.ssm
+            di = s.d_inner(D)
+            per_ssm = D * 2 * di + di * D + di * s.d_state * 2
+            return emb + L * per_ssm + per_attn + mult * D * F + 2 * D * D
+        return emb + L * (per_attn + mult * D * F)
 
 
 _NESTED = {"attn": AttnCfg, "moe": MoECfg, "ssm": SSMCfg,

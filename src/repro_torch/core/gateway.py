@@ -3,7 +3,7 @@ Redundancy-Free Tree Partitioning (paper §3.3 + App. B).
 
 Port of ``repro/core/gateway.py`` (:56-821) for the dense and MoE
 families; the SSM gateway contexts (``conv``/``shift`` tails, chunk state,
-``prev_pows``) are ROADMAP.md Queue A item 4 and raise.  A partition is a
+``prev_pows``) are ROADMAP.md Queue A item 4b and raise.  A partition is a
 function ``(params, gw_in) → ((loss, captures), metrics)``
 (``models/transformer.partition_loss``): its gateway ``gw_in`` holds the
 ancestors' post-RoPE K/V, {"g{i}": {"attn": {"k", "v"}}} with leaves
@@ -56,7 +56,7 @@ def _no_ssm(cfg: ModelConfig) -> None:
     if cfg.ssm is not None:
         raise NotImplementedError(
             "SSM gateway contexts (conv/shift tails, chunk states) are not "
-            "ported yet; see ROADMAP.md Queue A item 4")
+            "ported yet; see ROADMAP.md Queue A item 4b")
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +71,7 @@ def make_part_batch(cfg: ModelConfig, part: TreePartition,
     _no_ssm(cfg)
     if chunk_size is not None:
         raise NotImplementedError("chunked partitions: ROADMAP.md Queue A "
-                                  "item 4")
+                                  "item 4b")
     ser = part.ser
     b: dict[str, Any] = {
         "tokens": ser.tokens[None],

@@ -5,8 +5,10 @@ field by field in ``tests/test_torch_train.py``) and Tree Packing over
 partitions, ``pack_partition_waves`` (``tests/test_torch_partition.py``).
 A row holds one or more whole DFS-serialized trees back to back; because
 ``kv_last`` bounds visibility to a token's own subtree, packed trees are
-mutually invisible with no extra mask.  The SSM ``chunk_size`` alignment is
-not copied (SSM families are ROADMAP.md Queue A item 4): it raises.
+mutually invisible with no extra mask.  With ``chunk_size`` (the SSM and
+hybrid families) the trees are chunk-aligned serializations and each row
+carries its ``chunk_parent`` map; chunk-aligned partition waves are
+ROADMAP.md Queue A item 4b and raise.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class TreeBatch:
     weight: np.ndarray        # f32 [B, S]   λ_t
     prev_idx: np.ndarray      # i32 [B, S]   (−1 = no loss for this token)
     valid: np.ndarray         # bool [B, S]
+    chunk_parent: Optional[np.ndarray] = None  # i32 [B, C] (−1 = init state)
     num_trees: int = 1        # loss normalizer (mean over trees)
     row_trees: Optional[np.ndarray] = None     # i32 [B] trees per row
 
@@ -44,8 +47,8 @@ class TreeBatch:
 def _no_chunks(chunk_size: Optional[int]) -> None:
     if chunk_size is not None:
         raise NotImplementedError(
-            "chunk-aligned (SSM) packing is not ported yet; see ROADMAP.md "
-            "Queue A item 4")
+            "chunk-aligned (SSM) partition waves are not ported yet; see "
+            "ROADMAP.md Queue A item 4b")
 
 
 def _empty_row(S: int) -> dict[str, np.ndarray]:
@@ -105,10 +108,11 @@ def materialize_tree_rows(
     tree_counts: Optional[Sequence[int]] = None,
 ) -> TreeBatch:
     """Materialize a planned row assignment (``rows[r]`` = tree indices
-    sharing row r, in placement order) into a fixed-shape TreeBatch.
-    ``tree_counts[i]`` is how many source trees serialization i represents
-    (default 1 each)."""
-    _no_chunks(chunk_size)
+    sharing row r, in placement order) into a fixed-shape TreeBatch.  With
+    ``chunk_size`` the serializations must be chunk-aligned and the rows
+    carry a chunk_parent map (each tree's chunk offsets shifted by its
+    row offset).  ``tree_counts[i]`` is how many source trees
+    serialization i represents (default 1 each)."""
     for r in rows:
         if sum(trees[i].n for i in r) > seq_len:
             raise DoesNotFitError(
@@ -118,8 +122,11 @@ def materialize_tree_rows(
         else (lambda i: int(tree_counts[i]))
     cols = {k: [] for k in
             ("tokens", "pos_ids", "kv_last", "weight", "prev_idx", "valid")}
+    C = None if chunk_size is None else seq_len // chunk_size
+    chunk_rows: list[np.ndarray] = []
     for r in rows:
         row = _empty_row(seq_len)
+        cp = None if C is None else np.full(C, -1, np.int32)
         off = 0
         for i in r:
             t = trees[i]
@@ -131,11 +138,22 @@ def materialize_tree_rows(
             row["prev_idx"][sl] = np.where(t.prev_idx < 0, -1,
                                            t.prev_idx + off)
             row["valid"][sl] = t.valid
+            if cp is not None:
+                if off % chunk_size or t.n % chunk_size:
+                    raise ValueError("SSM packing requires chunk-aligned "
+                                     "serializations (serialize_tree with "
+                                     f"chunk_size={chunk_size})")
+                tc = t.chunk_parent_map(chunk_size)
+                coff = off // chunk_size
+                cp[coff:coff + len(tc)] = np.where(tc < 0, -1, tc + coff)
             off += t.n
         for k in cols:
             cols[k].append(row[k])
+        if cp is not None:
+            chunk_rows.append(cp)
     return TreeBatch(
         **{k: np.stack(v) for k, v in cols.items()},
+        chunk_parent=np.stack(chunk_rows) if chunk_rows else None,
         num_trees=sum(count(i) for r in rows for i in r),
         row_trees=np.asarray([sum(count(i) for i in r) for r in rows],
                              np.int32),
@@ -151,10 +169,10 @@ def pack_trees(
 ) -> TreeBatch:
     """First-fit-decreasing pack of whole serialized trees into rows (plan
     + materialize).  Every tree must fit in one row."""
-    _no_chunks(chunk_size)
     rows = plan_tree_rows([t.n for t in trees], seq_len,
                           batch_size=batch_size)
-    return materialize_tree_rows(trees, rows, seq_len)
+    return materialize_tree_rows(trees, rows, seq_len,
+                                 chunk_size=chunk_size)
 
 
 def pack_linear_paths(
@@ -170,8 +188,10 @@ def pack_linear_paths(
     tree k (``TrajectoryTree.linearize_paths``).  Loss weights are 1/K_k
     per trained token ('sep_avg'), so the packed loss equals the
     mean-over-trees sep-avg loss; 'rl' also scales each path by its
-    ``branch_adv``; 'uniform' drops the 1/K."""
-    _no_chunks(chunk_size)
+    ``branch_adv``; 'uniform' drops the 1/K.  With ``chunk_size`` each
+    path starts on a chunk boundary and is padded to the chunk grid
+    (invisible, weightless pads), its first chunk reading the zero state
+    and each later one its predecessor."""
     flat: list[dict[str, np.ndarray]] = []
     for ti, paths in enumerate(trees_paths):
         K = len(paths)
@@ -189,11 +209,14 @@ def pack_linear_paths(
             q["_tree"] = ti
             flat.append(q)
 
+    def aligned_len(n: int) -> int:
+        return n if chunk_size is None else n + (-n % chunk_size)
+
     order = sorted(range(len(flat)), key=lambda i: -len(flat[i]["tokens"]))
     rows: list[list[int]] = []
     row_used: list[int] = []
     for i in order:
-        n = len(flat[i]["tokens"])
+        n = aligned_len(len(flat[i]["tokens"]))
         if n > seq_len:
             raise DoesNotFitError("path longer than row")
         for r, used in enumerate(row_used):
@@ -213,8 +236,11 @@ def pack_linear_paths(
 
     out = {k: [] for k in
            ("tokens", "pos_ids", "kv_last", "weight", "prev_idx", "valid")}
+    C = None if chunk_size is None else seq_len // chunk_size
+    chunk_rows: list[np.ndarray] = []
     for r in rows:
         row = _empty_row(seq_len)
+        cp = None if C is None else np.full(C, -1, np.int32)
         off = 0
         for i in r:
             p = flat[i]
@@ -228,12 +254,19 @@ def pack_linear_paths(
             pv[0] = -1
             row["prev_idx"][sl] = pv
             row["valid"][sl] = True
-            off += n
+            na = aligned_len(n)
+            if cp is not None:
+                c0, c1 = off // chunk_size, (off + na) // chunk_size
+                cp[c0 + 1:c1] = np.arange(c0, c1 - 1, dtype=np.int32)
+            off += na
         for k in out:
             out[k].append(row[k])
+        if cp is not None:
+            chunk_rows.append(cp)
 
     return TreeBatch(
         **{k: np.stack(v) for k, v in out.items()},
+        chunk_parent=np.stack(chunk_rows) if chunk_rows else None,
         num_trees=len(trees_paths),
         row_trees=np.asarray(
             [len({flat[i]["_tree"] for i in r}) for r in rows], np.int32),

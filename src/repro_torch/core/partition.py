@@ -2,7 +2,7 @@
 
 A copy of ``repro/core/partition.py`` (held against it in
 ``tests/test_torch_partition.py``) without the SSM chunk alignment, which
-is ROADMAP.md Queue A item 4: a ``chunk_size`` raises.
+is ROADMAP.md Queue A item 4b: a ``chunk_size`` raises.
 
 When a tree exceeds the per-step token budget C, split it into connected
 subtrees with cuts at node boundaries (so the partition dependency graph
@@ -100,7 +100,7 @@ def _no_chunks(chunk_size: Optional[int]) -> None:
     if chunk_size is not None:
         raise NotImplementedError(
             "chunk-aligned (SSM) partitions are not ported yet; see "
-            "ROADMAP.md Queue A item 4")
+            "ROADMAP.md Queue A item 4b")
 
 
 def partition_tree(

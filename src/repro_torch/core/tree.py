@@ -1,10 +1,10 @@
 """Trajectory trees and DFS serialization (paper §3.1–3.2).
 
-A copy of ``repro/core/tree.py`` without the SSM chunk alignment: the port
-imports nothing of the reference package, and ``tests/test_torch_serve.py``,
-``tests/test_torch_train.py`` and ``tests/test_torch_partition.py`` hold
-this copy against the original on random, agentic, GRPO and partitioned
-trees.
+A copy of ``repro/core/tree.py``: the port imports nothing of the reference
+package, and ``tests/test_torch_serve.py``, ``tests/test_torch_train.py``,
+``tests/test_torch_partition.py`` and ``tests/test_torch_ssm.py`` hold
+this copy against the original on random, agentic, GRPO, partitioned and
+chunk-aligned trees.
 
 A trajectory tree is a rooted tree whose nodes hold token segments; each
 root-to-leaf path is one trajectory.  DFS serialization lays every token
@@ -15,6 +15,7 @@ out once, with per-token metadata:
   - ``pos_ids[t]``  : depth-based position (Eq. 9), so RoPE is exact.
   - ``weight[t]``   : λ_t (Eq. 4), ×advantage for RL.
   - ``prev_idx[t]`` : DFS index of the token whose logits predict token t.
+  - ``node_id[t]``, ``chunk_parent`` : the SSM chunk grid (§3.2 SSM).
 """
 from __future__ import annotations
 
@@ -126,11 +127,11 @@ class SerializedTree:
     kv_last: np.ndarray       # i32 [N] last DFS index visible-to bound
     weight: np.ndarray        # f32 [N] λ_t (Eq. 4), already ×advantage for RL
     prev_idx: np.ndarray      # i32 [N] logits row predicting token t (−1: none)
-    valid: np.ndarray         # bool [N] (all True: no chunk padding here)
+    valid: np.ndarray         # bool [N] False = chunk-alignment padding
     node_id: np.ndarray       # i32 [N] DFS node index per token
     node_parent: np.ndarray   # i32 [num_nodes] parent node index (−1 for root)
     node_start: np.ndarray    # i32 [num_nodes] DFS start offset of node segment
-    node_end: np.ndarray      # i32 [num_nodes] end offset (exclusive)
+    node_end: np.ndarray      # i32 [num_nodes] end offset (exclusive, incl. pad)
     num_paths: int            # K
 
     @property
@@ -138,11 +139,29 @@ class SerializedTree:
         return int(self.tokens.shape[0])
 
     def chunk_parent_map(self, chunk_size: int) -> np.ndarray:
-        """The SSM chunk-parent map (reference ``core/tree.py``): SSM and
-        hybrid families are ROADMAP.md Queue A item 4."""
-        raise NotImplementedError(
-            "chunk_parent_map is SSM-only and not ported yet; see "
-            "ROADMAP.md Queue A item 4")
+        """Per-chunk parent chunk index for tree SSM state routing (§3.2).
+
+        Requires a chunk-aligned serialization (every node starts on a
+        chunk boundary); raises ValueError otherwise.  Chunk c's parent is
+        the previous chunk of the same node, or the last chunk of the
+        parent node; −1 = zero state.
+        """
+        if self.n % chunk_size:
+            raise ValueError("serialization not chunk-aligned")
+        cp = np.full(self.n // chunk_size, -1, dtype=np.int32)
+        for nid in range(len(self.node_parent)):
+            s, e = int(self.node_start[nid]), int(self.node_end[nid])
+            if s == e:
+                continue
+            if s % chunk_size:
+                raise ValueError("node not chunk-aligned")
+            c0 = s // chunk_size
+            c1 = (e + chunk_size - 1) // chunk_size
+            p = int(self.node_parent[nid])
+            cp[c0] = -1 if p < 0 else (int(self.node_end[p]) - 1) // chunk_size
+            for c in range(c0 + 1, c1):
+                cp[c] = c - 1
+        return cp
 
 
 def _leaf_counts(root: TreeNode) -> dict[int, int]:
@@ -192,12 +211,17 @@ def tree_lam_map(root: TreeNode, loss_mode: str) -> dict[int, float]:
 
 
 def serialize_tree(tree: TrajectoryTree, *,
+                   chunk_size: Optional[int] = None,
                    loss_mode: str = "sep_avg",
                    lam_map: Optional[dict[int, float]] = None,
                    depth_pos0: int = 0,
                    root_prev: int = -1) -> SerializedTree:
     """DFS-serialize ``tree``; every token appears exactly once (Eq. 8).
 
+    chunk_size: if given, each node segment is padded to a multiple of
+      chunk_size so SSM chunk boundaries coincide with node boundaries;
+      pad tokens are ``valid=False``, weight 0, prev −1 and kv_last −1
+      (no query sees them, and no token's path runs through them).
     loss_mode: 'sep_avg' (λ = g_t/K), 'uniform' (λ = 1) or 'rl'
     (λ = Σ_{branches through t} A_b / K).
 
@@ -208,8 +232,6 @@ def serialize_tree(tree: TrajectoryTree, *,
       root_prev  : prev_idx of the very first token; −2 marks a partition
                    root whose predicting token lives in the parent
                    partition (its loss is the parent's boundary loss).
-    The reference's SSM chunk padding (``chunk_size``) is ROADMAP.md
-    Queue A item 4.
     """
     g = _leaf_counts(tree.root)
     K = g[id(tree.root)]
@@ -219,11 +241,17 @@ def serialize_tree(tree: TrajectoryTree, *,
     pos: list[np.ndarray] = []
     wgt: list[np.ndarray] = []
     prv: list[np.ndarray] = []
+    vld: list[np.ndarray] = []
     nid: list[np.ndarray] = []
     node_parent: list[int] = []
     node_start: list[int] = []
     node_end: list[int] = []
     cursor = 0  # DFS token offset
+
+    def pad_len(n_tokens: int) -> int:
+        if chunk_size is None:
+            return 0
+        return -n_tokens % chunk_size
 
     def rec(node: TreeNode, depth_pos: int, parent_nid: int,
             parent_last_tok: int) -> None:
@@ -231,12 +259,15 @@ def serialize_tree(tree: TrajectoryTree, *,
         my_nid = len(node_parent)
         node_parent.append(parent_nid)
         L = node.size
+        P = pad_len(L)
         start = cursor
         node_start.append(start)
-        node_end.append(start + L)
+        node_end.append(start + L + P)
 
-        toks.append(node.tokens)
-        pos.append(np.arange(depth_pos, depth_pos + L, dtype=np.int32))
+        toks.append(np.concatenate([node.tokens, np.zeros(P, np.int32)]))
+        pos.append(np.concatenate([
+            np.arange(depth_pos, depth_pos + L, dtype=np.int32),
+            np.zeros(P, np.int32)]))
         if lam_map is not None:
             lam = lam_map[id(node)]
         elif loss_mode == "sep_avg":
@@ -249,15 +280,17 @@ def serialize_tree(tree: TrajectoryTree, *,
             raise ValueError(loss_mode)
         adv = (node.advantage if node.advantage is not None
                else np.ones(L, np.float32))
-        wgt.append(np.where(node.trained, lam * adv, 0.0).astype(np.float32))
+        w = np.where(node.trained, lam * adv, 0.0).astype(np.float32)
+        wgt.append(np.concatenate([w, np.zeros(P, np.float32)]))
         # within a node the previous DFS slot; a node's first token looks at
-        # the parent node's last token (empty nodes add no tokens)
+        # the parent node's last real token (empty nodes add no tokens)
         p = np.arange(start - 1, start + L - 1, dtype=np.int32)
         if L > 0:
             p[0] = parent_last_tok
-        prv.append(p)
-        nid.append(np.full(L, my_nid, np.int32))
-        cursor += L
+        prv.append(np.concatenate([p, np.full(P, -1, np.int32)]))
+        vld.append(np.concatenate([np.ones(L, bool), np.zeros(P, bool)]))
+        nid.append(np.full(L + P, my_nid, np.int32))
+        cursor += L + P
 
         my_last_tok = start + L - 1 if L > 0 else parent_last_tok
         for c in node.children:
@@ -265,8 +298,10 @@ def serialize_tree(tree: TrajectoryTree, *,
 
     rec(tree.root, depth_pos0, -1, root_prev)
 
-    # kv_last per token = last DFS index of its node's subtree; subtree
-    # ends accumulate in reverse DFS order (children follow parents)
+    # kv_last per real token = last DFS index of its node's subtree (pads:
+    # −1); subtree ends accumulate in reverse DFS order (children follow
+    # parents)
+    valid = np.concatenate(vld) if vld else np.zeros(0, bool)
     kv_last = np.full(cursor, -1, np.int32)
     node_sub_end = np.zeros(len(node_parent), np.int64)
     for i in range(len(node_parent) - 1, -1, -1):
@@ -275,7 +310,8 @@ def serialize_tree(tree: TrajectoryTree, *,
         if p >= 0:
             node_sub_end[p] = max(node_sub_end[p], node_sub_end[i])
     for i in range(len(node_parent)):
-        kv_last[node_start[i]:node_end[i]] = node_sub_end[i] - 1
+        seg = slice(node_start[i], node_end[i])
+        kv_last[seg] = np.where(valid[seg], node_sub_end[i] - 1, -1)
 
     return SerializedTree(
         tokens=np.concatenate(toks),
@@ -283,7 +319,7 @@ def serialize_tree(tree: TrajectoryTree, *,
         kv_last=kv_last,
         weight=np.concatenate(wgt),
         prev_idx=np.concatenate(prv),
-        valid=np.ones(cursor, bool),
+        valid=valid,
         node_id=np.concatenate(nid) if nid else np.zeros(0, np.int32),
         node_parent=np.asarray(node_parent, np.int32),
         node_start=np.asarray(node_start, np.int32),

@@ -151,6 +151,10 @@ def main(argv=None) -> None:
                 args.seq_len:
             ap.error(f"--capacity {args.capacity} must be in (0, --seq-len "
                      f"{args.seq_len}]")
+        if (args.capacity is not None and cfg.ssm is not None
+                and args.capacity % cfg.ssm.chunk_size != 0):
+            ap.error(f"--capacity {args.capacity} must be a multiple of the "
+                     f"SSM chunk size {cfg.ssm.chunk_size}")
     if args.graft and args.mode != "tree":
         ap.error("--graft requires --mode tree (grafted forests are "
                  "serialized trees; baseline rows cannot share prefixes)")

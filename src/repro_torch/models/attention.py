@@ -143,18 +143,21 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
 
 
 def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
-                     cache: dict, pos: torch.Tensor, write_idx: int
+                     cache: dict, pos: torch.Tensor, write_idx: torch.Tensor
                      ) -> torch.Tensor:
     """One-token decode.  x: [B, 1, D]; cache: one layer's ring buffer
     {k, v [B, T, Kh, hd], pos [B, T]}, which this call updates **in place**
-    (slot ``write_idx`` takes the new token); pos: [B] position ids."""
+    (slot ``write_idx``, a [1] int64 tensor on the cache's device, takes
+    the new token: a device index, so a captured CUDA graph replays with
+    the slot of each step); pos: [B] position ids."""
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, cfg, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
-    cache["k"][:, write_idx] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, write_idx] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][:, write_idx] = pos
+    cache["k"].index_copy_(1, write_idx, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, write_idx, v_new.to(cache["v"].dtype))
+    cache["pos"].index_copy_(1, write_idx,
+                             pos[:, None].to(cache["pos"].dtype))
     k, v, cpos = cache["k"], cache["v"], cache["pos"]
 
     vis = (cpos >= 0) & (cpos <= pos[:, None])

@@ -1,9 +1,11 @@
-"""Shared layer primitives: norms, RoPE, the MLPs, embeddings, the LM head.
+"""Shared layer primitives: norms, RoPE, the MLPs, embeddings, the LM head,
+and the tree-aware gathers of the SSM layers (token shift and causal conv
+along each token's path).
 
-Port of the dense slice of ``repro/models/layers.py``: plain functions on
-tensors, taking the reference's parameter dicts (same names, ``x @ W``
-orientation) and matching its rounding points — fp32 reductions in
-``rmsnorm``, fp32 angles in ``rope``, fp32 logits from the head.
+Port of ``repro/models/layers.py``: plain functions on tensors, taking the
+reference's parameter dicts (same names, ``x @ W`` orientation) and
+matching its rounding points — fp32 reductions in ``rmsnorm``, fp32 angles
+in ``rope``, fp32 logits from the head.
 The reference's ``tp_out_proj`` is ``h @ w`` without a device mesh, and
 the one-card port has no mesh, so it is a plain matmul here.
 """
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -234,3 +237,62 @@ def init_lm_head(generator, d_model: int, vocab: int, dtype=torch.float32,
                  device=None) -> dict:
     return {"w": _dense_init(generator, (d_model, vocab), dtype=dtype,
                              device=device)}
+
+
+# --------------------------------------------------------------------------
+# Tree-aware gathers (token shift / causal conv by path predecessor)
+# --------------------------------------------------------------------------
+
+def gather_prev(x: torch.Tensor, prev_idx: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, S, D] at each token's path predecessor prev_idx [B, S]: ≥ 0 a
+    row of x, −1 none (zeros), −(2+j) the gateway context ``ctx[:, Tc−1−j]``
+    (ctx [B, Tc, D]: slot −2 is the immediate relayed ancestor).  The
+    tree-correct replacement for a ``roll(x, 1)`` token shift.  Branch
+    points repeat predecessors, so the rows are read with ``take_rows``,
+    whose backward sums each row's cotangents in a fixed order."""
+    g = take_rows(x, prev_idx.clamp_min(0).long())
+    out = torch.where((prev_idx >= 0)[..., None], g, 0.0)
+    if ctx is not None:
+        Tc = ctx.shape[1]
+        ci = Tc + prev_idx + 1                 # −2 → Tc−1, −3 → Tc−2, …
+        in_ctx = (prev_idx <= -2) & (ci >= 0)
+        gc = take_rows(ctx.to(x.dtype), ci.clamp(0, Tc - 1).long())
+        out = torch.where(in_ctx[..., None], gc, out)
+    return out.to(x.dtype)
+
+
+def prev_powers(prev_idx: np.ndarray, k: int) -> np.ndarray:
+    """Host-side: the 1..k-th path predecessors of every token, [B, S, k].
+    The causal-conv window of token t is x[prev^k(t)], …, x[prev^1(t)],
+    x[t] (paper §3.2(ii)).  Gateway slots chain: prev(−(2+j)) = −(3+j);
+    prev(−1) = −1."""
+    B, S = prev_idx.shape
+    out = np.full((B, S, k), -1, dtype=np.int32)
+    cur = prev_idx.copy()
+    for j in range(k):
+        out[:, :, j] = cur
+        nxt = np.where(cur <= -2, cur - 1, -1).astype(np.int32)
+        valid = cur >= 0
+        rows = np.broadcast_to(np.arange(B)[:, None], cur.shape)
+        nxt[valid] = prev_idx[rows[valid], cur[valid]]
+        cur = nxt
+    return out
+
+
+def tree_causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
+                     conv_b: Optional[torch.Tensor],
+                     prev_pows: torch.Tensor,
+                     ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv along each token's tree path: x [B, S, D],
+    conv_w [K, D] (tap K−1 is the current token), prev_pows [B, S, K−1]
+    (prev^1 … prev^(K−1)), ctx as ``gather_prev``'s.  Equal to
+    causal_conv1d on each root-to-leaf path on its own."""
+    K = conv_w.shape[0]
+    acc = x * conv_w[K - 1]
+    for j in range(K - 1):
+        # tap K−2−j multiplies prev^{j+1}
+        acc = acc + gather_prev(x, prev_pows[..., j], ctx) * conv_w[K - 2 - j]
+    if conv_b is not None:
+        acc = acc + conv_b
+    return acc

@@ -10,11 +10,32 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import TreeBatch
 from repro_torch.device import DeviceLike, resolve_device, to_device
+from repro_torch.models.layers import prev_powers
 from repro_torch.models.transformer import (forward, init_params,
                                             layer_groups, loss_and_metrics)
 
 __all__ = ["init_params", "forward", "loss_and_metrics", "batch_arrays",
-           "prepare_batch", "layer_groups", "ParamTree"]
+           "prepare_batch", "device_batch", "needs_chunks", "chunk_size_of",
+           "max_conv_taps", "layer_groups", "ParamTree"]
+
+
+def needs_chunks(cfg: ModelConfig) -> bool:
+    return cfg.ssm is not None
+
+
+def chunk_size_of(cfg: ModelConfig) -> Optional[int]:
+    """The chunk grid packed rows are aligned to: the SSM chunk size for
+    the SSM and hybrid families, None otherwise."""
+    return cfg.ssm.chunk_size if needs_chunks(cfg) else None
+
+
+def max_conv_taps(cfg: ModelConfig) -> int:
+    """How many path-predecessor gathers the model needs (conv K−1)."""
+    if cfg.ssm is None:
+        return 0
+    if cfg.ssm.kind == "rwkv6":
+        return 1                      # token shift only (uses prev_idx)
+    return cfg.ssm.conv_kernel - 1
 
 
 def batch_arrays(cfg: ModelConfig, tb: TreeBatch, *,
@@ -22,14 +43,23 @@ def batch_arrays(cfg: ModelConfig, tb: TreeBatch, *,
     """TreeBatch → the model's input columns as host (numpy) arrays, plus
     ``num_trees``, the loss normalizer (mean over trees; ``num_trees``
     overrides the batch's own count).  The planner's threads build these;
-    the engine copies them to its device.  SSM chunk maps and frontend
-    embeddings are not ported: those families raise."""
-    if cfg.ssm is not None or cfg.frontend is not None:
+    the engine copies them to its device (``device_batch``), except
+    ``chunk_parent`` (SSM and hybrid families), which the chunk loop reads
+    on the host; ``prev_pows`` [B, S, K−1] are the conv's
+    path predecessors.  Frontend embeddings are not ported: VLM/audio
+    raise."""
+    if cfg.frontend is not None:
         raise NotImplementedError(
-            f"family {cfg.family!r} needs SSM chunks or frontend embeddings, "
-            f"which are not ported yet; see ROADMAP.md Queue A items 4-5")
+            f"family {cfg.family!r} needs frontend embeddings, which are not "
+            f"ported yet; see ROADMAP.md Queue A item 5")
     d: dict = {k: getattr(tb, k) for k in ("tokens", "pos_ids", "kv_last",
                                            "weight", "prev_idx", "valid")}
+    if needs_chunks(cfg):
+        if tb.chunk_parent is None:
+            raise ValueError(f"{cfg.name} needs a chunk-aligned batch (pack "
+                             f"with chunk_size={cfg.ssm.chunk_size})")
+        d["chunk_parent"] = tb.chunk_parent
+        d["prev_pows"] = prev_powers(tb.prev_idx, max(1, max_conv_taps(cfg)))
     d["num_trees"] = tb.num_trees if num_trees is None else num_trees
     return d
 
@@ -38,9 +68,21 @@ def prepare_batch(cfg: ModelConfig, tb: TreeBatch, *,
                   num_trees: Optional[int] = None,
                   device: DeviceLike = None) -> dict:
     """``batch_arrays`` as tensors on ``device`` (the CUDA device by
-    default)."""
-    return to_device(batch_arrays(cfg, tb, num_trees=num_trees),
-                     resolve_device(device))
+    default), ``chunk_parent`` kept host (``device_batch``)."""
+    return device_batch(batch_arrays(cfg, tb, num_trees=num_trees),
+                        resolve_device(device))
+
+
+def device_batch(batch: dict, device) -> dict:
+    """``batch_arrays``' columns on ``device`` (``device.to_device``: no
+    read-back, no wait), except ``chunk_parent``, which stays host numpy:
+    the SSM chunk loop indexes its Python list of states with it
+    (``models/ssm/common``)."""
+    out = to_device({k: v for k, v in batch.items() if k != "chunk_parent"},
+                    device)
+    if "chunk_parent" in batch:
+        out["chunk_parent"] = batch["chunk_parent"]
+    return out
 
 
 class ParamTree(nn.Module):

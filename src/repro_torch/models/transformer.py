@@ -1,16 +1,19 @@
-"""Model assembly for the dense and MoE decoders.
+"""Model assembly for the dense, MoE, SSM and hybrid decoders.
 
-Port of the dense and MoE slices of ``repro/models/transformer.py``:
-``init_params``, ``forward`` (:316), ``partition_forward`` (:398, the
-session's prefill and the partition waves), ``partition_loss`` (:477) and
-``loss_and_metrics`` (:520).  Parameters keep the reference's layout —
+Port of ``repro/models/transformer.py`` for those families:
+``init_params``, ``forward`` (:316, with the Zamba2 hybrid's stages and
+shared attention block, :360), ``partition_forward`` (:398, the session's
+prefill and the partition waves; dense and MoE only), ``partition_loss``
+(:477) and ``loss_and_metrics`` (:520).  Parameters keep the reference's layout —
 ``layer_stacks[g]`` holds one scan group of same-kind layers with a leading
 layer dimension — so the weight bridge is an identity rename.  Layers loop
 in Python where the reference scans; each forward unbinds every stacked
 leaf once (``_unstack``), so the backward writes each leaf's gradient once
-instead of one zero-filled whole stack per layer.  Other families (SSM,
-hybrid, enc-dec, VLM) raise: they are later items of ROADMAP.md Queue A,
-as is ``remat="full"`` (item 7).  The reference's ``shard_activation`` and
+instead of one zero-filled whole stack per layer.  The SSM layers
+(``models/ssm``) take the batch's host ``chunk_parent`` and device
+``prev_pows``; their partition gateways are ROADMAP.md Queue A item 4b.
+Enc-dec and VLM raise (later items of Queue A), as does ``remat="full"``
+(item 7).  The reference's ``shard_activation`` and
 ``shard_logits`` are the identity without a device mesh, and the one-card
 port has none.
 """
@@ -23,10 +26,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention, init_attention
-from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
-                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
-                                       take_rows, token_nll)
+from repro_torch.models.layers import (_dense_init, embed, init_embedding,
+                                       init_lm_head, init_mlp, init_rmsnorm,
+                                       mlp, rmsnorm, take_rows, token_nll)
 from repro_torch.models.moe import init_moe, moe
+from repro_torch.models.ssm.gdn import gdn, init_gdn
+from repro_torch.models.ssm.mamba2 import init_mamba2, mamba2
+from repro_torch.models.ssm.rwkv6 import (init_rwkv6_channelmix,
+                                          init_rwkv6_timemix,
+                                          rwkv6_channelmix, rwkv6_timemix)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -34,15 +42,20 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _layer_kinds(cfg: ModelConfig) -> list[str]:
-    """Kind of every decoder layer, in order."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe only); "
-            f"see ROADMAP.md Queue A (SSM/hybrid, enc-dec/VLM items)")
+    """Kind of every decoder layer, in order (the hybrid's shared attention
+    block is not a layer of the stack)."""
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         return ["dense"] * fd + ["moe"] * (cfg.n_layers - fd)
-    return ["dense"] * cfg.n_layers
+    if cfg.family == "dense":
+        return ["dense"] * cfg.n_layers
+    if cfg.family == "ssm" and cfg.ssm.kind in ("rwkv6", "gdn"):
+        return [cfg.ssm.kind] * cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        return ["mamba2"] * cfg.n_layers
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
+        f"hybrid); see ROADMAP.md Queue A (enc-dec/VLM items)")
 
 
 def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -56,21 +69,38 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
     return groups
 
 
-def _init_layers(cfg: ModelConfig, kind: str, n: int, generator, dtype,
+def _init_layers(cfg: ModelConfig, kind: str, lead: tuple, generator, dtype,
                  device) -> dict:
-    """``n`` layers of ``kind`` stacked along a leading layer dimension
-    (each weight's fan-in is its shape[-2], so every layer gets the
-    reference's per-layer scale); an MoE layer's router stays fp32."""
+    """Layers of ``kind`` stacked along the leading dims ``lead`` ((n,) for
+    a group of n, () for the hybrid's shared block); each weight's fan-in
+    is its shape[-2], so every layer gets the reference's per-layer
+    scale.  An MoE layer's router stays fp32, as do the SSM layers' decay
+    and skip parameters."""
     D = cfg.d_model
-    kw = dict(dtype=dtype, device=device, lead=(n,))
-    p = {"ln1": init_rmsnorm(D, **kw),
-         "attn": init_attention(generator, cfg.attn, D, **kw),
-         "ln2": init_rmsnorm(D, **kw)}
-    if kind == "moe":
-        p["moe"] = init_moe(generator, cfg.moe, D, cfg.mlp_activation, **kw)
-    else:
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    p = {"ln1": init_rmsnorm(D, **kw)}
+    if kind in ("dense", "moe"):
+        p["attn"] = init_attention(generator, cfg.attn, D, **kw)
+        p["ln2"] = init_rmsnorm(D, **kw)
+        if kind == "moe":
+            p["moe"] = init_moe(generator, cfg.moe, D, cfg.mlp_activation,
+                                **kw)
+        else:
+            p["mlp"] = init_mlp(generator, D, cfg.d_ff, cfg.mlp_activation,
+                                cfg.mlp_bias, **kw)
+    elif kind == "rwkv6":
+        p["tm"] = init_rwkv6_timemix(generator, cfg.ssm, D, **kw)
+        p["ln2"] = init_rmsnorm(D, **kw)
+        p["cm"] = init_rwkv6_channelmix(generator, D, cfg.d_ff, **kw)
+    elif kind == "mamba2":
+        p["ssm"] = init_mamba2(generator, cfg.ssm, D, **kw)
+    elif kind == "gdn":
+        p["ssm"] = init_gdn(generator, cfg.ssm, D, **kw)
+        p["ln2"] = init_rmsnorm(D, **kw)
         p["mlp"] = init_mlp(generator, D, cfg.d_ff, cfg.mlp_activation,
                             cfg.mlp_bias, **kw)
+    else:
+        raise ValueError(kind)
     return p
 
 
@@ -92,18 +122,43 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = init_lm_head(generator, cfg.d_model,
                                          cfg.padded_vocab, dt, dev)
-    params["layer_stacks"] = [_init_layers(cfg, kind, n, generator, dt, dev)
+    params["layer_stacks"] = [_init_layers(cfg, kind, (n,), generator, dt,
+                                           dev)
                               for kind, n in layer_groups(cfg)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_layers(cfg, "dense", (), generator, dt,
+                                             dev)
+        if cfg.hybrid.concat_embed:
+            params["shared_in"] = _dense_init(
+                generator, (2 * cfg.d_model, cfg.d_model), dtype=dt,
+                device=dev)
     return params
 
 
 def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
                  meta: dict, impl: str, gw=None, capspec=None):
-    """One dense or MoE layer.  Returns (x, aux, captures): aux is the MoE
-    layer's summed aux losses (f32 scalar), None for a dense layer.  gw:
+    """One decoder layer.  Returns (x, aux, captures): aux is the MoE
+    layer's summed aux losses (f32 scalar), None for other kinds.  gw:
     this layer's gateway ancestor KV ({"attn": {k, v}}) or None; capspec:
-    cut name → {path_idx} positions whose post-rope K/V to capture."""
+    cut name → {path_idx} positions whose post-rope K/V to capture.  The
+    SSM kinds take neither (their gateways are ROADMAP.md Queue A item
+    4b; ``partition_forward`` refuses those families)."""
     eps = cfg.norm_eps
+    if kind in ("rwkv6", "mamba2", "gdn"):
+        h = rmsnorm(p["ln1"], x, eps)
+        ssm_kw = dict(chunk_parent=meta["chunk_parent"], valid=meta["valid"])
+        if kind == "rwkv6":
+            x = x + rwkv6_timemix(p["tm"], cfg.ssm, h,
+                                  prev_idx=meta["prev_idx"], **ssm_kw)
+            return x + rwkv6_channelmix(p["cm"], rmsnorm(p["ln2"], x, eps),
+                                        meta["prev_idx"]), None, {}
+        layer = mamba2 if kind == "mamba2" else gdn
+        x = x + layer(p["ssm"], cfg.ssm, h, prev_pows=meta["prev_pows"],
+                      **ssm_kw)
+        if kind == "gdn":
+            x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
+                        cfg.mlp_activation)
+        return x, None, {}
     caps: dict = {}
     cap_idx = None if capspec is None else \
         {n: s["path_idx"] for n, s in capspec.items()}
@@ -155,7 +210,12 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
     group; ``batch["anc_pos"]``/``["anc_valid"]`` give the ancestors'
     positions and validity.  Returns (hidden, aux, captures): aux the
     summed MoE aux losses, the captures stacked per group like ``gw_in``.
+    SSM and hybrid partitions are ROADMAP.md Queue A item 4b.
     """
+    if cfg.ssm is not None:
+        raise NotImplementedError(
+            f"partitioned {cfg.family!r} forwards (SSM gateway contexts) are "
+            f"not ported yet; see ROADMAP.md Queue A item 4b")
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "anc_pos",
                                   "anc_valid") if k in batch}
     x = embed(params["embed"], batch["tokens"])
@@ -180,20 +240,45 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden [B, S, D] post-final-norm, aux_loss): the f32 sum of
-    the MoE layers' aux losses (zero without MoE layers)."""
+    the MoE layers' aux losses (zero without MoE layers).  SSM and hybrid
+    batches also carry ``chunk_parent`` (host) and ``prev_pows``."""
     if cfg.remat != "none":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet; see ROADMAP.md Queue A "
             f"item 7")
-    meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid")}
+    meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
+                                  "chunk_parent", "prev_pows") if k in batch}
     x = embed(params["embed"], batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for stacked, (kind, n) in zip(params["layer_stacks"], layer_groups(cfg)):
-        for lp in _unstack(stacked, n):
-            x, a, _ = _apply_layer(cfg, lp, kind, x, meta, impl)
-            if a is not None:
-                aux = aux + a
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(cfg, params, x, meta, impl)
+    else:
+        for stacked, (kind, n) in zip(params["layer_stacks"],
+                                      layer_groups(cfg)):
+            for lp in _unstack(stacked, n):
+                x, a, _ = _apply_layer(cfg, lp, kind, x, meta, impl)
+                if a is not None:
+                    aux = aux + a
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def _hybrid_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                    meta: dict, impl: str) -> torch.Tensor:
+    """Zamba2: stages of ``attn_every`` Mamba2 layers, each followed by the
+    shared attention block (the same weights every time) on
+    [x ; embed0] @ shared_in; the block's delta joins the residual."""
+    emb0 = x
+    n = cfg.n_layers
+    layers = _unstack(params["layer_stacks"][0], n)
+    for i in range(0, n, cfg.hybrid.attn_every):
+        for lp in layers[i:i + cfg.hybrid.attn_every]:
+            x, _, _ = _apply_layer(cfg, lp, "mamba2", x, meta, impl)
+        h_in = (torch.cat([x, emb0], dim=-1) @ params["shared_in"]
+                if cfg.hybrid.concat_embed else x)
+        h_out, _, _ = _apply_layer(cfg, params["shared_attn"], "dense", h_in,
+                                   meta, impl)
+        x = x + (h_out - h_in)
+    return x
 
 
 def _token_nll(params: dict, hidden: torch.Tensor, pos: torch.Tensor,

@@ -1,11 +1,19 @@
-"""Serving internals: the per-layer KV cache, the one-token decode step,
+"""Serving internals: the per-layer caches, the one-token decode step,
 and ``rollouts_to_tree``.
 
-Port of the dense and MoE slices of ``repro/serve/decode.py`` (its
-deprecated free functions are left out).  The cache keeps the reference's
-layout — per layer group ``g{i}``: k/v [L, B, T, Kh, hd] and pos [L, B, T]
-(−1 = empty slot) — but the port writes it **in place**: ``_decode_step``
-updates the cache it is given.  ``serve/session.py`` owns when that is safe.
+Port of ``repro/serve/decode.py`` for the dense, MoE, SSM and hybrid
+families (its deprecated free functions are left out).  The cache keeps
+the reference's layout, per layer group ``g{i}``:
+
+  attention : k/v [L, B, T, Kh, hd] and pos [L, B, T] (−1 = empty slot);
+  mamba2    : h [L, B, H, d_state, hd] fp32 and the conv tail [L, B, K−1, ·];
+  gdn       : S [L, B, H, hd, hd] fp32 and the conv tail;
+  rwkv6     : S [L, B, H, hd, hd] fp32 and the token-shift tails x_tm, x_cm;
+  hybrid    : the mamba2 stack plus ``shared``, one KV ring per application
+              of the shared attention block [n_apps, B, T, Kh, hd].
+
+The port writes the cache **in place**: ``_decode_step`` updates the cache
+it is given.  ``serve/session.py`` owns when that is safe.
 """
 from __future__ import annotations
 
@@ -18,6 +26,11 @@ from repro_torch.data.synthetic import group_normalized_advantages
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.layers import embed, logits_from_hidden, mlp, rmsnorm
 from repro_torch.models.moe import moe
+from repro_torch.models.ssm.gdn import gdn_decode, init_gdn_cache
+from repro_torch.models.ssm.mamba2 import init_mamba2_cache, mamba2_decode
+from repro_torch.models.ssm.rwkv6 import (init_rwkv6_cache,
+                                          rwkv6_channelmix_decode,
+                                          rwkv6_timemix_decode)
 from repro_torch.models.transformer import _dtype, _unstack, layer_groups
 
 
@@ -32,21 +45,48 @@ def _attn_cache(L: int, B: int, T: int, cfg: ModelConfig, dt, device) -> dict:
     }
 
 
+def _ssm_cache(L: int, B: int, cfg: ModelConfig, dt, device) -> dict:
+    init = {"rwkv6": init_rwkv6_cache, "gdn": init_gdn_cache}.get(
+        cfg.ssm.kind, init_mamba2_cache)
+    return init(B, cfg.ssm, cfg.d_model, dt, device, lead=(L,))
+
+
 def _init_cache(cfg: ModelConfig, batch: int, buf_len: int, device) -> dict:
     """buf_len: KV slots (= max context, or the window for sliding)."""
-    if cfg.attn.window is not None:
+    dt = _dtype(cfg)
+    if cfg.attn is not None and cfg.attn.window is not None:
         buf_len = min(buf_len, cfg.attn.window)
-    return {f"g{gi}": _attn_cache(n, batch, buf_len, cfg, _dtype(cfg), device)
-            for gi, (_, n) in enumerate(layer_groups(cfg))}
+    cache = {f"g{gi}": (_attn_cache(n, batch, buf_len, cfg, dt, device)
+                        if kind in ("dense", "moe")
+                        else _ssm_cache(n, batch, cfg, dt, device))
+             for gi, (kind, n) in enumerate(layer_groups(cfg))}
+    if cfg.family == "hybrid":
+        n_apps = -(-cfg.n_layers // cfg.hybrid.attn_every)
+        cache["shared"] = _attn_cache(n_apps, batch, buf_len, cfg, dt, device)
+    return cache
 
 
 def _decode_layer(cfg: ModelConfig, p: dict, kind: str, x, cache_l, pos,
                   widx):
-    """One layer of a decode step.  An MoE layer routes the step's B tokens
-    as one batch with every token valid, as the reference does: its
-    capacity is max(1, round(B·K/E·cf)), so C = 1 at 8 branches of 128
-    experts top-8, and slots past an expert's first token are dropped."""
+    """One layer of a decode step, updating ``cache_l`` in place.  An MoE
+    layer routes the step's B tokens as one batch with every token valid,
+    as the reference does: its capacity is max(1, round(B·K/E·cf)), so C =
+    1 at 8 branches of 128 experts top-8, and slots past an expert's first
+    token are dropped."""
     eps = cfg.norm_eps
+    if kind == "rwkv6":
+        x = x + rwkv6_timemix_decode(p["tm"], cfg.ssm,
+                                     rmsnorm(p["ln1"], x, eps), cache_l)
+        return x + rwkv6_channelmix_decode(p["cm"], rmsnorm(p["ln2"], x, eps),
+                                           cache_l)
+    if kind == "mamba2":
+        return x + mamba2_decode(p["ssm"], cfg.ssm, rmsnorm(p["ln1"], x, eps),
+                                 cache_l)
+    if kind == "gdn":
+        x = x + gdn_decode(p["ssm"], cfg.ssm, rmsnorm(p["ln1"], x, eps),
+                           cache_l)
+        return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
+                       cfg.mlp_activation)
     x = x + decode_attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
                              cache_l, pos, widx)
     h = rmsnorm(p["ln2"], x, eps)
@@ -60,19 +100,44 @@ def _decode_layer(cfg: ModelConfig, p: dict, kind: str, x, cache_l, pos,
 
 
 def _decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                 tokens: torch.Tensor, pos: torch.Tensor, write_idx: int
-                 ) -> torch.Tensor:
-    """tokens: [B, 1]; pos: [B] absolute positions; write_idx: ring slot.
-    Writes the new token's K/V into ``cache`` in place and returns logits
-    [B, padded_vocab] (fp32)."""
+                 tokens: torch.Tensor, pos: torch.Tensor,
+                 write_idx: torch.Tensor) -> torch.Tensor:
+    """tokens: [B, 1]; pos: [B] absolute positions; write_idx: the ring
+    slot, a [1] int64 tensor on the device.  Writes the new token's K/V
+    and states into ``cache`` in place and returns logits [B,
+    padded_vocab] (fp32).  Only tensors reach the device, so the step can
+    be captured in a CUDA graph and replayed (``serve/session.py``)."""
     x = embed(params["embed"], tokens)
-    for gi, ((kind, n), stacked) in enumerate(
-            zip(layer_groups(cfg), params["layer_stacks"])):
-        grp = cache[f"g{gi}"]
-        for lp, cache_l in zip(_unstack(stacked, n), _unstack(grp, n)):
-            x = _decode_layer(cfg, lp, kind, x, cache_l, pos, write_idx)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(cfg, params, cache, x, pos, write_idx)
+    else:
+        for gi, ((kind, n), stacked) in enumerate(
+                zip(layer_groups(cfg), params["layer_stacks"])):
+            grp = cache[f"g{gi}"]
+            for lp, cache_l in zip(_unstack(stacked, n), _unstack(grp, n)):
+                x = _decode_layer(cfg, lp, kind, x, cache_l, pos, write_idx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params["embed"], params.get("lm_head"), x)[:, 0]
+
+
+def _hybrid_decode(cfg: ModelConfig, params: dict, cache: dict, x, pos,
+                   write_idx: torch.Tensor):
+    """Zamba2's decode: the Mamba2 stages, and after each the shared block
+    on [x ; embed0] @ shared_in with that application's own KV ring."""
+    emb0 = x
+    n, k = cfg.n_layers, cfg.hybrid.attn_every
+    layers = _unstack(params["layer_stacks"][0], n)
+    states = _unstack(cache["g0"], n)
+    rings = _unstack(cache["shared"], cache["shared"]["pos"].shape[0])
+    for si, i in enumerate(range(0, n, k)):
+        for lp, cl in zip(layers[i:i + k], states[i:i + k]):
+            x = _decode_layer(cfg, lp, "mamba2", x, cl, pos, write_idx)
+        h_in = (torch.cat([x, emb0], dim=-1) @ params["shared_in"]
+                if cfg.hybrid.concat_embed else x)
+        h_out = _decode_layer(cfg, params["shared_attn"], "dense", h_in,
+                              rings[si], pos, write_idx)
+        x = x + (h_out - h_in)
+    return x
 
 
 def rollouts_to_tree(sequences, rewards, *, prompt_len: int = 0,

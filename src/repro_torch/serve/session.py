@@ -1,7 +1,8 @@
 """DecodeSession — the serving API: prefill / fork / step / snapshot.
 
-Port of ``repro/serve/session.py`` for the dense and MoE families.  One
-session owns a KV cache for ``batch`` lockstep branches:
+Port of ``repro/serve/session.py`` for the dense, MoE, SSM and hybrid
+families.  One session owns a decode cache for ``batch`` lockstep
+branches:
 
   ``create``    allocate the cache on the session's device (CUDA unless
                 the caller passes ``device="cpu"``).
@@ -12,11 +13,18 @@ session owns a KV cache for ``batch`` lockstep branches:
                 the cache.  On a session that already holds context (a
                 fork, or a second prefill) the cached slots ride in as
                 gateway ancestors — the tree-attention kernel's ``q_off``
-                shape.  Sliding-window configs fall back to the step loop.
+                shape.  Sliding-window configs and the SSM and hybrid
+                families prefill through the step loop, as the reference's
+                do (still one computation of the prefix per session).
   ``fork``      split a 1-branch session into K branches that share the
-                prefilled prefix: the cache rows are copied, the prefix is
-                not recomputed (the paper's shared-prefix KV reuse).
-  ``step``      one decode token per branch.
+                prefilled prefix: the cache rows (KV and recurrent states)
+                are copied, the prefix is not recomputed (the paper's
+                shared-prefix KV reuse).
+  ``step``      one decode token per branch.  On the card a session
+                captures its step in a CUDA graph at its first step and
+                replays it afterwards: an eager step is thousands of
+                launches, whose host work bounds decode (and the SSM and
+                hybrid families' step-loop prefill).
   ``snapshot``  capture the current state as an independent session.
 
 The port writes caches in place where JAX made new arrays, so
@@ -31,12 +39,14 @@ computed once per rollout group.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, map_tree, resolve_device
+from repro_torch.device import (DeviceLike, map_tree, resolve_device,
+                                tree_leaves)
 from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import layer_groups, partition_forward
 from repro_torch.serve.decode import _decode_step, _init_cache
@@ -58,6 +68,13 @@ class DecodeSession:
     batch: int
     t: int = 0                        # next absolute position
     stats: SessionStats = field(default_factory=SessionStats)
+    # the captured step (graph, static inputs, static logits) of a session
+    # on the card; a fork or snapshot captures its own
+    _graph: Optional[tuple] = field(default=None, init=False, repr=False,
+                                    compare=False)
+    # False: every session steps eagerly, so Python hooked into the layers
+    # (a trace, a routing log) sees each step; a replayed graph runs none
+    graph_steps: ClassVar[bool] = True
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -73,12 +90,16 @@ class DecodeSession:
 
     @property
     def device(self) -> torch.device:
-        return self.cache["g0"]["pos"].device
+        return tree_leaves(self.cache)[0].device
 
     @property
-    def _ring(self) -> int:
-        """KV ring-buffer length."""
-        return self.cache["g0"]["pos"].shape[2]
+    def _ring(self) -> Optional[int]:
+        """KV ring-buffer length (None for a pure-SSM cache, which has
+        none; the hybrid's rings are its ``shared`` group)."""
+        for grp in self.cache.values():
+            if "pos" in grp:
+                return grp["pos"].shape[2]
+        return None
 
     # -- prefill -----------------------------------------------------------
     def _can_parallel_prefill(self, P: int) -> bool:
@@ -172,12 +193,45 @@ class DecodeSession:
 
     # -- decode ------------------------------------------------------------
     def _advance(self, tokens: torch.Tensor) -> torch.Tensor:
-        pos = torch.full((self.batch,), self.t, dtype=torch.int32,
-                         device=self.device)
-        logits = _decode_step(self.cfg, self.params, self.cache,
-                              tokens.reshape(self.batch, 1), pos,
-                              self.t % self._ring)
+        dev = self.device
+        ring = self._ring
+        pos = torch.full((self.batch,), self.t, dtype=torch.int32, device=dev)
+        widx = torch.full((1,), self.t % ring if ring else 0,
+                          dtype=torch.long, device=dev)
+        tokens = tokens.reshape(self.batch, 1)
+        if dev.type == "cuda" and DecodeSession.graph_steps:
+            logits = self._graph_step(tokens, pos, widx)
+        else:
+            logits = _decode_step(self.cfg, self.params, self.cache, tokens,
+                                  pos, widx)
         self.t += 1
+        return logits
+
+    def _graph_step(self, tokens, pos, widx) -> torch.Tensor:
+        """One step through the session's CUDA graph.  The first step runs
+        eagerly on a side stream (the warm-up) and then captures the step
+        on that stream with static inputs; later steps copy their inputs
+        into those and replay.  The graph writes the session's cache in
+        place, as the eager step does, and reads the parameters where they
+        live, so both must keep their storage (fork and snapshot make new
+        caches and capture their own graphs)."""
+        if self._graph is not None:
+            graph, static, out = self._graph
+            for dst, src in zip(static, (tokens, pos, widx)):
+                dst.copy_(src)
+            graph.replay()
+            return out.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            logits = _decode_step(self.cfg, self.params, self.cache, tokens,
+                                  pos, widx)
+            static = tuple(t.clone() for t in (tokens, pos, widx))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = _decode_step(self.cfg, self.params, self.cache, *static)
+        torch.cuda.current_stream().wait_stream(side)
+        self._graph = (graph, static, out)
         return logits
 
     def step(self, tokens) -> torch.Tensor:

@@ -34,6 +34,7 @@ from repro_torch.core.gateway import (PartitionPlan, _cut_caps_view,
                                       device_capspecs, grad_slots, map2,
                                       partition_vjp, route_child_cot)
 from repro_torch.device import map_tree, to_device, tree_leaves
+from repro_torch.models.model import device_batch
 from repro_torch.models.transformer import loss_and_metrics, partition_loss
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import update
@@ -242,7 +243,7 @@ class TreeTrainEngine:
         n = max(plan.num_trees, 1)
         acc = grad_slots(params)
         if plan.packed is not None:
-            batch = to_device(plan.packed.inputs, dev)
+            batch = device_batch(plan.packed.inputs, dev)
             batch["num_trees"] = n
             acc, scal = _packed_exec_fn(self.cfg, self.impl)(
                 params, batch, acc, scal)

@@ -68,18 +68,8 @@ from repro_torch.core.plan_cost import (DEFAULT_WEIGHTS, CompileCacheSim,
                                         wave_signature_of)
 from repro_torch.core.tree import TrajectoryTree, serialize_tree
 from repro_torch.data.loader import LoaderConfig, StepBatch, tree_stream
-from repro_torch.models.model import batch_arrays
+from repro_torch.models.model import batch_arrays, chunk_size_of
 from repro_torch.train.engine import ExecutionPlan, PackedExec
-
-
-def _chunk(cfg: ModelConfig) -> None:
-    """The chunk size the reference aligns SSM serializations to: SSM and
-    hybrid families are ROADMAP.md Queue A item 4, so always None here."""
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} needs chunk-aligned plans, which are not "
-            f"ported yet; see ROADMAP.md Queue A item 4")
-    return None
 
 
 @dataclass(frozen=True)
@@ -150,9 +140,11 @@ def _fit_split(trees: Sequence[TrajectoryTree], seq_len: int,
     keep: list[FitTree] = []
     over: list[OversizedTree] = []
     for t in trees:
-        ser = serialize_tree(t, loss_mode=loss_mode)
+        ser = serialize_tree(t, chunk_size=chunk, loss_mode=loss_mode)
         paths = t.linearize_paths()
         n_path = max(len(p["tokens"]) for p in paths)
+        if chunk:
+            n_path += -n_path % chunk
         if max(ser.n, n_path) <= seq_len:
             keep.append(FitTree(tree=t, ser=ser, paths=paths,
                                 n_unique=t.num_unique_tokens(), src=src))
@@ -199,7 +191,8 @@ def _graft_fits(fits: list[FitTree], lc: LoaderConfig, pc: PlannerConfig,
         placed: list = [srcs[j] for j in ps]
         for g2 in gs:
             gsrcs = [srcs[j] for j in g2.srcs]
-            ser = serialize_tree(g2.tree, lam_map=g2.lam_map)
+            ser = serialize_tree(g2.tree, chunk_size=chunk,
+                                 lam_map=g2.lam_map)
             parts = (len(partition_tree(g2.tree, cap, chunk_size=chunk,
                                         lam_map=g2.lam_map))
                      if ser.n > lc.seq_len else None)
@@ -359,6 +352,7 @@ def _permute_tb_rows(tb, order: Sequence[int]):
     return TreeBatch(tokens=tb.tokens[idx], pos_ids=tb.pos_ids[idx],
                      kv_last=tb.kv_last[idx], weight=tb.weight[idx],
                      prev_idx=tb.prev_idx[idx], valid=tb.valid[idx],
+                     chunk_parent=sl(tb.chunk_parent),
                      num_trees=tb.num_trees, row_trees=sl(tb.row_trees))
 
 
@@ -403,7 +397,7 @@ class PlannedStep:
         if self._sb is not None:
             return self._sb
         cfg, lc, pc = self.cfg, self.lc, self.pc
-        chunk = _chunk(cfg)
+        chunk = chunk_size_of(cfg)
         tb = None
         if self.baseline_tb is not None:
             # baseline rows get the same replica balance as tree rows
@@ -443,7 +437,7 @@ class PlannedStep:
         if self._plan is not None:
             return self._plan
         cfg, lc, pc = self.cfg, self.lc, self.pc
-        chunk = _chunk(cfg)
+        chunk = chunk_size_of(cfg)
         cap = self.capacity or lc.capacity or lc.seq_len
         sb = self.step_batch()
         packed = None
@@ -479,7 +473,7 @@ def plan_window(cfg: ModelConfig, lc: LoaderConfig, pc: PlannerConfig,
     """Schedule one lookahead window (``window[b]`` = generator batch b's
     trees) into ``len(window)`` PlannedSteps.  Pure host-side decisions —
     nothing is materialized yet."""
-    chunk = _chunk(cfg)
+    chunk = chunk_size_of(cfg)
     route = lc.auto_partition and lc.mode == "tree"
     cap = lc.capacity or lc.seq_len
     cache = cache if cache is not None else CompileCacheSim()

@@ -450,3 +450,170 @@ def test_cuda_engine_grads_bit_identical_over_two_runs(dev, waves):
     assert torch.equal(s1, s2) and bool(torch.isfinite(s1).all())
     for a, b in zip(tree_leaves(g1), tree_leaves(g2), strict=True):
         assert torch.equal(a, b)
+
+
+def _zamba2_rows(S: int = 1024):
+    """kv_last of agentic trees packed chunk-aligned (chunk 64, Zamba2's
+    grid) into 2 rows of S: chunk-padding tokens sit between real ones,
+    invisible as keys (kv_last −1) and seeing their own node as queries."""
+    trees = trees_for_batch(31, n_trees=8, kind="agentic",
+                            turn_len_range=(20, 90), num_turns=3)
+    sers, used = [], 0
+    for t in trees:
+        s = serialize_tree(t, chunk_size=64)
+        if used + s.n <= 2 * S * 3 // 4 and s.n <= S:
+            sers.append(s)
+            used += s.n
+    tb = pack_trees(sers, S, batch_size=2, chunk_size=64)
+    assert (~tb.valid[:, :used // 2]).any()      # pads inside the rows
+    return tb.kv_last
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_zamba2_layout_on_chunk_padded_rows(dev, dtype):
+    """Zamba2's shared attention block (H 32/Kh 32, hd 64) on chunk-padded
+    rows: the forward and both backward kernels against the plain versions
+    at the file's tolerances, invisible (pad) keys' dk/dv exactly 0, two
+    backward launches bit-identical."""
+    dt = getattr(torch, dtype)
+    kl_np = _zamba2_rows()
+    rng = np.random.default_rng(41)
+    B, S = kl_np.shape
+    mk = lambda *s: torch.tensor(rng.normal(size=s), dtype=dt, device=dev)
+    q, k, v, do = mk(B, S, 32, 64), mk(B, S, 32, 64), mk(B, S, 32, 64), \
+        mk(B, S, 32, 64)
+    kl = torch.as_tensor(kl_np, dtype=torch.int32, device=dev)
+    sc = 64 ** -0.5
+    with torch.inference_mode():
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True)
+        ro, rl = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                        sc, return_lse=True)
+        got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc)
+        again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc)
+        want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                      o.float(), lse, do.float(), sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+    else:
+        err = (o.float() - ro).abs()
+        rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
+        assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
+    _hold_bwd(got, want, dt)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    dead = kl < 0
+    assert bool(dead.any())
+    assert not bool(got[1][dead].any()) and not bool(got[2][dead].any())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "zamba2_1p2b"])
+def test_cuda_ssm_grads_bit_identical_over_two_runs(dev, arch):
+    """An SSM arch at smoke width in bf16 on chunk-aligned rows:
+    ``TreeTrainEngine.accumulate`` twice gives bit-identical gradients on
+    every leaf (the tree state routing and the path gathers sum sibling
+    cotangents in a fixed order), with no host sync."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import LoaderConfig
+    from repro_torch.device import tree_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.train.engine import TreeTrainEngine
+    from repro_torch.train.planner import plans
+    cfg = get_config(arch, smoke=True).replace(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    lc = LoaderConfig(seq_len=1024, batch_rows=2, trees_per_batch=6,
+                      gen_kwargs=dict(turn_len_range=(8, 48), num_turns=4))
+    plan = next(p for p in (ps.execution_plan() for ps in plans(cfg, lc, 8))
+                if not p.is_empty)
+    engine = TreeTrainEngine(cfg)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs.append(engine.accumulate(params, plan))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    (g1, s1), (g2, s2) = runs
+    assert torch.equal(s1, s2) and bool(torch.isfinite(s1).all())
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "zamba2_1p2b",
+                                  "qwen3p5_gdn_2b"])
+def test_cuda_ssm_session_graph_replays_match_the_forward(dev, arch):
+    """An SSM or hybrid session on the card captures its step in a CUDA
+    graph and replays it: teacher-forced at f32, its logits after each
+    token equal the packed forward's within atol = rtol = 5e-4
+    (tests/test_serve.py), and a fork's branches (their own graph) equal
+    the unforked session's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import TrajectoryTree, TreeNode
+    from repro_torch.models.layers import logits_from_hidden
+    from repro_torch.models.model import forward, init_params, prepare_batch
+    from repro_torch.serve.session import DecodeSession
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, 40)
+    cs = cfg.ssm.chunk_size
+    S = 40 + (-40 % cs)
+    tb = pack_trees([serialize_tree(TrajectoryTree(TreeNode(tokens=toks)),
+                                    chunk_size=cs)], S, chunk_size=cs)
+    with torch.inference_mode():
+        hidden, _ = forward(cfg, params, prepare_batch(cfg, tb, device=dev))
+        want = logits_from_hidden(params["embed"], params.get("lm_head"),
+                                  hidden[0, :40])
+        sess = DecodeSession.create(cfg, params, buf_len=S, device=dev)
+        got = [sess.step([int(t)])[0] for t in toks[:30]]
+        br = sess.fork(2)
+        for t in toks[30:]:
+            lg = br.step([int(t), int(t)])
+            assert torch.equal(lg[0], lg[1])
+            got.append(lg[0])
+    assert sess._graph is not None and br._graph is not None
+    torch.testing.assert_close(torch.stack(got), want, atol=5e-4, rtol=5e-4)
+
+
+def _session_logits(cfg, params, dev, prompt, steps):
+    """prefill(prompt) → fork(2) → one step per row of ``steps`` (both
+    branches fed the same token): the logits of every call, branch 0."""
+    from repro_torch.serve.session import DecodeSession
+    sess = DecodeSession.create(cfg, params, buf_len=64, device=dev)
+    out = [sess.prefill(prompt)[0]]
+    br = sess.fork(2)
+    for t in steps:
+        lg = br.step([int(t), int(t)])
+        assert torch.equal(lg[0], lg[1])
+        out.append(lg[0])
+    return torch.stack(out), br
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1p5b", "qwen3_30b_a3b",
+                                  "rwkv6_1p6b", "zamba2_1p2b",
+                                  "qwen3p5_gdn_2b"])
+def test_cuda_session_graph_replays_match_eager_steps(dev, arch):
+    """Every family's session on the card replays its step from a CUDA
+    graph (``DecodeSession.graph_steps``): at f32, a prefill, a fork(2)
+    and 20 steps give the logits of the same session stepping eagerly
+    (graphs off) within atol = rtol = 1e-5 (the two run the same kernels;
+    only the capture's cuBLAS workspace may differ)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.session import DecodeSession
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(4)
+    prompt, steps = (rng.integers(0, cfg.vocab_size, 12),
+                     rng.integers(0, cfg.vocab_size, 20))
+    with torch.inference_mode():
+        graphed, br = _session_logits(cfg, params, dev, prompt, steps)
+        assert br._graph is not None
+        DecodeSession.graph_steps = False
+        try:
+            eager, br = _session_logits(cfg, params, dev, prompt, steps)
+        finally:
+            DecodeSession.graph_steps = True
+        assert br._graph is None
+    torch.testing.assert_close(graphed, eager, atol=1e-5, rtol=1e-5)

@@ -124,9 +124,13 @@ def test_pack_linear_paths_matches_jax(kind, mode):
 
 
 def test_packers_refuse_ssm_chunks():
+    """Chunk-aligned packing takes chunk-aligned serializations only."""
     _, tt = _trees("random")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(ValueError, match="chunk-aligned"):
         tpack.pack_trees([serialize_tree(t) for t in tt], 1024, chunk_size=8)
+    tb = tpack.pack_trees([serialize_tree(t, chunk_size=8) for t in tt],
+                          1024, chunk_size=8)
+    assert tb.chunk_parent.shape == (tb.tokens.shape[0], 1024 // 8)
 
 
 def test_qwen1p5_config_copy_matches_jax():

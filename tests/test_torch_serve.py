@@ -133,4 +133,34 @@ def test_config_copy_and_param_layout_match_jax():
     assert cfg.param_count() == jax_get_config("qwen2_1p5b",
                                                smoke=True).param_count()
     with pytest.raises(KeyError, match="not ported"):
-        get_config("rwkv6_1p6b")
+        get_config("phi3_vision_4p2b")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "zamba2_1p2b",
+                                  "qwen3p5_gdn_2b"])
+def test_ssm_config_copies_match_jax(arch):
+    """The three SSM/hybrid config modules, ``config()`` and ``smoke()``
+    field by field, the SSMCfg methods' results, and the parameter count
+    and layout of the smoke model."""
+    for smoke in (False, True):
+        cfg, jcfg = get_config(arch, smoke=smoke), jax_get_config(
+            arch, smoke=smoke)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert cfg.param_count() == jcfg.param_count()
+        for d in (cfg.d_model, 64, 2048):
+            assert cfg.ssm.d_inner(d) == jcfg.ssm.d_inner(d)
+            assert cfg.ssm.n_heads(d) == jcfg.ssm.n_heads(d)
+    tp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jp = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(0)))
+    assert jax.tree.structure(params_to_numpy(tp)) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(params_to_numpy(tp)),
+                    jax.tree.leaves(jp)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_registry_order_matches_jax():
+    """ARCH_IDS lists the ported archs in the reference's order."""
+    from repro.configs import ARCH_IDS as JAX_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert ARCH_IDS == [a for a in JAX_IDS if a in ARCH_IDS]
+    assert {"rwkv6_1p6b", "zamba2_1p2b", "qwen3p5_gdn_2b"} <= set(ARCH_IDS)
