@@ -164,18 +164,35 @@ each at full width and depth, once the other archs' tensors are freed:
                   peak memory, one host sync (audited), launches (7 of each
                   kernel a Zamba2 step, none for the pure SSMs), a
                   profiled step.
- 27. <arch> determinism, <arch> train parity — phase 7's check; 4 layers
-                  f32: (a) kernel vs plain (Zamba2), (b) tree vs per-branch
-                  baseline (tree state routing), loss 1e-5, grads max-rel
-                  1e-4.
- 28. timing H 32/Kh 32 hd 64 — phase 11's timing at the prefill and at
+ 27. <arch> determinism — phase 7's check on a packed plan and on the
+                  first plan of phase 28's stream (partition waves).
+ 28. <arch> waves — phase 8 at full depth on SSM_WAVE_BATCHES generator
+                  batches: chunk-aligned partitions and waves (auto
+                  capacity, a multiple of the chunk), the chunk-padding
+                  share per step, no profiled step; launches 0 for RWKV6
+                  and GDN, for Zamba2 each kernel per application of the
+                  shared block: forward 2 a wave (sweep and remat), dq
+                  and dk/dv 1; at least 2 steps, 2 waves in some step.
+ 29. <arch> wave parity — phase 10, chunk-aligned, (b) at full depth;
+                  (b)'s gradient bar is 5e-2, SSM_WAVE_L2 for Zamba2
+                  (1e-1); two broken partitioned runs are reported, and
+                  where the bar is raised the one with its relayed
+                  conv/shift tails zeroed must miss it.
+ 30. <arch> train parity — 4 layers f32: (a) kernel vs plain (Zamba2),
+                  (b) tree vs per-branch baseline (tree state routing),
+                  loss 1e-5, grads max-rel 1e-4.
+ 31. timing H 32/Kh 32 hd 64 — phase 11's timing at the prefill and at
                   the chunk-padded train rows, with the attention share of
                   a Zamba2 step.
+ 32. zamba2 wave kernel, timing ZW — phase 11's W checks and timing at
+                  ZW, the Zamba2 waves phase's gateway wave with the
+                  largest A_max, H 32/Kh 32 hd 64, q_off = A_max.
 
 The line before the last names the card and its power limit; the one before
 it lists the kernels (each with its MoE-shape numbers under ``moe``, its
 W numbers under ``wave``, the five archs' layouts under ``archs``,
-Zamba2's layout under ``ssm`` and every instance its source built, with
+Zamba2's layout, the SSM wave steps' launches and ZW under ``ssm``, and
+every instance its source built, with
 registers, spills, HGMMA and UTMALDG, under ``instances``); the
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
@@ -225,6 +242,7 @@ from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.rollout import (RolloutConfig, rollout_group,  # noqa: E402
                                        sample_tokens)
 from repro_torch.serve.session import DecodeSession  # noqa: E402
+from repro_torch.train import engine as train_engine  # noqa: E402
 from repro_torch.train.engine import (ExecutionPlan, PackedExec,  # noqa: E402
                                       TreeTrainEngine)
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
@@ -283,6 +301,15 @@ PARITY_LAYERS = 4
 # attention block runs the three kernels at H 32/Kh 32, hd 64
 SSM_ARCHS = ("rwkv6_1p6b", "qwen3p5_gdn_2b", "zamba2_1p2b")
 HYBRID_ARCH, SSM_SFT_STEPS, SSM_PARITY_TOKENS = "zamba2_1p2b", 3, 256
+# each SSM arch also trains SSM_WAVE_BATCHES generator batches of the waves
+# phase's trees (6k-16k tokens) through chunk-aligned partition waves
+SSM_WAVE_BATCHES = 3
+# their wave parity (b)'s gradient bar, where it is not phase 10's 5e-2:
+# Zamba2's bf16 partitioned tree is 5.7e-2-6.6e-2 from its bf16 whole tree
+# (the reference's own bf16 waves drift as far: tests/test_torch_ssm_bf16.py),
+# while a planted gateway fault (zeroed tails) lands at 1.6e-1; where the
+# bar is raised, that fault must miss it
+SSM_WAVE_L2 = {"zamba2_1p2b": 1e-1}
 # control d of the SSM serve parity: each SSM mixer's step output x this
 SSM_CONTROL_SCALE = 1.02
 # the archs' head dims whose f32 (simple) kernels the arch phases hold at
@@ -1520,11 +1547,13 @@ def wave_kv_last(wp) -> np.ndarray:
     return np.concatenate([anc, np.where(kl >= 0, kl + A, -1)], 1)
 
 
-def phase_wave_kernel(waves) -> dict:
+def phase_wave_kernel(waves, heads=(12, 2), hd: int = 128,
+                      tag: str = "wave kernel", label: str = "W") -> dict:
     """The three kernels against their plain versions at the waves phase's
     gateway waves (the largest A_max, and the most padded ancestor slots):
     each wave's rows and real kv_last behind its front-padded ancestors,
-    q_off = A_max, H 12, Kh 2, hd 128, in f32 (the simple kernels) and
+    q_off = A_max, at ``heads`` = (H, Kh) and ``hd`` (H 12, Kh 2, hd 128:
+    Qwen2-1.5B), in f32 (the simple kernels) and
     bf16 (the Hopper kernels), through ``phase_kernel`` and
     ``phase_bwd_kernel``: o/lse and dq/dk/dv at their tolerances, the
     backward bit-identical over two launches, dk/dv exactly 0 on every key
@@ -1544,51 +1573,76 @@ def phase_wave_kernel(waves) -> dict:
         n_pad += int(pad.sum())
         tiles = [int(p.reshape(-1, 64).all(1).sum()) if A % 64 == 0 else 0
                  for p in pad]
-        log(f"wave kernel: a gateway wave of {B} rows of {Skv - A}, q_off = "
+        log(f"{tag}: a gateway wave of {B} rows of {Skv - A}, q_off = "
             f"A_max = {A}, Skv {Skv} ({Skv % 64} keys past the last whole "
             f"64-key tile); ancestors per row {list(wp.A_real[:B])}, "
             f"padded ancestor slots per row {pad.sum(1).tolist()}, whole "
             f"64-key tiles of kv_last -1 per row {tiles}")
         for dt in (torch.float32, torch.bfloat16):
-            add(f"W: gateway wave q_off = A_max = {A}, B={B}, Skv={Skv} "
-                f"{dt}", dt, B, Skv - A, 12, 2, 128, kl, q_off=A)
-    check(n_pad > 0, "wave kernel: no gateway wave had padded ancestor "
-          "slots")
+            add(f"{label}: gateway wave q_off = A_max = {A}, B={B}, "
+                f"Skv={Skv}, H {heads[0]}/Kh {heads[1]} hd {hd} {dt}", dt, B,
+                Skv - A, *heads, hd, kl, q_off=A)
+    check(n_pad > 0, f"{tag}: no gateway wave had padded ancestor slots")
     fwd = phase_kernel(cases, with_prefill_attention=False)
     bwd = phase_bwd_kernel(cases)
     return {"fwd": fwd, "dq": bwd["dq"], "dkv": bwd["dkv"]}
 
 
-def phase_waves(cfg, params):
-    """Qwen2-1.5B trained through ``plans`` on trees larger than a row:
+def wave_pads(plan) -> tuple[int, int]:
+    """(chunk-padding tokens in a plan's rows, packed and wave rows alike:
+    invalid tokens before each row's last real token; the rows' cells)."""
+    rows = [] if plan.packed is None else \
+        [np.asarray(plan.packed.inputs["valid"])]
+    if plan.has_waves:
+        rows += [w.batch["valid"] for w in plan.partition.waves]
+    pads = cells = 0
+    for v in rows:
+        cells += v.size
+        for row in v:
+            real = np.nonzero(row)[0]
+            if real.size:
+                pads += int((~row[:real[-1] + 1]).sum())
+    return pads, cells
+
+
+def phase_waves(cfg, params, tag: str = "waves",
+                batches: int = WAVE_BATCHES, profile: bool = True):
+    """``cfg`` (Qwen2-1.5B; an SSM arch at full depth) trained through
+    ``plans`` on trees larger than a row:
     auto partition, auto capacity, lookahead 2, grafting on, the plans
     built on a background thread and copied to the card by the engine.
-    Per step: waves, rows per wave, A_max, step time, unique tokens/s,
-    peak memory, launches, host syncs (one; step 1 audited in 'warn' mode,
+    Per step: waves, rows per wave, A_max, the chunk-padding share (an SSM
+    arch), step time, unique tokens/s,
+    peak memory, launches (per application of the attention in a forward,
+    one a layer or one a use of the hybrid's shared block: forward 2 a
+    wave, sweep and remat), host syncs (one; step 1 audited in 'warn' mode,
     step 2 in 'error' mode), trees packed, partitioned and dropped (0).
     Token conservation over the stream.  Returns (params, the gateway
     wave with the largest A_max (of those, the most padded ancestor
     slots), the kernel launches of its step, the step's wave count, the
-    gateway wave with the most padded ancestor slots)."""
+    gateway wave with the most padded ancestor slots, the launches of
+    every step, the median step s)."""
     lc, pc = wave_config(cfg)
-    generated = [t for b in tree_stream(cfg, lc, WAVE_BATCHES) for t in b]
+    generated = [t for b in tree_stream(cfg, lc, batches) for t in b]
     g_tokens = sum(t.num_unique_tokens() for t in generated)
     big = sum(t.num_unique_tokens() > TRAIN_SEQ for t in generated)
     in_range = sum(6000 <= t.num_unique_tokens() <= 16000 for t in generated)
-    log(f"waves: {len(generated)} agentic trees ({WAVE_GEN}), {g_tokens} "
+    log(f"{tag}: {len(generated)} agentic trees ({WAVE_GEN}), {g_tokens} "
         f"unique tokens; {big} larger than a row of {TRAIN_SEQ}, {in_range} "
         f"with 6k-16k unique tokens; sizes "
         f"{sorted(t.num_unique_tokens() for t in generated)}")
-    check(2 * big >= len(generated), "waves: fewer than half the trees "
+    check(2 * big >= len(generated), f"{tag}: fewer than half the trees "
           "exceed a row")
     opt_state = init_opt_state(params)
     engine = TreeTrainEngine(cfg, OptimizerConfig(
-        lr=3e-4, warmup_steps=2, total_steps=WAVE_BATCHES))
-    L = cfg.n_layers
+        lr=3e-4, warmup_steps=2, total_steps=batches))
+    L = cfg.n_layers if cfg.ssm is None else shared_apps(cfg)
+    chunked = chunk_size_of(cfg) is not None
     reset_launches()
-    pipe = plans(cfg, lc, WAVE_BATCHES, pc)
+    pipe = plans(cfg, lc, batches, pc)
     tokens = trees = oversized = dropped = grafted = max_w = 0
-    times, per_tok, hidden = [], [], []
+    times, per_tok, hidden, deltas = [], [], [], []
+    pads_all = cells_all = 0
     best, padded = ((0, 0), None, None, 0), ((0, 0), None)
     for i, ps in enumerate(pipe):
         plan = ps.execution_plan()
@@ -1616,27 +1670,32 @@ def phase_waves(cfg, params):
         want = {"tree_attention_fwd": L * (P + 2 * W),
                 "tree_attention_bwd_dq": L * (P + W),
                 "tree_attention_bwd_dkv": L * (P + W)}
+        deltas.append(delta)
         tokens += plan.unique_tokens
         trees += plan.num_trees
         oversized += plan.num_oversized
         if i:
             times.append(dt)
         per_tok.append(plan.unique_tokens / dt)
-        A = max((w.anc_A_max for w in waves), default=0)
-        log(f"waves step {i}: capacity {ps.capacity}, {plan.num_trees} trees "
+        pads, cells = wave_pads(plan)
+        pads_all, cells_all = pads_all + pads, cells_all + cells
+        pad_txt = f", chunk padding {share(pads, cells)} of the cells" \
+            if chunked else ""
+        log(f"{tag} step {i}: capacity {ps.capacity}, {plan.num_trees} trees "
             f"({plan.num_trees - plan.num_oversized} packed, "
             f"{plan.num_oversized} partitioned, {plan.dropped} dropped), "
             f"{plan.unique_tokens} unique tokens, {P} packed execution + {W} "
             f"waves, rows per wave {[w.num_rows for w in waves]}, A_max per "
-            f"wave {[w.anc_A_max for w in waves]}; loss {m['loss']:.4f} "
+            f"wave {[w.anc_A_max for w in waves]}{pad_txt}; loss "
+            f"{m['loss']:.4f} "
             f"nll/tok {m['nll']:.4f} grad_norm {m['grad_norm']:.3f}; "
             f"{dt:.3f} s ({plan.unique_tokens / dt:.0f} unique tokens/s), "
             f"peak {peak_gb():.2f} GB; launches {delta}; host syncs "
             f"{engine.host_syncs}")
         check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
-              f"waves step {i}: non-finite loss or grad norm")
-        check(delta == want, f"waves step {i}: launches {delta}, want {want}")
-        check(engine.host_syncs == engine.steps_done, f"waves step {i}: "
+              f"{tag} step {i}: non-finite loss or grad norm")
+        check(delta == want, f"{tag} step {i}: launches {delta}, want {want}")
+        check(engine.host_syncs == engine.steps_done, f"{tag} step {i}: "
               f"{engine.host_syncs} host syncs in {engine.steps_done} steps")
         for wp in waves:
             if not wp.has_gw:
@@ -1646,35 +1705,42 @@ def phase_waves(cfg, params):
                 best = ((wp.anc_A_max, n_pad), wp, delta, W)
             if (n_pad, wp.anc_A_max) > padded[0]:
                 padded = ((n_pad, wp.anc_A_max), wp)
-    log(f"waves: step 1 under set_sync_debug_mode('warn'): {len(hidden)} "
+    log(f"{tag}: step 1 under set_sync_debug_mode('warn'): {len(hidden)} "
         f"other synchronizing calls"
         f"{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}; step 2 "
         f"under set_sync_debug_mode('error') outside _sync: passed")
     check(not hidden, "a wave step synchronized outside _sync")
-    log(f"waves: {engine.steps_done} steps, {trees} trees ({oversized} "
+    pad_txt = f"chunk padding {share(pads_all, cells_all)} of the cells; " \
+        if chunked else ""
+    log(f"{tag}: {engine.steps_done} steps, {trees} trees ({oversized} "
         f"partitioned, {grafted} grafted entries), {dropped} dropped; "
         f"{tokens} unique tokens trained of {g_tokens} generated; step "
         f"{statistics.median(times):.3f} s median after the first (all: "
         f"{', '.join(f'{t:.3f}' for t in times)}), "
-        f"{statistics.median(per_tok):.0f} unique tokens/s median; plan "
+        f"{statistics.median(per_tok):.0f} unique tokens/s median; "
+        f"{pad_txt}peak {peak_gb():.2f} GB over the phase; plan "
         f"build on 1 worker: {pipe.schedule_s * 1e3:.1f} ms scheduled + "
         f"{pipe.build_s * 1e3:.1f} ms built, {pipe.exposed_s * 1e3:.1f} ms "
         f"exposed to the engine; host syncs {engine.host_syncs}")
-    # one more step (not in the median) under torch.profiler: where the
-    # wave step's time goes, and what the gateways' K/V concatenation costs
-    params, opt_state, _ = profile_step(
-        lambda: engine.step(params, opt_state, plan), "wave_step_trace",
-        f"wave step ({W} waves)", ("gateway_kv_cat",))
-    check(dropped == 0, "waves: trees dropped")
-    check(tokens == g_tokens, f"waves: {tokens} unique tokens trained, "
+    if profile:
+        # one more step (not in the median) under torch.profiler: where the
+        # wave step's time goes, and what the gateways' K/V concatenation
+        # costs
+        params, opt_state, _ = profile_step(
+            lambda: engine.step(params, opt_state, plan), "wave_step_trace",
+            f"wave step ({W} waves)", ("gateway_kv_cat",))
+    check(dropped == 0, f"{tag}: trees dropped")
+    check(tokens == g_tokens, f"{tag}: {tokens} unique tokens trained, "
           f"{g_tokens} generated")
+    check(engine.steps_done >= 2, f"{tag}: {engine.steps_done} steps")
     check(best[1] is not None and best[0][0] >= WAVE_MIN_ANC,
-          f"waves: no gateway wave with A_max >= {WAVE_MIN_ANC} (largest "
+          f"{tag}: no gateway wave with A_max >= {WAVE_MIN_ANC} (largest "
           f"{best[0][0]})")
-    check(max_w >= 3, f"waves: at most {max_w} waves a step")
+    check(max_w >= 3, f"{tag}: at most {max_w} waves a step")
     del opt_state
     torch.cuda.empty_cache()
-    return params, best[1], best[2], best[3], padded[1]
+    return (params, best[1], best[2], best[3], padded[1], deltas,
+            statistics.median(times))
 
 
 def parity_tree(cfg):
@@ -1683,13 +1749,14 @@ def parity_tree(cfg):
     ancestors of ≥ PARITY_CAP tokens, and fits one row of PARITY_ROW."""
     lc, _ = wave_config(cfg)
     lc = dataclasses.replace(lc, seed=WAVE_SEED + 1, trees_per_batch=4)
+    cs = chunk_size_of(cfg)
     for batch in tree_stream(cfg, lc, 16):
         for t in batch:
             n = t.num_unique_tokens()
             if not PARITY_TOKENS[0] <= n <= PARITY_TOKENS[1] or \
-                    n > PARITY_ROW:
+                    serialize_tree(t, chunk_size=cs).n > PARITY_ROW:
                 continue
-            parts = partition_tree(t, PARITY_CAP)
+            parts = partition_tree(t, PARITY_CAP, chunk_size=cs)
             depth = {}
             for p in parts:
                 depth[p.pid] = 0 if p.parent_pid < 0 \
@@ -1700,27 +1767,71 @@ def parity_tree(cfg):
     raise Failed("no wave parity tree in the stream")
 
 
-def phase_wave_parity(cfg, params):
+class BrokenGateways:
+    """While active, the wave executor relays every child gateway with each
+    leaf ``name`` (``k``/``v``, ``state``, ``conv``, ``shift``) replaced by
+    ``fix(name, value)``: a deliberately broken gateway, a control of
+    ``phase_wave_parity``'s (b) for the SSM archs."""
+
+    def __init__(self, fix):
+        self.fix = fix
+
+    def __enter__(self):
+        real = self._real = train_engine.assemble_child_gw
+
+        def broken(*args, **kw):
+            return {g: {k: {n: self.fix(n, v) for n, v in leaves.items()}
+                        for k, leaves in cg.items()}
+                    for g, cg in real(*args, **kw).items()}
+
+        train_engine.assemble_child_gw = broken
+        return self
+
+    def __exit__(self, *exc):
+        train_engine.assemble_child_gw = self._real
+
+
+# (b)'s controls: the relayed conv and shift tails zeroed (must miss a
+# raised bar), the relayed SSM states rounded to bf16
+GATEWAY_CONTROLS = {
+    "zeroed tails": lambda n, v: torch.zeros_like(v)
+    if n in ("conv", "shift") else v,
+    "bf16 states": lambda n, v: map_tree(
+        lambda t: t.bfloat16().to(t.dtype), v) if n == "state" else v}
+
+
+def phase_wave_parity(cfg, params, tag: str = "wave parity",
+                      l2_bar: float = 5e-2, controls: bool = False):
     """One tree partitioned at PARITY_CAP (≥ 3 waves, ancestors ≥
     PARITY_CAP tokens) against the same tree whole in one row of
-    PARITY_ROW, through the kernels:
+    PARITY_ROW, through the kernels (chunk-aligned for an SSM arch):
     (a) 4 layers f32: loss 1e-5 relative, grads max-rel 1e-4; (b) all
-    layers bf16: loss 1e-2 relative, gradient relative L2 5e-2."""
+    layers bf16: loss 1e-2 relative, gradient relative L2 ``l2_bar``.
+
+    With ``controls`` (the SSM archs), the GATEWAY_CONTROLS' broken
+    partitioned runs follow (b) at the same weights, each held against
+    the bf16 whole tree and reported; where ``l2_bar`` is raised above
+    5e-2, the one with the relayed conv and shift tails zeroed must miss
+    it.  (At the trained RWKV6-1.6B's weights that fault moves (b) by
+    only 5e-3, so it cannot be required to miss 5e-2.)"""
     tree, parts = parity_tree(cfg)
-    ser = serialize_tree(tree)
+    cs = chunk_size_of(cfg)
+    ser = serialize_tree(tree, chunk_size=cs)
     results = []
     for label, c, p in (("a", cfg.replace(n_layers=4, dtype="float32"),
                          None), ("b", cfg, params)):
         if p is None:
             p = init_params(c, torch.Generator(DEV).manual_seed(0))
-        whole = prepare_batch(c, pack_trees([ser], PARITY_ROW), device=DEV)
+        whole = prepare_batch(c, pack_trees([ser], PARITY_ROW, chunk_size=cs),
+                              device=DEV)
         lw, _, gw = value_and_grad(c, p, whole, "kernel")
         lp, gp, info = packed_partitioned_value_and_grad(
             c, p, [tree], PARITY_CAP, seq_len=PARITY_CAP)
         e_loss = abs(lp - float(lw)) / abs(float(lw))
         e_g, leaf, l2, l2leaf = grads_rel(gp, gw)
-        log(f"wave parity ({label}): {c.n_layers} layers {c.dtype}, one tree "
-            f"of {ser.n} unique tokens ({tree.num_leaves()} leaves): "
+        log(f"{tag} ({label}): {c.n_layers} layers {c.dtype}, one tree "
+            f"of {tree.num_unique_tokens()} unique tokens ({ser.n} "
+            f"serialized, {tree.num_leaves()} leaves): "
             f"{info['num_partitions']} partitions in {info['num_waves']} waves "
             f"of rows of {PARITY_CAP} (max ancestors "
             f"{max(q.anc_len for q in parts)}) vs whole in one row of "
@@ -1728,14 +1839,34 @@ def phase_wave_parity(cfg, params):
             f"relative error {e_loss:.3e}; grads max-rel {e_g:.3e} at {leaf}, "
             f"relative L2 {l2:.3e} (worst leaf {l2leaf})")
         results.append((label, e_loss, e_g, l2, info["num_waves"]))
-        del gw, gp
+        del gp
+        if label == "b" and controls:
+            ctl = {}
+            for name, fix in GATEWAY_CONTROLS.items():
+                with BrokenGateways(fix):
+                    lc, gc, _ = packed_partitioned_value_and_grad(
+                        c, p, [tree], PARITY_CAP, seq_len=PARITY_CAP)
+                ctl[name] = (abs(lc - float(lw)) / abs(float(lw)),
+                             grads_rel(gc, gw)[2])
+                del gc
+            log(f"{tag} (b, controls): gradient bar {l2_bar:.3e} "
+                f"({l2 / l2_bar:.3f} of it used); broken partitioned runs "
+                f"against the bf16 whole tree: " + "; ".join(
+                    f"{n}: loss {e:.3e}, gradient relative L2 {g:.3e} "
+                    f"({g / l2_bar:.3f} of the bar)"
+                    for n, (e, g) in ctl.items()))
+        del gw
         if label == "a":
             del p
         torch.cuda.empty_cache()
     (_, la, ga, _, wa), (_, lb, _, l2b, _) = results
-    check(wa >= 3, "wave parity: fewer than 3 waves")
-    check(la <= 1e-5 and ga <= 1e-4, "wave parity (a)")
-    check(lb <= 1e-2 and l2b <= 5e-2, "wave parity (b)")
+    check(wa >= 3, f"{tag}: fewer than 3 waves")
+    check(la <= 1e-5 and ga <= 1e-4, f"{tag} (a)")
+    check(lb <= 1e-2 and l2b <= l2_bar, f"{tag} (b)")
+    if controls and l2_bar > 5e-2:
+        lz, gz = ctl["zeroed tails"]
+        check(not (lz <= 1e-2 and gz <= l2_bar),
+              f"{tag} (b): the zeroed-tails control passed the bar")
 
 
 # --------------------------------------------------------------------------
@@ -2891,11 +3022,14 @@ def run_ssm(timed) -> dict:
     """The SSM and hybrid archs (SSM_ARCHS): the three kernels at Zamba2's
     layout against their plain versions; each arch served, held step loop
     vs forward, trained (one host sync a step), checked for deterministic
-    grads and held tree vs baseline; the kernels timed at Zamba2's
-    prefill and train rows.  Returns the kernels' worst errors, each
-    arch's measured launches (serving, the train run, each train step)
-    and step time, and the timings."""
+    grads (a packed and a wave plan), trained on trees larger than a row
+    through partition waves, held partitioned vs whole and tree vs
+    baseline; the kernels held and timed at Zamba2's prefill, train rows
+    and largest gateway wave (ZW).  Returns the kernels' worst errors, each
+    arch's measured launches (serving, the train run, each train and wave
+    step) and step times, the ZW wave and the timings."""
     zcfg = get_config(HYBRID_ARCH)
+    zw: dict = {}
     plans_of = {}
     for arch in SSM_ARCHS:
         cfg = get_config(arch)
@@ -2918,13 +3052,22 @@ def run_ssm(timed) -> dict:
         params, counts, deltas, step_s = timed(
             f"{arch} train", phase_ssm_train, cfg, sft, rl, f"{arch} train")
         timed(f"{arch} determinism", phase_determinism, cfg, params,
-              [("packed", sft[0])], f"{arch} determinism")
+              [("packed", sft[0]), ("waves", first_wave_plan(cfg))],
+              f"{arch} determinism")
+        params, w_big, w_launches, w_n, w_pad, w_deltas, w_step = timed(
+            f"{arch} waves", phase_waves, cfg, params, f"{arch} waves",
+            SSM_WAVE_BATCHES, False)
+        timed(f"{arch} wave parity", phase_wave_parity, cfg, params,
+              f"{arch} wave parity", SSM_WAVE_L2.get(arch, 5e-2), True)
         del params
         torch.cuda.empty_cache()
         timed(f"{arch} train parity", phase_ssm_train_parity, cfg)
         torch.cuda.empty_cache()
         runs[arch] = dict(counts=counts, step_counts=deltas, step_s=step_s,
-                          serve_counts=serve_counts)
+                          serve_counts=serve_counts, wave_counts=w_deltas,
+                          wave_step_s=w_step)
+        if arch == HYBRID_ARCH:
+            zw = dict(wave=w_big, launches=w_launches, waves=w_n, pad=w_pad)
     a = zcfg.attn
     heads, hd, apps = (a.n_heads, a.n_kv_heads), a.head_dim, shared_apps(zcfg)
     lay = layout_tag(*heads, hd)
@@ -2934,8 +3077,15 @@ def run_ssm(timed) -> dict:
         f"timing {lay} train", phase_timing_train, kl_z,
         runs[HYBRID_ARCH]["step_s"], apps, heads,
         f"{lay} chunk-padded train rows", 0, hd))
+    # ZW: the Zamba2 waves phase's gateway wave with the largest A_max
+    zw["err"] = timed("zamba2 wave kernel", phase_wave_kernel,
+                      (zw["wave"], zw["pad"]), heads, hd,
+                      "zamba2 wave kernel", "ZW")
+    timing["wave"] = timed(
+        "timing ZW", phase_timing_train, wave_kv_last(zw["wave"]), None,
+        apps, heads, "ZW", zw["wave"].anc_A_max, hd)
     return dict(err=err, runs=runs, timing=timing, layout=lay,
-                apps=apps, train_shape=kl_z.shape)
+                apps=apps, train_shape=kl_z.shape, zw=zw)
 
 
 def main() -> int:
@@ -2988,7 +3138,7 @@ def main() -> int:
     params, counts, step_s = timed("train", phase_train, cfg, sft, rl)
     timed("determinism", phase_determinism, cfg, params,
           [("packed", sft[0]), ("waves", first_wave_plan(cfg))])
-    params, wave_w, wave_launches, wave_n, wave_pad = timed(
+    params, wave_w, wave_launches, wave_n, wave_pad, _, _ = timed(
         "waves", phase_waves, cfg, params)
     timed("train parity", phase_train_parity, cfg, params)
     timed("wave parity", phase_wave_parity, cfg, params)
@@ -3080,6 +3230,7 @@ def main() -> int:
             for lay, t in archs["timing"].items()}}
         e["archs"]["serve_layers"] = {a: archs["runs"][a][1] for a in ARCHS}
         zB, zS = ssm["train_shape"]
+        zw = ssm["zw"]
         e["ssm"] = dict(
             layout=f"{ssm['layout']} ({HYBRID_ARCH}: its shared attention "
                    f"block, {ssm['apps']} applications a forward)",
@@ -3097,7 +3248,19 @@ def main() -> int:
             train=dict(shape=f"the {HYBRID_ARCH} step's chunk-aligned rows: "
                              f"B {zB}, S {zS}, real kv_last with the chunk "
                              f"pads invisible, bf16",
-                       **ssm["timing"]["train"][key]))
+                       **ssm["timing"]["train"][key]),
+            launches_per_wave_step={
+                a: [d[name] for d in ssm["runs"][a]["wave_counts"]]
+                for a in SSM_ARCHS},
+            wave=dict(
+                shape=f"ZW: the {HYBRID_ARCH} waves phase's gateway wave "
+                      f"with the largest A_max, "
+                      f"{zw['wave'].batch['tokens'].shape[0]} rows of "
+                      f"{TRAIN_SEQ}, q_off = A_max = {zw['wave'].anc_A_max}, "
+                      f"H 32, Kh 32, bf16, hd 64",
+                launches_wave_step=zw["launches"][name],
+                waves_in_step=zw["waves"], max_abs_err=zw["err"][key],
+                **ssm["timing"]["wave"][key]))
         if key == "fwd":
             e["launches_serve"] = serve_launches
             e["moe"]["launches_serve"] = moe_serve_launches

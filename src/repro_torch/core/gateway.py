@@ -1,15 +1,19 @@
 """Differentiable partition boundaries — the runtime half of
 Redundancy-Free Tree Partitioning (paper §3.3 + App. B).
 
-Port of ``repro/core/gateway.py`` (:56-821) for the dense and MoE
-families; the SSM gateway contexts (``conv``/``shift`` tails, chunk state,
-``prev_pows``) are ROADMAP.md Queue A item 4b and raise.  A partition is a
-function ``(params, gw_in) → ((loss, captures), metrics)``
-(``models/transformer.partition_loss``): its gateway ``gw_in`` holds the
-ancestors' post-RoPE K/V, {"g{i}": {"attn": {"k", "v"}}} with leaves
-[L, B, A, Kh, hd]; its captures, {"g{i}": {"attn": {"c{j}": {"k", "v"}}}}
-with leaves [L, B, P, Kh, hd], are the K/V on the path root → cut j, which
-the child partition's gateway glues behind the parent's own ancestors.
+Port of ``repro/core/gateway.py`` (:56-821).  A partition is a function
+``(params, gw_in) → ((loss, captures), metrics)``
+(``models/transformer.partition_loss``).  Its gateway ``gw_in`` holds,
+per layer group, the ancestors' post-RoPE K/V {"g{i}": {"attn": {"k",
+"v"}}} with leaves [L, B, A, Kh, hd]; an SSM group's chunk state and
+conv or token-shift tail instead ({"ssm": {"state", "conv"}} for Mamba2
+and GDN, {"tm": {"state", "shift"}, "cm": {"shift"}} for RWKV6, tails
+[L, B, T, ·] with T ≤ max(1, conv taps)); and, for the hybrid, one
+{"shared{s}": {"attn": …}} per application of its shared block.  Its
+captures mirror the gateway per cut ("c{j}"): the K/V on the path
+root → cut j, the state after the cut's chunk and the inputs on the
+path's tail, which the child partition's gateway glues behind (or, for a
+state, in place of) the parent's own.
 Gradient Restoration runs the chain backwards: a child's gateway
 cotangent splits into the part for the parent's ancestors (passed on, in
 fp32) and the part for the parent's captures (seeded into the parent's
@@ -48,15 +52,16 @@ from repro_torch.core.partition import TreePartition, partition_tree
 from repro_torch.core.plan_cost import balanced_row_order, pow2
 from repro_torch.core.tree import TrajectoryTree
 from repro_torch.device import (DeviceLike, map_tree, resolve_device,
-                                to_device, tree_leaves, unflatten_like)
+                                tree_leaves, unflatten_like)
+from repro_torch.models.layers import prev_powers
+from repro_torch.models.model import (chunk_size_of, device_batch,
+                                      max_conv_taps, needs_chunks)
 from repro_torch.models.transformer import partition_loss
 
 
-def _no_ssm(cfg: ModelConfig) -> None:
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            "SSM gateway contexts (conv/shift tails, chunk states) are not "
-            "ported yet; see ROADMAP.md Queue A item 4b")
+def _taps(cfg: ModelConfig) -> int:
+    """Tokens a conv or shift tail keeps: max(1, the conv's K − 1)."""
+    return max(1, max_conv_taps(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -67,11 +72,9 @@ def make_part_batch(cfg: ModelConfig, part: TreePartition,
                     chunk_size: Optional[int], anc_pos: np.ndarray, *,
                     device: DeviceLike = None) -> dict:
     """One partition as a B=1 batch on ``device`` (the CUDA device by
-    default): its serialization, ancestor positions and boundary losses."""
-    _no_ssm(cfg)
-    if chunk_size is not None:
-        raise NotImplementedError("chunked partitions: ROADMAP.md Queue A "
-                                  "item 4b")
+    default): its serialization, ancestor positions and boundary losses;
+    for the SSM families also its ``chunk_parent`` (kept host) and
+    ``prev_pows``, whose gateway slots −2, … chain."""
     ser = part.ser
     b: dict[str, Any] = {
         "tokens": ser.tokens[None],
@@ -82,6 +85,9 @@ def make_part_batch(cfg: ModelConfig, part: TreePartition,
         "valid": ser.valid[None],
         "anc_pos": anc_pos[None].astype(np.int32),
     }
+    if needs_chunks(cfg):
+        b["chunk_parent"] = ser.chunk_parent_map(chunk_size)[None]
+        b["prev_pows"] = prev_powers(ser.prev_idx[None], _taps(cfg))
     if part.cuts:
         b["extra_pos"] = np.asarray(
             [[c.boundary_pos for c in part.cuts]], np.int32)
@@ -89,20 +95,21 @@ def make_part_batch(cfg: ModelConfig, part: TreePartition,
             [[c.boundary_label for c in part.cuts]], np.int32)
         b["extra_weight"] = np.asarray(
             [[c.boundary_weight for c in part.cuts]], np.float32)
-    return to_device(b, resolve_device(device))
+    return device_batch(b, resolve_device(device))
 
 
 def make_capspecs(cfg: ModelConfig, part: TreePartition) -> dict:
-    """Cut name → capture plan (``path_idx`` the positions on the path
-    root → cut; the SSM fields keep the reference's values)."""
-    _no_ssm(cfg)
+    """Cut name → capture plan: ``path_idx`` the positions on the path
+    root → cut, ``cut_chunk`` the chunk holding the cut's state,
+    ``conv_pos``/``shift_pos`` the path's last conv taps / last token."""
+    taps = _taps(cfg)
     specs = {}
     for i, c in enumerate(part.cuts):
         idx = np.asarray(c.path_token_idx, np.int32)
         specs[f"c{i}"] = {
             "path_idx": idx,
             "cut_chunk": np.int32(max(c.cut_chunk, 0)),
-            "conv_pos": idx[-1:],
+            "conv_pos": idx[-taps:],
             "shift_pos": idx[-1:],
         }
     return specs
@@ -110,8 +117,11 @@ def make_capspecs(cfg: ModelConfig, part: TreePartition) -> dict:
 
 def device_capspecs(capspecs: dict, device: torch.device,
                     seq_len: int) -> dict:
-    """The capture index arrays the model reads (``path_idx``) as int64
-    tensors on ``device``, copied in without a device→host read.
+    """The capture plans as the model reads them: ``path_idx`` an int64
+    tensor on ``device``, copied in without a device→host read,
+    ``conv_pos``/``shift_pos`` views of its tail (a plan's are the tail of
+    its ``path_idx``), and ``cut_chunk`` a host int (the chunk loop picks
+    that state from its Python list).
 
     A wave's capture plans are front-padded with index 0 (the plan's
     bucketing); those entries are trimmed before any use and get zero
@@ -126,30 +136,73 @@ def device_capspecs(capspecs: dict, device: torch.device,
         out = idx.copy()
         out[:max(lead - 1, 0)] = np.arange(max(lead - 1, 0)) % seq_len
         return out
-    return {name: {"path_idx": to_device(
-        {"i": spread(spec["path_idx"])}, device)["i"]}
-        for name, spec in capspecs.items()}
+    out = {}
+    for name, spec in capspecs.items():
+        idx = device_batch({"i": spread(spec["path_idx"])}, device)["i"]
+        n = len(idx)
+        out[name] = {"path_idx": idx, "cut_chunk": int(spec["cut_chunk"]),
+                     "conv_pos": idx[n - len(spec["conv_pos"]):],
+                     "shift_pos": idx[n - len(spec["shift_pos"]):]}
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Gateway assembly (parent → child) and cotangent routing (child → parent)
 # ---------------------------------------------------------------------------
 
+def _concat_tail(prev: Optional[torch.Tensor], cap: torch.Tensor,
+                 keep: int) -> torch.Tensor:
+    """Concat along the token axis (2) and keep the last ``keep``."""
+    z = cap if prev is None else torch.cat([prev, cap], 2)
+    return z[:, :, z.shape[2] - keep:] if z.shape[2] > keep else z
+
+
+def _route_tail(prev_shape, cap_shape, keep: int, cot: torch.Tensor):
+    """Transpose of ``_concat_tail``: the cotangents of (prev, cap) from
+    the cotangent of the kept tail (whose last ``min(keep, T)`` entries
+    are the kept ones; front padding before them is dropped)."""
+    T_in = 0 if prev_shape is None else prev_shape[2]
+    T = T_in + cap_shape[2]
+    kept = min(keep, T)
+    cz = cot.new_zeros(tuple(cap_shape[:2]) + (T,) + tuple(cap_shape[3:]))
+    cz[:, :, T - kept:] = cot[:, :, cot.shape[2] - kept:]
+    return (None if T_in == 0 else cz[:, :, :T_in]), cz[:, :, T_in:]
+
+
+# the tail leaf of each SSM gateway kind, and how many tokens it keeps
+_TAILS = {"ssm": "conv", "tm": "shift", "cm": "shift"}
+
+
+def _keep(cfg: ModelConfig, kind: str) -> int:
+    return _taps(cfg) if kind == "ssm" else 1
+
+
 def assemble_child_gw(cfg: ModelConfig, gw_in: Optional[dict], caps: dict,
                       cut_name: str) -> dict:
-    """The child's gateway at cut ``cut_name``: the parent's own ancestors
-    followed by the parent's captures on the path to the cut (token axis
-    2)."""
-    _no_ssm(cfg)
+    """The child's gateway at cut ``cut_name``: the parent's own ancestor
+    K/V followed by the parent's captures on the path to the cut (token
+    axis 2); the SSM state captured at the cut; the parent's conv or shift
+    tail followed by its captured path tail, cut to the last ``keep``
+    tokens."""
     child: dict = {}
     for gkey, group_caps in caps.items():
         if not group_caps:
             continue
-        cap = group_caps["attn"][cut_name]
-        prev = (gw_in or {}).get(gkey, {}).get("attn")
-        child[gkey] = {"attn": {
-            t: (cap[t] if prev is None else torch.cat([prev[t], cap[t]], 2))
-            for t in ("k", "v")}}
+        gw_g = (gw_in or {}).get(gkey, {})
+        cg: dict = {}
+        for kind, cuts in group_caps.items():
+            cap, prev = cuts[cut_name], gw_g.get(kind)
+            if kind == "attn":
+                cg[kind] = {t: (cap[t] if prev is None
+                                else torch.cat([prev[t], cap[t]], 2))
+                            for t in ("k", "v")}
+                continue
+            tail = _TAILS[kind]
+            cg[kind] = {"state": cap["state"]} if "state" in cap else {}
+            cg[kind][tail] = _concat_tail(None if prev is None
+                                          else prev[tail], cap[tail],
+                                          _keep(cfg, kind))
+        child[gkey] = cg
     return child
 
 
@@ -161,17 +214,32 @@ def route_child_cot(cfg: ModelConfig, gw_in: Optional[dict], caps: dict,
     gateway cotangent, in fp32) and this partition's capture cotangents.
     Updates ``cot_caps`` (and ``cot_gw_acc``) in place; returns
     ``cot_gw_acc``."""
-    _no_ssm(cfg)
     for gkey, cg in cot_child.items():
-        prev = (gw_in or {}).get(gkey, {}).get("attn")
-        A_in = 0 if prev is None else prev["k"].shape[2]
-        for t in ("k", "v"):
-            cot = cg["attn"][t]
-            if A_in:
-                cot_gw_acc[gkey]["attn"][t] = (
-                    cot_gw_acc[gkey]["attn"][t] + cot[:, :, :A_in].float())
-            cc = cot_caps[gkey]["attn"][cut_name][t]
-            cot_caps[gkey]["attn"][cut_name][t] = cc + cot[:, :, A_in:]
+        gw_g = (gw_in or {}).get(gkey, {})
+        for kind, ck in cg.items():
+            prev = gw_g.get(kind)
+            tgt = cot_caps[gkey][kind][cut_name]
+            if kind == "attn":
+                A_in = 0 if prev is None else prev["k"].shape[2]
+                for t in ("k", "v"):
+                    cot = ck[t]
+                    if A_in:
+                        cot_gw_acc[gkey][kind][t] = (
+                            cot_gw_acc[gkey][kind][t]
+                            + cot[:, :, :A_in].float())
+                    tgt[t] = tgt[t] + cot[:, :, A_in:]
+                continue
+            if "state" in ck:
+                tgt["state"] = map2(lambda a, b: a + b.to(a.dtype),
+                                    tgt["state"], ck["state"])
+            tail = _TAILS[kind]
+            cgw, cc = _route_tail(None if prev is None else prev[tail].shape,
+                                  caps[gkey][kind][cut_name][tail].shape,
+                                  _keep(cfg, kind), ck[tail])
+            if cgw is not None:
+                cot_gw_acc[gkey][kind][tail] = (
+                    cot_gw_acc[gkey][kind][tail] + cgw.float())
+            tgt[tail] = tgt[tail] + cc
     return cot_gw_acc
 
 
@@ -297,9 +365,10 @@ def partitioned_value_and_grad(
     the live graphs are those of one root-to-leaf partition path.
 
     Returns (loss, grads (float32, on the parameters' device), info)."""
-    _no_ssm(cfg)
     dev = tree_leaves(params)[0].device
-    parts = partition_tree(tree, capacity, loss_mode=loss_mode)
+    chunk_size = chunk_size_of(cfg)
+    parts = partition_tree(tree, capacity, chunk_size=chunk_size,
+                           loss_mode=loss_mode)
     grads_acc = grad_slots(params)
     tot = torch.zeros(3, dtype=torch.float32, device=dev)
     info = {"num_partitions": len(parts),
@@ -308,7 +377,7 @@ def partitioned_value_and_grad(
     def process(pid: int, gw_in: Optional[dict], anc_pos: np.ndarray):
         nonlocal tot
         part = parts[pid]
-        batch = make_part_batch(cfg, part, None, anc_pos, device=dev)
+        batch = make_part_batch(cfg, part, chunk_size, anc_pos, device=dev)
         capspecs = make_capspecs(cfg, part)
         p_live = _live(params)
         g_live = None if gw_in is None else _live(gw_in)
@@ -388,19 +457,29 @@ def _pad_tok(a: torch.Tensor, T: int) -> torch.Tensor:
 
 
 def _slice_gw_row(gw: dict, r: int, A_real: int) -> dict:
-    """Row r of a stacked wave gateway, stripped of front padding."""
-    return {gkey: {"attn": {t: g["attn"][t][:, r:r + 1,
-                                            g["attn"][t].shape[2] - A_real:]
-                            for t in ("k", "v")}}
-            for gkey, g in gw.items()}
+    """Row r of a stacked wave gateway, the ancestor K/V stripped of its
+    front padding (a conv or shift tail keeps its padding: it reads as
+    out-of-range zeros)."""
+    out: dict = {}
+    for gkey, g in gw.items():
+        out[gkey] = {}
+        for kind, sub in g.items():
+            if kind == "attn":
+                out[gkey][kind] = {t: sub[t][:, r:r + 1,
+                                             sub[t].shape[2] - A_real:]
+                                   for t in ("k", "v")}
+            else:
+                out[gkey][kind] = map_tree(lambda a: a[:, r:r + 1], sub)
+    return out
 
 
 def _stack_gw_rows(rows: list[dict], A_max: int, Bb: int,
                    rows_idx: Optional[list[int]] = None) -> dict:
     """Stack per-row (B=1) gateways along the row axis, front-padding the
-    ancestors to A_max and adding zero rows up to Bb.  ``rows_idx``
-    scatters entry i to row ``rows_idx[i]`` (the wave's load-balance
-    permutation); omitted, entry i lands at row i."""
+    ancestors to A_max and the conv/shift tails to the wave's longest, and
+    adding zero rows up to Bb.  ``rows_idx`` scatters entry i to row
+    ``rows_idx[i]`` (the wave's load-balance permutation); omitted, entry
+    i lands at row i."""
     src: list[Optional[int]] = list(range(len(rows))) \
         + [None] * (Bb - len(rows))
     if rows_idx is not None:
@@ -412,9 +491,22 @@ def _stack_gw_rows(rows: list[dict], A_max: int, Bb: int,
         z = vals[0].new_zeros(vals[0].shape[:1] + (1,) + vals[0].shape[2:])
         return torch.cat([z if i is None else vals[i] for i in src], 1)
 
-    return {gkey: {"attn": {t: catB([_pad_tok(r[gkey]["attn"][t], A_max)
-                                     for r in rows]) for t in ("k", "v")}}
-            for gkey in rows[0]}
+    out: dict = {}
+    for gkey, g0 in rows[0].items():
+        out[gkey] = {}
+        for kind, sub0 in g0.items():
+            sub: dict = {}
+            for leaf in sub0:
+                vals = [r[gkey][kind][leaf] for r in rows]
+                if kind == "attn" or leaf in ("conv", "shift"):
+                    T = A_max if kind == "attn" else \
+                        max(v.shape[2] for v in vals)
+                    sub[leaf] = catB([_pad_tok(v, T) for v in vals])
+                else:           # "state": {name: [L, 1, …]}, no token axis
+                    sub[leaf] = {k: catB([v[k] for v in vals])
+                                 for k in vals[0]}
+            out[gkey][kind] = sub
+    return out
 
 
 def _wave_capspecs(cfg: ModelConfig, cuts: list, taps: int) -> dict:
@@ -445,16 +537,37 @@ def _cut_caps_view(cfg: ModelConfig, caps: dict, cname: str, r: int,
                    true_len: int) -> dict:
     """Row r's capture for one cut, trimmed to its real (unpadded) token
     entries — the exact tensors a child partition's gateway glues in."""
-    _no_ssm(cfg)
+    creal = min(_taps(cfg), true_len)
     out: dict = {}
     for gkey, g in caps.items():
-        if cname not in g.get("attn", {}):
-            continue
-        c = g["attn"][cname]
-        out[gkey] = {"attn": {cname: {
-            t: c[t][:, r:r + 1, c[t].shape[2] - true_len:]
-            for t in ("k", "v")}}}
+        h: dict = {}
+        for kind, cuts in g.items():
+            if cname not in cuts:
+                continue
+            c = cuts[cname]
+            if kind == "attn":
+                h[kind] = {cname: {t: c[t][:, r:r + 1,
+                                           c[t].shape[2] - true_len:]
+                                   for t in ("k", "v")}}
+                continue
+            v = {}
+            if "state" in c:
+                v["state"] = map_tree(lambda a: a[:, r:r + 1], c["state"])
+            if "conv" in c:
+                v["conv"] = c["conv"][:, r:r + 1, c["conv"].shape[2] - creal:]
+            if "shift" in c:
+                v["shift"] = c["shift"][:, r:r + 1]
+            h[kind] = {cname: v}
+        if h:
+            out[gkey] = h
     return out
+
+
+def _add_row(full: torch.Tensor, part: torch.Tensor, r: int) -> None:
+    """full[:, r, T − t:] += part[:, 0], in place: a per-row slice, whose
+    axis 2 (tokens, or a state's heads) holds the last t of T, added back
+    at its front-padded place."""
+    full[:, r, full.shape[2] - part.shape[2]:] += part[:, 0].to(full.dtype)
 
 
 def _embed_cut_cot(cot_caps: dict, cot_view: dict, cname: str, r: int
@@ -462,23 +575,16 @@ def _embed_cut_cot(cot_caps: dict, cot_view: dict, cname: str, r: int
     """Add a trimmed per-cut cotangent (mirror of _cut_caps_view) into the
     wave-level capture cotangent, in place."""
     for gkey, g in cot_view.items():
-        c = g["attn"][cname]
-        tgt = cot_caps[gkey]["attn"][cname]
-        for t in ("k", "v"):
-            full = tgt[t]
-            full[:, r, full.shape[2] - c[t].shape[2]:] += \
-                c[t][:, 0].to(full.dtype)
+        for kind, cuts in g.items():
+            map2(lambda full, part: _add_row(full, part, r),
+                 cot_caps[gkey][kind][cname], cuts[cname])
 
 
 def _embed_gw_row_cot(acc: dict, row_cot: dict, r: int) -> dict:
     """Add a per-row gateway cotangent (stripped shapes) into the stacked
     wave accumulator at row r (front-padded axes), in place."""
     for gkey, g in acc.items():
-        src = row_cot[gkey]["attn"]
-        for t in ("k", "v"):
-            full = g["attn"][t]
-            full[:, r, full.shape[2] - src[t].shape[2]:] += \
-                src[t][:, 0].to(full.dtype)
+        map2(lambda full, part: _add_row(full, part, r), g, row_cot[gkey])
     return acc
 
 
@@ -541,19 +647,20 @@ def build_partition_plan(
     ``row_multiple`` rounds every wave's bucketed row count up to a
     multiple (the data-axis size); ``forest`` passes precomputed
     partitions (the planner partitions each tree exactly once)."""
-    _no_ssm(cfg)
+    chunk_size = chunk_size_of(cfg)
     seq_len = capacity if seq_len is None else seq_len
     assert capacity <= seq_len, (capacity, seq_len)
-    taps = 1
+    taps = _taps(cfg)
     info: dict[str, Any] = {"num_trees": len(trees)}
     if not trees:
         return PartitionPlan(waves=[], num_trees=0, info=info)
 
     if forest is None:
-        forest = [partition_tree(t, capacity, loss_mode=loss_mode)
-                  for t in trees]
+        forest = [partition_tree(t, capacity, chunk_size=chunk_size,
+                                 loss_mode=loss_mode) for t in trees]
     assert len(forest) == len(trees)
-    waves = pack_partition_waves(forest, seq_len, max_rows=max_rows)
+    waves = pack_partition_waves(forest, seq_len, chunk_size=chunk_size,
+                                 max_rows=max_rows)
     cut_of_child: dict[tuple[int, int], tuple[int, int]] = {}
     for w, wv in enumerate(waves):
         for ci, c in enumerate(wv.cuts):
@@ -585,6 +692,9 @@ def build_partition_plan(
             "prev_idx": _pad_rows(a["prev_idx"], Bb, -1),
             "valid": _pad_rows(a["valid"], Bb, False),
         }
+        if chunk_size is not None:
+            batch["chunk_parent"] = _pad_rows(a["chunk_parent"], Bb, -1)
+            batch["prev_pows"] = prev_powers(batch["prev_idx"], taps)
         if wv.cuts:
             Eb = _pow2(max(sum(1 for c in wv.cuts if c.row == r)
                            for r in range(B)))

@@ -7,8 +7,7 @@ A row holds one or more whole DFS-serialized trees back to back; because
 ``kv_last`` bounds visibility to a token's own subtree, packed trees are
 mutually invisible with no extra mask.  With ``chunk_size`` (the SSM and
 hybrid families) the trees are chunk-aligned serializations and each row
-carries its ``chunk_parent`` map; chunk-aligned partition waves are
-ROADMAP.md Queue A item 4b and raise.
+carries its ``chunk_parent`` map, partition waves included.
 """
 from __future__ import annotations
 
@@ -42,13 +41,6 @@ class TreeBatch:
     @property
     def shape(self) -> tuple[int, int]:
         return self.tokens.shape  # type: ignore[return-value]
-
-
-def _no_chunks(chunk_size: Optional[int]) -> None:
-    if chunk_size is not None:
-        raise NotImplementedError(
-            "chunk-aligned (SSM) partition waves are not ported yet; see "
-            "ROADMAP.md Queue A item 4b")
 
 
 def _empty_row(S: int) -> dict[str, np.ndarray]:
@@ -337,7 +329,6 @@ def pack_partition_waves(
     fragments are independent, so a too-wide wave splits into several
     consecutive waves) — the partitioned path then never exceeds the
     activation footprint of a ``max_rows × seq_len`` packed step."""
-    _no_chunks(chunk_size)
     # wave index per partition (parent wave + 1; parents precede children)
     waves: list[list[tuple[int, int]]] = []
     for t, parts in enumerate(forest):
@@ -352,9 +343,11 @@ def pack_partition_waves(
     def materialize(placements: list[PackedPartition], B: int
                     ) -> PackedWave:
         S = seq_len
+        C = None if chunk_size is None else S // chunk_size
         cols = {k: np.stack([_empty_row(S)[k] for _ in range(B)])
                 for k in ("tokens", "pos_ids", "kv_last", "weight",
                           "prev_idx", "valid")}
+        cp = None if C is None else np.full((B, C), -1, np.int32)
         cuts: list[PackedCut] = []
         for pl in placements:
             ser = forest[pl.tree][pl.pid].ser
@@ -369,16 +362,28 @@ def pack_partition_waves(
             cols["prev_idx"][pl.row, sl] = np.where(
                 ser.prev_idx < 0, ser.prev_idx, ser.prev_idx + off)
             cols["valid"][pl.row, sl] = ser.valid
+            if C is not None:
+                assert off % chunk_size == 0 and ser.n % chunk_size == 0, \
+                    "SSM wave packing requires chunk-aligned partitions"
+                pc = ser.chunk_parent_map(chunk_size)
+                coff = off // chunk_size
+                cp[pl.row, coff:coff + len(pc)] = np.where(
+                    pc < 0, pc, pc + coff)
             for c in forest[pl.tree][pl.pid].cuts:
+                coff = 0 if chunk_size is None else off // chunk_size
                 cuts.append(PackedCut(
                     tree=pl.tree, pid=pl.pid, child_pid=c.child_pid,
                     row=pl.row,
                     path_idx=c.path_token_idx + off,
-                    cut_chunk=c.cut_chunk,
+                    cut_chunk=(-1 if c.cut_chunk < 0
+                               else c.cut_chunk + coff),
                     boundary_pos=c.boundary_pos + off,
                     boundary_label=c.boundary_label,
                     boundary_weight=c.boundary_weight))
-        return PackedWave(arrays=dict(cols), slots=placements, cuts=cuts)
+        arrays = dict(cols)
+        if cp is not None:
+            arrays["chunk_parent"] = cp
+        return PackedWave(arrays=arrays, slots=placements, cuts=cuts)
 
     out: list[PackedWave] = []
     for w, members in enumerate(waves):

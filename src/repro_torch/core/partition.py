@@ -1,8 +1,9 @@
 """Redundancy-Free Tree Partitioning (paper §3.3) — host-side planning.
 
 A copy of ``repro/core/partition.py`` (held against it in
-``tests/test_torch_partition.py``) without the SSM chunk alignment, which
-is ROADMAP.md Queue A item 4b: a ``chunk_size`` raises.
+``tests/test_torch_partition.py``).  With ``chunk_size`` (the SSM and
+hybrid families) capacities are chunk multiples, node segments are padded
+to the chunk grid, and each cut records the chunk holding its state.
 
 When a tree exceeds the per-step token budget C, split it into connected
 subtrees with cuts at node boundaries (so the partition dependency graph
@@ -12,9 +13,10 @@ greedy, bottom-up accumulation closing the largest child subtrees first
 when a node's accumulated open subtree exceeds C.
 
 Each partition gets its own DFS serialization (full-tree λ weights,
-depth-position offset, a gateway prev slot −2 at its root) and per-cut
-capture plans: which of its token positions lie on the path root → cut
-(their K/V is relayed to the child partition) and the child's boundary
+depth-position offset, gateway prev slots −2.. for the conv/token-shift
+context at its root) and per-cut capture plans: which of its token
+positions lie on the path root → cut (their K/V is relayed to the child
+partition), which chunk holds the cut state (SSM) and the child's boundary
 first-token label (its loss belongs to the parent, whose hidden state
 predicts it).
 """
@@ -96,11 +98,10 @@ class TreePartition:
     num_paths_total: int = 1   # K of the full tree (loss normalizer)
 
 
-def _no_chunks(chunk_size: Optional[int]) -> None:
-    if chunk_size is not None:
-        raise NotImplementedError(
-            "chunk-aligned (SSM) partitions are not ported yet; see "
-            "ROADMAP.md Queue A item 4b")
+def _chunk_pad(n: int, chunk: Optional[int]) -> int:
+    if not chunk:
+        return n
+    return ((n + chunk - 1) // chunk) * chunk
 
 
 def partition_tree(
@@ -119,9 +120,11 @@ def partition_tree(
     (``core/forest``) carries its summed/preserved per-branch λ this way
     when the merged tree exceeds capacity and partitions like any
     oversized tree."""
-    _no_chunks(chunk_size)
+    unit = chunk_size or 1
+    assert capacity % unit == 0 or chunk_size is None
     origin: dict[int, int] = {}
-    tree = split_long_nodes(tree, capacity, origin)
+    tree = split_long_nodes(tree, max(1, capacity - (unit - 1))
+                            if chunk_size else capacity, origin)
 
     # full-tree weights
     g = _leaf_counts(tree.root)
@@ -139,7 +142,8 @@ def partition_tree(
     else:
         raise ValueError(loss_mode)
 
-    padded = {id(n): n.size for n in tree.nodes()}
+    padded = {id(n): _chunk_pad(n.size, chunk_size)
+              for n in tree.nodes()}
 
     # --- greedy bottom-up packing: decide the set of cut nodes ------------
     cut: set[int] = set()          # id(node) → starts a new partition
@@ -188,7 +192,8 @@ def partition_tree(
 
         proot = prune(root)
         psub = TrajectoryTree(root=proot)
-        ser = serialize_tree(psub, lam_map=lam_local, depth_pos0=anc_len,
+        ser = serialize_tree(psub, chunk_size=chunk_size, lam_map=lam_local,
+                             depth_pos0=anc_len,
                              root_prev=-2 if parent_pid >= 0 or anc_len > 0
                              else -1)
         part = TreePartition(pid=pid, parent_pid=parent_pid, ser=ser,
@@ -223,7 +228,9 @@ def partition_tree(
                 nid = nid_of[id(m)]
                 s, e = int(ser.node_start[nid]), int(ser.node_end[nid])
                 idxs.extend(i for i in range(s, e) if ser.valid[i])
-            cut_chunk = -1
+            nid = nid_of[id(anc_node)]
+            e = int(ser.node_end[nid])
+            cut_chunk = -1 if not chunk_size else (e - 1) // chunk_size
             # boundary loss: child's first token predicted from anc's last
             last_valid = idxs[-1]
             child_pid_placeholder = -1  # fixed after recursion ordering
@@ -281,8 +288,7 @@ def choose_capacity(trees: list[TrajectoryTree], seq_len: int, *,
     on the step's critical path.  Ties keep the larger cap.  Partition
     *structure* depends only on token counts, so the probe partitions
     under ``sep_avg`` regardless of the training loss mode."""
-    _no_chunks(chunk_size)
-    unit = 1
+    unit = chunk_size or 1
     cands: list[int] = []
     c = seq_len
     while c >= max(2 * unit, 32) and len(cands) < max_candidates:
@@ -332,5 +338,5 @@ def standard_partition_token_counts(
                            loss_mode=loss_mode)
     total = 0
     for p in parts:
-        total += p.ser.n + p.anc_len
+        total += p.ser.n + _chunk_pad(p.anc_len, chunk_size)
     return total

@@ -13,6 +13,8 @@ tree adaptation is chunk-level parent state routing (``tree_chunk_scan``)
 plus the path-predecessor causal conv.  Everything that needs no incoming
 state (T, the corrected values, the decays) runs for every chunk at once;
 the loop carries v_new = value_corr − k_cumdecay·S and the state update.
+Partition gateways and captures are Mamba2's (``mamba2.mamba2``), with the
+state S and the conv over the concatenated q/k/v projections.
 """
 from __future__ import annotations
 
@@ -50,9 +52,10 @@ def init_gdn(generator, cfg: SSMCfg, d_model: int, dtype=torch.float32,
     }
 
 
-def _gdn_chunks(q, k, v, g, beta, chunk_parent) -> torch.Tensor:
-    """q, k, v [B, C, L, H, hd]; g (log-decay ≤ 0), beta [B, C, L, H] →
-    out [B, C, L, H, hd] fp32."""
+def _gdn_chunks(q, k, v, g, beta, chunk_parent, S0=None):
+    """q, k, v [B, C, L, H, hd]; g (log-decay ≤ 0), beta [B, C, L, H]; S0
+    the root chunks' state [B, H, hd, hd] (zeros if None) → (out
+    [B, C, L, H, hd] fp32, ``tree_chunk_scan``'s list of states)."""
     Bsz, _, L, H, hd = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
     gf, bf = g.float(), beta.float()
@@ -89,22 +92,24 @@ def _gdn_chunks(q, k, v, g, beta, chunk_parent) -> torch.Tensor:
 
     zero = torch.zeros((Bsz, H, hd, hd), dtype=torch.float32,
                        device=q.device)
-    (S_in, v_new), _ = tree_chunk_scan(
+    (S_in, v_new), states = tree_chunk_scan(
         step, zero, (k_cumdecay, value_corr, torch.exp(wL), k_dec),
-        chunk_parent)
+        chunk_parent, S0)
     out = hm(qf * torch.exp(cw)[..., None]) @ S_in + attn_within @ v_new
-    return hm(out)
+    return hm(out), states
 
 
 def _gdn(params: dict, cfg: SSMCfg, x: torch.Tensor, chunk_parent,
-         prev_pows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+         prev_pows: torch.Tensor, valid: torch.Tensor, initial_state=None,
+         conv_ctx=None, capture=None):
     B, S, D = x.shape
     di, H = cfg.d_inner(D), cfg.n_heads(D)
     hd, K, L = cfg.head_dim, cfg.conv_kernel, cfg.chunk_size
     qkv_pre = torch.cat([x @ params["wq"], x @ params["wk"],
                          x @ params["wv"]], dim=-1)
     qkv = F.silu(tree_causal_conv(qkv_pre, params["conv_w"],
-                                  params["conv_b"], prev_pows[..., :K - 1]))
+                                  params["conv_b"], prev_pows[..., :K - 1],
+                                  conv_ctx))
     q, k, v = (t.reshape(B, S, H, hd) for t in qkv.chunk(3, dim=-1))
     k = k / torch.clamp(torch.linalg.vector_norm(k.float(), dim=-1,
                                                  keepdim=True),
@@ -115,19 +120,29 @@ def _gdn(params: dict, cfg: SSMCfg, x: torch.Tensor, chunk_parent,
     vm = valid.float()[..., None]
     beta = beta * vm                           # pads: no delta write
     g = g * vm                                 # and no decay
-    y = _gdn_chunks(chunkify(q, L), chunkify(k, L), chunkify(v, L),
-                    chunkify(g, L), chunkify(beta, L), chunk_parent)
+    y, states = _gdn_chunks(chunkify(q, L), chunkify(k, L), chunkify(v, L),
+                            chunkify(g, L), chunkify(beta, L), chunk_parent,
+                            None if initial_state is None
+                            else initial_state["S"])
     y = unchunkify(y).reshape(B, S, di).to(x.dtype)
     y = rmsnorm(params["norm"], y * F.silu(x @ params["wz"]))
-    return y @ params["out_proj"]
+    out = y @ params["out_proj"]
+    if capture is None:
+        return out
+    return out, {name: {"state": {"S": states[c["chunk"] + 1]},
+                        "conv": qkv_pre[:, c["conv_pos"]]}
+                 for name, c in capture.items()}
 
 
 def gdn(params: dict, cfg: SSMCfg, x: torch.Tensor, *, chunk_parent,
-        prev_pows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        prev_pows: torch.Tensor, valid: torch.Tensor, initial_state=None,
+        conv_ctx=None, capture=None):
     """x [B, S, D] (pre-normed) → [B, S, D], recomputed in the backward
-    (``checkpointed``); arguments as ``mamba2.mamba2``'s."""
+    (``checkpointed``); arguments as ``mamba2.mamba2``'s, the state
+    {"S": [B, H, hd, hd]}."""
     return checkpointed(
-        lambda x_: _gdn(params, cfg, x_, chunk_parent, prev_pows, valid), x)
+        lambda x_: _gdn(params, cfg, x_, chunk_parent, prev_pows, valid,
+                        initial_state, conv_ctx, capture), x)
 
 
 def init_gdn_cache(batch: int, cfg: SSMCfg, d_model: int,

@@ -10,8 +10,9 @@ chunk at once; the loop carries only h ← exp(Σg)·h + h_new.
 
 State per layer: h [B, H, d_state, head_dim] (+ the conv tail to decode).
 Decays are scalar per head and token: g_t = dt_t · (−exp(A_log)) ≤ 0.
-Gateway inputs and captures (partition waves) are ROADMAP.md Queue A
-item 4b.
+A partition's gateway seeds the root chunks' state and the conv's relayed
+ancestor inputs; its captures are the state at a cut chunk and the
+pre-conv inputs on the path's tail (paper App. B.7).
 """
 from __future__ import annotations
 
@@ -51,9 +52,11 @@ def init_mamba2(generator, cfg: SSMCfg, d_model: int, dtype=torch.float32,
     }
 
 
-def _ssd(xh, Bm, Cm, dt, g, chunk_parent) -> torch.Tensor:
+def _ssd(xh, Bm, Cm, dt, g, chunk_parent, h0=None):
     """SSD over every chunk.  xh [B, C, L, H, hd], Bm/Cm [B, C, L, ds],
-    dt/g [B, C, L, H] → y [B, C, L, H, hd] in xh's dtype."""
+    dt/g [B, C, L, H], h0 the root chunks' state [B, H, ds, hd] (zeros if
+    None) → (y [B, C, L, H, hd] in xh's dtype, ``tree_chunk_scan``'s list
+    of states)."""
     Bsz, _, L, H, hd = xh.shape
     xf, Bf, Cf, dtf = xh.float(), Bm.float(), Cm.float(), dt.float()
     cw = torch.cumsum(g.float(), dim=2)                 # inclusive
@@ -76,48 +79,67 @@ def _ssd(xh, Bm, Cm, dt, g, chunk_parent) -> torch.Tensor:
 
     zero = torch.zeros((Bsz, H, Bm.shape[-1], hd), dtype=torch.float32,
                        device=xh.device)
-    h_in, _ = tree_chunk_scan(step, zero, (torch.exp(wL), h_new),
-                              chunk_parent)
+    h_in, states = tree_chunk_scan(step, zero, (torch.exp(wL), h_new),
+                                   chunk_parent, h0)
     Ch = torch.einsum("bcis,bchsd->bcihd", Cf, h_in)
-    return (y_intra + torch.exp(cw)[..., None] * Ch).to(xh.dtype)
+    return (y_intra + torch.exp(cw)[..., None] * Ch).to(xh.dtype), states
 
 
 def _mamba2(params: dict, cfg: SSMCfg, x: torch.Tensor, chunk_parent,
-            prev_pows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+            prev_pows: torch.Tensor, valid: torch.Tensor,
+            initial_state=None, conv_ctx=None, capture=None):
     B, S, D = x.shape
     di, H = cfg.d_inner(D), cfg.n_heads(D)
     ds, hd, K, L = cfg.d_state, cfg.head_dim, cfg.conv_kernel, cfg.chunk_size
     z = x @ params["in_z"]
     dt = x @ params["in_dt"]
     # the depthwise conv per stream (the same math as over the
-    # concatenation)
+    # concatenation); the gateway's conv context [B, T, conv_dim] keeps the
+    # concatenated layout and is sliced per stream
     cw, cb = params["conv_w"], params["conv_b"]
     pp = prev_pows[..., :K - 1]
-    streams = []
+    pre, streams = [], []
     for name, lo, hi in (("in_x", 0, di), ("in_B", di, di + ds),
                          ("in_C", di + ds, di + 2 * ds)):
+        pre.append(x @ params[name])
         streams.append(F.silu(tree_causal_conv(
-            x @ params[name], cw[:, lo:hi], cb[lo:hi], pp)))
+            pre[-1], cw[:, lo:hi], cb[lo:hi], pp,
+            None if conv_ctx is None else conv_ctx[..., lo:hi])))
     xc, Bm, Cm = streams
     dtf = F.softplus(dt.float() + params["dt_bias"])
     dtf = dtf * valid.float()[..., None]       # pads contribute nothing
     g = dtf * -torch.exp(params["A_log"])      # and do not decay the state
     xh = xc.reshape(B, S, H, hd)
-    y = _ssd(chunkify(xh, L), chunkify(Bm, L), chunkify(Cm, L),
-             chunkify(dtf, L), chunkify(g, L), chunk_parent)
+    y, states = _ssd(chunkify(xh, L), chunkify(Bm, L), chunkify(Cm, L),
+                     chunkify(dtf, L), chunkify(g, L), chunk_parent,
+                     None if initial_state is None else initial_state["h"])
     y = (unchunkify(y) + params["D"][:, None] * xh).to(x.dtype)
     y = rmsnorm(params["norm"], y.reshape(B, S, di) * F.silu(z))
-    return y @ params["out_proj"]
+    out = y @ params["out_proj"]
+    if capture is None:
+        return out
+    return out, {name: {"state": {"h": states[c["chunk"] + 1]},
+                        "conv": torch.cat([p[:, c["conv_pos"]] for p in pre],
+                                          -1)}
+                 for name, c in capture.items()}
 
 
 def mamba2(params: dict, cfg: SSMCfg, x: torch.Tensor, *, chunk_parent,
-           prev_pows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+           prev_pows: torch.Tensor, valid: torch.Tensor,
+           initial_state=None, conv_ctx=None, capture=None):
     """x [B, S, D] (pre-normed) → [B, S, D].  chunk_parent: host [B, C];
     prev_pows [B, S, ≥K−1]; valid [B, S].  Recomputed in the backward
-    (``checkpointed``)."""
+    (``checkpointed``).
+
+    Partition gateway: ``initial_state`` {"h": [B, H, ds, hd]} seeds the
+    root chunks (chunk_parent −1); ``conv_ctx`` [B, T, conv_dim] holds the
+    pre-conv inputs of relayed ancestor tokens (prev slots −2, …);
+    ``capture`` maps a cut name to {"chunk": host int, "conv_pos": index
+    tensor} and makes the call return ``(out, captures)`` with, per cut,
+    the state after that chunk and the pre-conv inputs at ``conv_pos``."""
     return checkpointed(
-        lambda x_: _mamba2(params, cfg, x_, chunk_parent, prev_pows, valid),
-        x)
+        lambda x_: _mamba2(params, cfg, x_, chunk_parent, prev_pows, valid,
+                           initial_state, conv_ctx, capture), x)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ materializes the [L, L, hd] decay differences, all ≤ 0 where used; the
 exponent is masked to −inf before ``exp`` (an exp(a)·exp(−b) rewrite
 overflows, and 0·inf would make the backward NaN).  That term and each
 chunk's own state contribution run for every chunk at once; the loop
-carries only S ← exp(Σ log w) ⊙ S + U.
+carries only S ← exp(Σ log w) ⊙ S + U.  A partition's gateway seeds the
+root chunks' state and the token shift of its first tokens; its captures
+are the state at a cut chunk and the mixers' inputs at the cut token.
 """
 from __future__ import annotations
 
@@ -55,9 +57,10 @@ def init_rwkv6_timemix(generator, cfg: SSMCfg, d_model: int,
     }
 
 
-def _wkv(r, k, v, logw, chunk_parent) -> torch.Tensor:
-    """r, k, v, logw [B, C, L, H, hd] → y [B, C, L, H, hd] fp32 (without
-    the bonus term)."""
+def _wkv(r, k, v, logw, chunk_parent, S0=None):
+    """r, k, v, logw [B, C, L, H, hd]; S0 the root chunks' state
+    [B, H, hd, hd] (zeros if None) → (y [B, C, L, H, hd] fp32 without the
+    bonus term, ``tree_chunk_scan``'s list of states)."""
     Bsz, _, L, H, hd = r.shape
     rf, kf, vf, lw = r.float(), k.float(), v.float(), logw.float()
     cw = torch.cumsum(lw, dim=2)                         # inclusive
@@ -79,16 +82,18 @@ def _wkv(r, k, v, logw, chunk_parent) -> torch.Tensor:
 
     zero = torch.zeros((Bsz, H, hd, hd), dtype=torch.float32,
                        device=r.device)
-    S_in, _ = tree_chunk_scan(step, zero, (torch.exp(wL), U), chunk_parent)
+    S_in, states = tree_chunk_scan(step, zero, (torch.exp(wL), U),
+                                   chunk_parent, S0)
     return y_intra + torch.einsum("bcihd,bchde->bcihe",
-                                  rf * torch.exp(ecw), S_in)
+                                  rf * torch.exp(ecw), S_in), states
 
 
 def _timemix(params: dict, cfg: SSMCfg, x: torch.Tensor, chunk_parent,
-             prev_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+             prev_idx: torch.Tensor, valid: torch.Tensor, initial_state=None,
+             shift_ctx=None, capture=None):
     B, S, D = x.shape
     H, hd, L = cfg.n_heads(D), cfg.head_dim, cfg.chunk_size
-    x_prev = gather_prev(x, prev_idx)                   # tree-correct shift
+    x_prev = gather_prev(x, prev_idx, shift_ctx)        # tree-correct shift
     mix = params["mix"]
 
     def lerp(i):
@@ -104,23 +109,37 @@ def _timemix(params: dict, cfg: SSMCfg, x: torch.Tensor, chunk_parent,
     vm = valid[..., None, None].float()
     k = k * vm                                 # pads: no contribution,
     logw = logw * vm                           # no decay
-    y = unchunkify(_wkv(chunkify(r, L), chunkify(k, L), chunkify(v, L),
-                        chunkify(logw, L), chunk_parent))
+    y, states = _wkv(chunkify(r, L), chunkify(k, L), chunkify(v, L),
+                     chunkify(logw, L), chunk_parent,
+                     None if initial_state is None else initial_state["S"])
+    y = unchunkify(y)
     # bonus term: (r_i ⊙ u ⊙ k_i) · v_i
     rf, kf, vf = r.float(), k.float(), v.float()
     bonus = (rf * (params["u"] * kf)).sum(-1, keepdim=True) * vf
     y = (y + bonus).reshape(B, S, H * hd).to(x.dtype)
-    return (rmsnorm(params["ln_out"], y) * g) @ params["wo"]
+    out = (rmsnorm(params["ln_out"], y) * g) @ params["wo"]
+    if capture is None:
+        return out
+    return out, {name: {"state": {"S": states[c["chunk"] + 1]},
+                        "shift": x[:, c["shift_pos"]]}
+                 for name, c in capture.items()}
 
 
 def rwkv6_timemix(params: dict, cfg: SSMCfg, x: torch.Tensor, *,
-                  chunk_parent, prev_idx: torch.Tensor,
-                  valid: torch.Tensor) -> torch.Tensor:
+                  chunk_parent, prev_idx: torch.Tensor, valid: torch.Tensor,
+                  initial_state=None, shift_ctx=None, capture=None):
     """x [B, S, D] (pre-normed) → [B, S, D], recomputed in the backward
-    (``checkpointed``).  chunk_parent: host [B, C]."""
+    (``checkpointed``).  chunk_parent: host [B, C].
+
+    Partition gateway: ``initial_state`` {"S": [B, H, hd, hd]} seeds the
+    root chunks; ``shift_ctx`` [B, T, D] holds the relayed ancestor inputs
+    that prev slots −2, … read; ``capture`` maps a cut name to {"chunk":
+    host int, "shift_pos": index tensor} and makes the call return
+    ``(out, captures)``: per cut the state after that chunk and the inputs
+    at ``shift_pos``."""
     return checkpointed(
-        lambda x_: _timemix(params, cfg, x_, chunk_parent, prev_idx, valid),
-        x)
+        lambda x_: _timemix(params, cfg, x_, chunk_parent, prev_idx, valid,
+                            initial_state, shift_ctx, capture), x)
 
 
 def init_rwkv6_channelmix(generator, d_model: int, d_ff: int,
@@ -143,9 +162,15 @@ def _channelmix(params: dict, x: torch.Tensor,
     return torch.sigmoid(xr @ params["wr"]) * ((kk * kk) @ params["wv"])
 
 
-def rwkv6_channelmix(params: dict, x: torch.Tensor,
-                     prev_idx: torch.Tensor) -> torch.Tensor:
-    return _channelmix(params, x, gather_prev(x, prev_idx))
+def rwkv6_channelmix(params: dict, x: torch.Tensor, prev_idx: torch.Tensor,
+                     shift_ctx=None, capture=None):
+    """x [B, S, D] → [B, S, D]; ``shift_ctx`` and ``capture`` (cut name →
+    {"shift_pos"}) as ``rwkv6_timemix``'s, without a state."""
+    out = _channelmix(params, x, gather_prev(x, prev_idx, shift_ctx))
+    if capture is None:
+        return out
+    return out, {name: {"shift": x[:, c["shift_pos"]]}
+                 for name, c in capture.items()}
 
 
 # ---------------------------------------------------------------------------

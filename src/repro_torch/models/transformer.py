@@ -3,7 +3,7 @@
 Port of ``repro/models/transformer.py`` for those families:
 ``init_params``, ``forward`` (:316, with the Zamba2 hybrid's stages and
 shared attention block, :360), ``partition_forward`` (:398, the session's
-prefill and the partition waves; dense and MoE only), ``partition_loss``
+prefill and the partition waves), ``partition_loss``
 (:477) and ``loss_and_metrics`` (:520).  Parameters keep the reference's layout —
 ``layer_stacks[g]`` holds one scan group of same-kind layers with a leading
 layer dimension — so the weight bridge is an identity rename.  Layers loop
@@ -11,7 +11,8 @@ in Python where the reference scans; each forward unbinds every stacked
 leaf once (``_unstack``), so the backward writes each leaf's gradient once
 instead of one zero-filled whole stack per layer.  The SSM layers
 (``models/ssm``) take the batch's host ``chunk_parent`` and device
-``prev_pows``; their partition gateways are ROADMAP.md Queue A item 4b.
+``prev_pows``, and in a partition their gateway state and conv or shift
+context.
 Enc-dec and VLM raise (later items of Queue A), as does ``remat="full"``
 (item 7).  The reference's ``shard_activation`` and
 ``shard_logits`` are the identity without a device mesh, and the one-card
@@ -24,7 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, map_tree, resolve_device
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import (_dense_init, embed, init_embedding,
                                        init_lm_head, init_mlp, init_rmsnorm,
@@ -139,30 +140,54 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
                  meta: dict, impl: str, gw=None, capspec=None):
     """One decoder layer.  Returns (x, aux, captures): aux is the MoE
     layer's summed aux losses (f32 scalar), None for other kinds.  gw:
-    this layer's gateway ancestor KV ({"attn": {k, v}}) or None; capspec:
-    cut name → {path_idx} positions whose post-rope K/V to capture.  The
-    SSM kinds take neither (their gateways are ROADMAP.md Queue A item
-    4b; ``partition_forward`` refuses those families)."""
+    this layer's gateway or None — ancestor KV {"attn": {k, v}}; RWKV6
+    {"tm": {state, shift}, "cm": {shift}}; Mamba2 and GDN {"ssm": {state,
+    conv}}.  capspec: cut name → {path_idx, cut_chunk (host int),
+    conv_pos, shift_pos}, the positions (and the chunk) whose K/V, state
+    and conv or shift inputs to capture; the captures mirror ``gw``."""
     eps = cfg.norm_eps
+    caps: dict = {}
+    gw = gw or {}
     if kind in ("rwkv6", "mamba2", "gdn"):
         h = rmsnorm(p["ln1"], x, eps)
         ssm_kw = dict(chunk_parent=meta["chunk_parent"], valid=meta["valid"])
         if kind == "rwkv6":
-            x = x + rwkv6_timemix(p["tm"], cfg.ssm, h,
-                                  prev_idx=meta["prev_idx"], **ssm_kw)
-            return x + rwkv6_channelmix(p["cm"], rmsnorm(p["ln2"], x, eps),
-                                        meta["prev_idx"]), None, {}
+            gtm, gcm = gw.get("tm", {}), gw.get("cm", {})
+            cap = None if capspec is None else \
+                {n: {"chunk": s["cut_chunk"], "shift_pos": s["shift_pos"]}
+                 for n, s in capspec.items()}
+            t = rwkv6_timemix(p["tm"], cfg.ssm, h, prev_idx=meta["prev_idx"],
+                              initial_state=gtm.get("state"),
+                              shift_ctx=gtm.get("shift"), capture=cap,
+                              **ssm_kw)
+            if cap is not None:
+                t, caps["tm"] = t
+            x = x + t
+            cap = None if capspec is None else \
+                {n: {"shift_pos": s["shift_pos"]} for n, s in capspec.items()}
+            c = rwkv6_channelmix(p["cm"], rmsnorm(p["ln2"], x, eps),
+                                 meta["prev_idx"], gcm.get("shift"), cap)
+            if cap is not None:
+                c, caps["cm"] = c
+            return x + c, None, caps
+        gs = gw.get("ssm", {})
+        cap = None if capspec is None else \
+            {n: {"chunk": s["cut_chunk"], "conv_pos": s["conv_pos"]}
+             for n, s in capspec.items()}
         layer = mamba2 if kind == "mamba2" else gdn
-        x = x + layer(p["ssm"], cfg.ssm, h, prev_pows=meta["prev_pows"],
-                      **ssm_kw)
+        y = layer(p["ssm"], cfg.ssm, h, prev_pows=meta["prev_pows"],
+                  initial_state=gs.get("state"), conv_ctx=gs.get("conv"),
+                  capture=cap, **ssm_kw)
+        if cap is not None:
+            y, caps["ssm"] = y
+        x = x + y
         if kind == "gdn":
             x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
                         cfg.mlp_activation)
-        return x, None, {}
-    caps: dict = {}
+        return x, None, caps
     cap_idx = None if capspec is None else \
         {n: s["path_idx"] for n, s in capspec.items()}
-    egw = (gw or {}).get("attn")
+    egw = gw.get("attn")
     if egw is not None:
         egw = {**egw, "pos": meta["anc_pos"], "valid": meta.get("anc_valid")}
     a = attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
@@ -206,22 +231,25 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
     """One DFS forward with gateway inputs and captures (a partition wave,
     and the session's parallel prefill).
 
-    gw_in: None or {"g{i}": {"attn": {k, v}}} with a leading layer dim per
-    group; ``batch["anc_pos"]``/``["anc_valid"]`` give the ancestors'
-    positions and validity.  Returns (hidden, aux, captures): aux the
-    summed MoE aux losses, the captures stacked per group like ``gw_in``.
-    SSM and hybrid partitions are ROADMAP.md Queue A item 4b.
+    gw_in: None or {"g{i}": per-group gateway with a leading layer dim
+    (``_apply_layer``'s per-kind layout)}, and for the hybrid
+    {"shared{s}": {"attn": {k, v}}} per application s of the shared
+    block, with a leading layer axis of 1; ``batch["anc_pos"]``/
+    ``["anc_valid"]`` give the ancestors' positions and validity.  Returns
+    (hidden, aux, captures): aux the summed MoE aux losses, the captures
+    stacked like ``gw_in``.
     """
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            f"partitioned {cfg.family!r} forwards (SSM gateway contexts) are "
-            f"not ported yet; see ROADMAP.md Queue A item 4b")
-    meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "anc_pos",
+    meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
+                                  "chunk_parent", "prev_pows", "anc_pos",
                                   "anc_valid") if k in batch}
     x = embed(params["embed"], batch["tokens"])
     gw_in = gw_in or {}
-    caps_all: dict = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        x, caps_all = _hybrid_forward(cfg, params, x, meta, impl, gw_in,
+                                      capspecs)
+        return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caps_all
+    caps_all: dict = {}
     for gi, (stacked, (kind, n)) in enumerate(
             zip(params["layer_stacks"], layer_groups(cfg))):
         gw = gw_in.get(f"g{gi}")
@@ -251,7 +279,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     x = embed(params["embed"], batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
-        x = _hybrid_forward(cfg, params, x, meta, impl)
+        x, _ = _hybrid_forward(cfg, params, x, meta, impl)
     else:
         for stacked, (kind, n) in zip(params["layer_stacks"],
                                       layer_groups(cfg)):
@@ -263,22 +291,41 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def _hybrid_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                    meta: dict, impl: str) -> torch.Tensor:
+                    meta: dict, impl: str, gw_in: Optional[dict] = None,
+                    capspecs: Optional[dict] = None):
     """Zamba2: stages of ``attn_every`` Mamba2 layers, each followed by the
     shared attention block (the same weights every time) on
-    [x ; embed0] @ shared_in; the block's delta joins the residual."""
+    [x ; embed0] @ shared_in; the block's delta joins the residual.  In a
+    partition the stages take their layers' slices of the ``g0`` gateway
+    and application s of the block its ``shared{s}`` gateway.  Returns
+    (x, captures): the stages' captures stitched into one [L, …] stack
+    per leaf under ``g0``, the block's under ``shared{s}`` with a leading
+    axis of 1."""
+    gw_in = gw_in or {}
     emb0 = x
     n = cfg.n_layers
     layers = _unstack(params["layer_stacks"][0], n)
-    for i in range(0, n, cfg.hybrid.attn_every):
-        for lp in layers[i:i + cfg.hybrid.attn_every]:
-            x, _, _ = _apply_layer(cfg, lp, "mamba2", x, meta, impl)
+    gw0 = gw_in.get("g0")
+    gws = [None] * n if gw0 is None else _unstack(gw0, n)
+    caps, caps_all = [], {}
+    for si, i in enumerate(range(0, n, cfg.hybrid.attn_every)):
+        j = i + cfg.hybrid.attn_every
+        for lp, gl in zip(layers[i:j], gws[i:j]):
+            x, _, c = _apply_layer(cfg, lp, "mamba2", x, meta, impl, gl,
+                                   capspecs)
+            caps.append(c)
         h_in = (torch.cat([x, emb0], dim=-1) @ params["shared_in"]
                 if cfg.hybrid.concat_embed else x)
-        h_out, _, _ = _apply_layer(cfg, params["shared_attn"], "dense", h_in,
-                                   meta, impl)
+        gsh = gw_in.get(f"shared{si}")
+        h_out, _, c = _apply_layer(
+            cfg, params["shared_attn"], "dense", h_in, meta, impl,
+            None if gsh is None else map_tree(lambda a: a[0], gsh),
+            capspecs)
+        caps_all[f"shared{si}"] = \
+            map_tree(lambda a: a[None], c) if capspecs else {}
         x = x + (h_out - h_in)
-    return x
+    caps_all["g0"] = _stack_caps(caps) if capspecs else {}
+    return x, caps_all
 
 
 def _token_nll(params: dict, hidden: torch.Tensor, pos: torch.Tensor,

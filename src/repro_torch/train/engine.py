@@ -33,7 +33,7 @@ from repro_torch.core.gateway import (PartitionPlan, _cut_caps_view,
                                       _zeros_f32, acc_tree, assemble_child_gw,
                                       device_capspecs, grad_slots, map2,
                                       partition_vjp, route_child_cot)
-from repro_torch.device import map_tree, to_device, tree_leaves
+from repro_torch.device import map_tree, tree_leaves
 from repro_torch.models.model import device_batch
 from repro_torch.models.transformer import loss_and_metrics, partition_loss
 from repro_torch.train.optimizer import OptimizerConfig
@@ -142,14 +142,15 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
     in place) already normalized.  The loss scalar is scaled the same way;
     nll/weight sums stay raw.  Returns ``(acc, scal)``; no host sync
     happens here: every index is a host-planned offset or a non-blocking
-    copy of a host array."""
+    copy of a host array, and an SSM wave's ``chunk_parent`` and cut
+    chunks stay on the host (``device_batch``, ``device_capspecs``)."""
     dev = scal.device
     st: list[dict] = []
 
     # ---- forward sweep, wave order ---------------------------------------
     with torch.no_grad():
         for wp in plan.waves:
-            batch = to_device(wp.batch, dev)
+            batch = device_batch(wp.batch, dev)
             capspecs = device_capspecs(wp.capspecs, dev,
                                        wp.batch["tokens"].shape[1])
             gw = None

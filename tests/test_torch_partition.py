@@ -3,8 +3,8 @@
 ``core/packing.pack_partition_waves`` and
 ``core/gateway.build_partition_plan`` against the originals, array by
 array, on the same seeded trees (random, agentic, GRPO), every loss mode,
-several capacities, with and without a wave row cap and a replica row
-multiple."""
+several capacities, with and without the SSM chunk grid, a wave row cap
+and a replica row multiple."""
 import numpy as np
 import pytest
 
@@ -93,18 +93,6 @@ def test_tree_extras_match_jax(kind):
             [cb[id(n)] for n in b.nodes()]
 
 
-def test_ssm_only_paths_raise_with_their_roadmap_item():
-    _, tt = _trees("random")
-    with pytest.raises(NotImplementedError, match="Queue A item 4b"):
-        tpart.partition_tree(tt[0], 32, chunk_size=8)
-    with pytest.raises(NotImplementedError, match="Queue A item 4b"):
-        tpack.pack_partition_waves([tpart.partition_tree(tt[0], 32)], 32,
-                                   chunk_size=8)
-    with pytest.raises(NotImplementedError, match="Queue A item 4b"):
-        tgw.build_partition_plan(config_from_jax(tiny_cfg("ssm_mamba2")),
-                                 tt, 32)
-
-
 @pytest.mark.parametrize("max_len", [1, 3, 5])
 def test_split_long_nodes_matches_jax(max_len):
     jt, tt = _trees("random")
@@ -116,27 +104,37 @@ def test_split_long_nodes_matches_jax(max_len):
         assert len(oa) == len(ob) == sa.num_nodes()
 
 
+@pytest.mark.parametrize("chunk", [None, 8])
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("capacity", [24, 40, 64])
-def test_partition_tree_forest_matches_jax(kind, capacity):
-    """Every partition's serialization, ancestry, cuts, capture paths and
-    boundary losses, plus the schedule load and token-count helpers."""
+def test_partition_tree_forest_matches_jax(kind, capacity, chunk):
+    """Every partition's serialization, ancestry, cuts (with the chunk
+    holding each cut's state on the chunk grid), capture paths and
+    boundary losses, plus the schedule load, the token-count helpers (the
+    ancestors' chunk pad included) and the chosen capacity."""
     jt, tt = _trees(kind)
     mode = _mode(kind)
     for a, b in zip(jt, tt):
-        jp = jpart.partition_tree(a, capacity, loss_mode=mode)
-        tp = tpart.partition_tree(b, capacity, loss_mode=mode)
+        jp = jpart.partition_tree(a, capacity, chunk_size=chunk,
+                                  loss_mode=mode)
+        tp = tpart.partition_tree(b, capacity, chunk_size=chunk,
+                                  loss_mode=mode)
         _same_forest(jp, tp)
+        if chunk:
+            assert all(p.ser.n % chunk == 0 for p in tp)
+            assert any(c.cut_chunk >= 0 for p in tp for c in p.cuts) \
+                or len(tp) == 1
         assert jpart.partition_schedule_load(jp) == \
             tpart.partition_schedule_load(tp)
         assert jpart.partition_token_counts(jp) == \
             tpart.partition_token_counts(tp)
         assert jpart.standard_partition_token_counts(
-            a, capacity, loss_mode=mode) == \
+            a, capacity, chunk_size=chunk, loss_mode=mode) == \
             tpart.standard_partition_token_counts(b, capacity,
+                                                  chunk_size=chunk,
                                                   loss_mode=mode)
-    assert jpart.choose_capacity(jt, 2 * capacity) == \
-        tpart.choose_capacity(tt, 2 * capacity)
+    assert jpart.choose_capacity(jt, 2 * capacity, chunk_size=chunk) == \
+        tpart.choose_capacity(tt, 2 * capacity, chunk_size=chunk)
 
 
 def test_partition_tree_with_an_external_lam_map_matches_jax():
@@ -151,20 +149,24 @@ def test_partition_tree_with_an_external_lam_map_matches_jax():
                      tpart.partition_tree(b, 32, lam_map=lam_b))
 
 
-def _forests(kind, capacity, seed=11, n=4):
+def _forests(kind, capacity, seed=11, n=4, chunk=None):
     jt, tt = _trees(kind, seed, n)
-    mode = _mode(kind)
-    return ([jpart.partition_tree(t, capacity, loss_mode=mode) for t in jt],
-            [tpart.partition_tree(t, capacity, loss_mode=mode) for t in tt])
+    kw = dict(chunk_size=chunk, loss_mode=_mode(kind))
+    return ([jpart.partition_tree(t, capacity, **kw) for t in jt],
+            [tpart.partition_tree(t, capacity, **kw) for t in tt])
 
 
+@pytest.mark.parametrize("chunk", [None, 8])
 @pytest.mark.parametrize("kind", ["random", "agentic"])
 @pytest.mark.parametrize("max_rows", [None, 2])
-def test_pack_partition_waves_matches_jax(kind, max_rows):
-    """Wave topology (slots, cuts) and every [B, S] column."""
-    jf, tf = _forests(kind, 40)
-    jw = jpack.pack_partition_waves(jf, 48, max_rows=max_rows)
-    tw = tpack.pack_partition_waves(tf, 48, max_rows=max_rows)
+def test_pack_partition_waves_matches_jax(kind, max_rows, chunk):
+    """Wave topology (slots, cuts with their row-shifted cut chunks) and
+    every [B, S] column, the per-row ``chunk_parent`` maps included."""
+    jf, tf = _forests(kind, 40, chunk=chunk)
+    jw = jpack.pack_partition_waves(jf, 48, chunk_size=chunk,
+                                    max_rows=max_rows)
+    tw = tpack.pack_partition_waves(tf, 48, chunk_size=chunk,
+                                    max_rows=max_rows)
     assert len(jw) == len(tw) >= 2
     for a, b in zip(jw, tw):
         assert a.arrays.keys() == b.arrays.keys()
@@ -178,16 +180,21 @@ def test_pack_partition_waves_matches_jax(kind, max_rows):
                 == {k: v for k, v in vars(cb).items() if k != "path_idx"}
         if max_rows:
             assert b.num_rows <= max_rows
+        assert ("chunk_parent" in b.arrays) == (chunk is not None)
 
 
+@pytest.mark.parametrize("family", ["dense", "ssm_mamba2", "hybrid"])
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("max_rows,row_multiple", [(None, 1), (2, 1),
                                                    (3, 2)])
-def test_build_partition_plan_matches_jax(kind, max_rows, row_multiple):
-    """Every wave's batch (anc_pos, anc_valid, extra_*, the padded rows),
-    capture plans, gateway topology (parents, slot_rows, A_real,
-    anc_A_max, ancestor positions per row) and the plan's info."""
-    jcfg = tiny_cfg("dense")
+def test_build_partition_plan_matches_jax(kind, max_rows, row_multiple,
+                                         family):
+    """Every wave's batch (anc_pos, anc_valid, extra_*, the padded rows,
+    and for the SSM families chunk_parent and prev_pows), capture plans
+    (cut chunks, conv and shift positions), gateway topology (parents,
+    slot_rows, A_real, anc_A_max, ancestor positions per row) and the
+    plan's info."""
+    jcfg = tiny_cfg(family)
     jt, tt = _trees(kind)
     mode = _mode(kind)
     jp = jgw.build_partition_plan(jcfg, jt, 32, seq_len=48, loss_mode=mode,

@@ -5,9 +5,9 @@ every gradient at max-rel 1e-4 (the bar of tests/test_equivalence.py);
 the tree ≡ per-branch baseline identity (Eq. 5) with tree state routing
 inside the port; the decode session (prefill through the step loop, fork,
 steps) against the reference's at atol = rtol = 5e-4
-(tests/test_serve.py); the step loop against the packed forward; the
-launcher on the three new archs; and the refusal of SSM partition waves
-(ROADMAP.md Queue A item 4b)."""
+(tests/test_serve.py); the step loop against the packed forward; and the
+launcher on the three new archs (their partitions and waves are held in
+tests/test_torch_ssm_partition.py and tests/test_torch_ssm_waves.py)."""
 import os
 import subprocess
 import sys
@@ -19,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from conftest import branching_tree, tiny_cfg  # noqa: E402
+from conftest import tiny_cfg  # noqa: E402
 from repro.core.packing import pack_linear_paths as jpack_paths  # noqa: E402
 from repro.core.packing import pack_trees as jpack_trees  # noqa: E402
 from repro.core.tree import serialize_tree as jserialize  # noqa: E402
@@ -27,19 +27,14 @@ from repro.data.synthetic import trees_for_batch as jtrees  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.serve.session import DecodeSession as JaxSession  # noqa: E402
 from repro_torch.bridge import config_from_jax, params_from_jax  # noqa: E402
-from repro_torch.core.gateway import build_partition_plan  # noqa: E402
-from repro_torch.core.packing import (pack_linear_paths,  # noqa: E402
-                                      pack_partition_waves, pack_trees)
-from repro_torch.core.partition import partition_tree  # noqa: E402
+from repro_torch.core.packing import pack_linear_paths  # noqa: E402
+from repro_torch.core.packing import pack_trees  # noqa: E402
 from repro_torch.core.tree import serialize_tree  # noqa: E402
-from repro_torch.data.loader import LoaderConfig  # noqa: E402
 from repro_torch.data.synthetic import trees_for_batch  # noqa: E402
 from repro_torch.device import map_tree, tree_leaves  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.layers import logits_from_hidden  # noqa: E402
-from repro_torch.models.transformer import partition_forward  # noqa: E402
 from repro_torch.serve.session import DecodeSession  # noqa: E402
-from repro_torch.train.planner import plans  # noqa: E402
 from repro_torch.train.train_step import value_and_grad  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -219,27 +214,6 @@ def test_launcher_smoke_on_cpu(tmp_path, arch):
     assert res.returncode == 0, res.stderr
     assert "(2 host syncs / 2 steps)" in res.stdout
     assert "nan" not in res.stdout
-
-
-def test_ssm_partition_paths_raise_naming_item_4b():
-    jcfg, _, tcfg, tp = _setup("ssm_mamba2")
-    tree = branching_tree(0)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        partition_tree(tree, 64, chunk_size=8)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        pack_partition_waves([], 64, chunk_size=8)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        build_partition_plan(tcfg, [tree], 64)
-    _, tb = _batches(jcfg, tcfg)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        partition_forward(tcfg, tp, tb, None, None, "kernel")
-    # the planner routes an oversized SSM tree to partitions: it raises
-    lc = LoaderConfig(seq_len=128, batch_rows=2, trees_per_batch=2,
-                      kind="agentic", auto_partition=True, capacity=64,
-                      gen_kwargs=dict(turn_len_range=(40, 80), num_turns=3))
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        for ps in plans(tcfg, lc, 2):
-            ps.execution_plan()
 
 
 @pytest.mark.parametrize("family", ["ssm_rwkv6", "hybrid"])

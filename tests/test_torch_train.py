@@ -406,14 +406,3 @@ def test_engine_grads_are_freed_without_the_cycle_collector():
         assert all(r() is None for r in refs)
     finally:
         gc.enable()
-
-
-def test_plan_with_partition_waves_raises():
-    """Partition waves run now (tests/test_torch_waves.py); what still
-    raises is a wave plan for a family whose gateway is not ported (the
-    SSM contexts, ROADMAP.md Queue A item 4)."""
-    from repro_torch.core.gateway import build_partition_plan
-    tcfg = config_from_jax(tiny_cfg("ssm_mamba2"))
-    trees = trees_for_batch(5, n_trees=2, kind="random", vocab_size=89)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        build_partition_plan(tcfg, trees, 16, seq_len=32)

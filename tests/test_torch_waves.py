@@ -61,6 +61,17 @@ def _trees(*specs):
 THREE = ((0, 60, 120), (40, 60, 120), (80, 30, 70))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these tests run many tiny ops (the chunk loop,
+    the wave executor), and on a loaded machine torch's spinning thread
+    pool made one of them 15x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(jcfg, seed=0):
     jp = jmodel.init_params(jcfg, jax.random.key(seed))
     return jp, config_from_jax(jcfg), params_from_jax(
@@ -158,22 +169,46 @@ def test_recursive_driver_matches_wave_driver():
     assert _max_rel(tree_leaves(wg), [g.numpy() for g in rg]) < 1e-4
 
 
-def test_assemble_child_gw_and_route_child_cot_are_adjoint():
+def _adjoint_case(family, A_in, P, rnd):
+    """A gateway (None when A_in is 0) and captures at cuts c0 and c1 with
+    random leaves: ancestor K/V of A_in tokens and P captured ones for the
+    dense family; for the SSM one a Mamba2 group (state, a conv tail of
+    A_in and P tokens) and an RWKV6 group (tm state and shift, cm shift,
+    tails of 1 and min(P, 1))."""
+    if family == "dense":
+        kv = lambda t: {k: rnd(2, 1, t, 2, 4) for k in ("k", "v")}
+        gw = None if A_in == 0 else {"g0": {"attn": kv(A_in)}}
+        return gw, {"g0": {"attn": {"c0": kv(P), "c1": kv(2)}}}
+    ssm = lambda t: {"state": {"h": rnd(2, 1, 3, 4, 2)},
+                     "conv": rnd(2, 1, t, 5)}
+    rwkv = lambda t: ({"state": {"S": rnd(2, 1, 2, 2, 2)},
+                       "shift": rnd(2, 1, t, 6)}, {"shift": rnd(2, 1, t, 6)})
+    gw = None
+    if A_in:
+        tm, cm = rwkv(1)
+        gw = {"g0": {"ssm": ssm(A_in)}, "g1": {"tm": tm, "cm": cm}}
+    caps = {"g0": {"ssm": {"c0": ssm(P), "c1": ssm(2)}}, "g1": {}}
+    caps["g1"]["tm"], caps["g1"]["cm"] = {}, {}
+    for c in ("c0", "c1"):
+        caps["g1"]["tm"][c], caps["g1"]["cm"][c] = rwkv(1)
+    return gw, caps
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm_mamba2"])
+def test_assemble_child_gw_and_route_child_cot_are_adjoint(family):
     """⟨assemble(gw, caps), c⟩ == ⟨(gw, caps), route(c)⟩ for random
     tensors, with and without pass-through ancestors — the defining
-    property of a correct transpose (tests/test_gateway_units.py:10)."""
-    tcfg = config_from_jax(tiny_cfg("dense"))
+    property of a correct transpose (tests/test_gateway_units.py:10).  The
+    SSM case keeps the last max(1, K − 1) = 3 conv and 1 shift tokens."""
+    tcfg = config_from_jax(tiny_cfg(family))
     g = torch.Generator().manual_seed(0)
     rnd = lambda *sh: torch.randn(*sh, generator=g)
-    for A_in, P in ((0, 5), (3, 4), (7, 1)):
-        shape = lambda t: (2, 1, t, 2, 4)          # [L, B, T, Kh, hd]
-        gw = None if A_in == 0 else {"g0": {"attn": {
-            t: rnd(*shape(A_in)) for t in ("k", "v")}}}
-        caps = {"g0": {"attn": {"c0": {t: rnd(*shape(P))
-                                       for t in ("k", "v")},
-                                "c1": {t: rnd(*shape(2))
-                                       for t in ("k", "v")}}}}
+    for A_in, P in ((0, 5), (3, 4), (7, 1), (2, 1), (0, 2)):
+        gw, caps = _adjoint_case(family, A_in, P, rnd)
         child = tgw.assemble_child_gw(tcfg, gw, caps, "c0")
+        if family != "dense":
+            assert child["g0"]["ssm"]["conv"].shape[2] == min(3, A_in + P)
+            assert child["g1"]["cm"]["shift"].shape[2] == 1
         c = map_tree(lambda a: rnd(*a.shape), child)
         dot = lambda xs, ys: sum(float((a.double() * b.double()).sum())
                                  for a, b in zip(xs, ys))
@@ -186,8 +221,9 @@ def test_assemble_child_gw_and_route_child_cot_are_adjoint():
         if gw is not None:
             rhs += dot(tree_leaves(gw), tree_leaves(cot_gw))
         np.testing.assert_allclose(lhs, rhs, rtol=1e-6)
-        assert all(float(x.abs().max()) == 0 for x in
-                   tree_leaves(cot_caps["g0"]["attn"]["c1"]))
+        assert all(float(x.abs().max()) == 0 for x in tree_leaves(
+            {k: {kind: cuts["c1"] for kind, cuts in grp.items()}
+             for k, grp in cot_caps.items()}))
 
 
 def _mixed_plans(jcfg, tcfg, jt, tt, fits_j, fits_t):
@@ -243,7 +279,7 @@ def test_wave_remat_recomputes_the_captures_bit_identically():
     _, tt = _trees(*THREE)
     plan = tgw.build_partition_plan(tcfg, tt, 40, seq_len=48, max_rows=2)
     wp = next(w for w in plan.waves if w.capspecs and not w.has_gw)
-    batch = tgw.to_device(wp.batch, torch.device("cpu"))
+    batch = tmodel.device_batch(wp.batch, torch.device("cpu"))
     caps = tgw.device_capspecs(wp.capspecs, torch.device("cpu"), 48)
     with torch.no_grad():
         (_, c0), _ = tmodel_partition_loss(tcfg, tp, batch, caps)
