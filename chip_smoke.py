@@ -85,6 +85,48 @@ Phases, each of which ends the run non-zero if it fails:
                   from a CUDA graph (SDPA's backward: a graph of forward
                   and backward less one of the forward, since autograd
                   runs the backward on the forward's stream).
+ 11a. rl loop   — the async tree-RL loop, Qwen2-1.5B at full width and
+                  depth, through ``repro_torch.launch.rl_loop.main``: prompt
+                  1024, K 8, 2 rows of 4096, lookahead 1, --check-grads;
+                  --groups and --max-new chosen so that a train step takes
+                  at least 1.2x a step's generation, reckoned from phases 4
+                  and 6 (both printed).  At --max-ahead 1 for 6 steps (steps
+                  3-4 profiled with both threads live: device-busy share,
+                  kernel time by family and by stream, the longest idle
+                  gaps), then on-policy at --max-ahead 0 for 3 steps; the
+                  per-step wall of steps 1-2 of the two compared.  Per step:
+                  ms, wall, loss, lag, peak GB, the trainer thread's
+                  synchronizing calls (exactly 1: counted by thread under
+                  set_sync_debug_mode('warn'); the generator's own syncs
+                  are reported apart) and the trainer's launches (28 of each
+                  kernel), the launches counted per thread; the generator
+                  launches 28 forwards a group prefill and no backward.
+                  0 dropped, lag within max_ahead + lookahead - 1, the
+                  launcher's overlap check, and no step's peak more than
+                  one weight snapshot above step 1's.  After each group the
+                  CUDA-graph pools (the allocator's segments outside its
+                  default pool) hold the bytes they held after the first:
+                  a group's graph memory goes with its session.  The
+                  allocator never flushed its cache in the loop (while a
+                  decode graph captures it cannot, and would raise out of
+                  memory instead); reserved and free device memory after
+                  the loop are printed.
+ 11b. rl parity — (a) a frozen rollout group's online plan-path grads vs the
+                  offline RL grads: full depth bf16 (11a's --check-grads) and
+                  4 layers f32, each ≤ 1e-6 max-rel; (b) a sampled group
+                  (temperature 1, fixed seed) from a just-published
+                  snapshot, on a stream of its own, while the trainer runs
+                  2 steps, then from the same weights alone: equal tokens
+                  and every prefill and decode logit torch.equal; (b') a
+                  greedy group whose stream first sleeps, so that its reads
+                  of the snapshot are still queued when its thread drops
+                  its last reference, the trainer then publishing twice
+                  (the store drops the snapshot, the step allocates): its
+                  logits torch.equal the greedy group's alone, and its work
+                  was still queued after the two steps; the same with
+                  ``record_stream`` disabled is printed as a control; (c)
+                  after every publish the snapshot equals the trainer's
+                  params.
 Then the MoE model, Qwen3-30B-A3B (H 32, Kh 4, 128 experts top-8), once
 the dense model's tensors are freed:
  12. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
@@ -181,6 +223,10 @@ each at full width and depth, once the other archs' tensors are freed:
  30. <arch> train parity — 4 layers f32: (a) kernel vs plain (Zamba2),
                   (b) tree vs per-branch baseline (tree state routing),
                   loss 1e-5, grads max-rel 1e-4.
+ 30a. zamba2 rl loop — phase 11a at Zamba2-1.2B's full width and depth
+                  (prompt 512, K 8, 32 new tokens, 1 group, 3 steps,
+                  --max-ahead 1): no kernel launch in generation (its
+                  sessions step the prompt), 7 of each kernel a train step.
  31. timing H 32/Kh 32 hd 64 — phase 11's timing at the prefill and at
                   the chunk-padded train rows, with the attention share of
                   a Zamba2 step.
@@ -190,7 +236,9 @@ each at full width and depth, once the other archs' tensors are freed:
 
 The line before the last names the card and its power limit; the one before
 it lists the kernels (each with its MoE-shape numbers under ``moe``, its
-W numbers under ``wave``, the five archs' layouts under ``archs``,
+W numbers under ``wave``, the rl loops' launches (per train step, in
+generation; Zamba2's too) under ``rl``, the five archs' layouts under
+``archs``,
 Zamba2's layout, the SSM wave steps' launches and ZW under ``ssm``, and
 every instance its source built, with
 registers, spills, HGMMA and UTMALDG, under ``instances``); the
@@ -200,6 +248,7 @@ Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -207,6 +256,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -226,12 +276,13 @@ from repro_torch.core.tree import (TrajectoryTree, TreeNode,  # noqa: E402
                                    serialize_tree)
 from repro_torch.data.loader import LoaderConfig, tree_stream  # noqa: E402
 from repro_torch.data.synthetic import agentic_tree, random_tree  # noqa: E402
-from repro_torch.device import flatten_tree, map_tree  # noqa: E402
+from repro_torch.device import flatten_tree, map_tree, tree_leaves  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
 from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
 from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
                                      tree_attention_ref_ext)
+from repro_torch.launch import rl_loop  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import logits_from_hidden  # noqa: E402
@@ -241,7 +292,10 @@ from repro_torch.models.model import (batch_arrays,  # noqa: E402
 from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.rollout import (RolloutConfig, rollout_group,  # noqa: E402
                                        sample_tokens)
-from repro_torch.serve.session import DecodeSession  # noqa: E402
+from repro_torch.serve import service  # noqa: E402
+from repro_torch.serve.service import WeightStore  # noqa: E402
+from repro_torch.serve.session import (CAPTURE_LOCK,  # noqa: E402
+                                       DecodeSession, GraphPool)
 from repro_torch.train import engine as train_engine  # noqa: E402
 from repro_torch.train.engine import (ExecutionPlan, PackedExec,  # noqa: E402
                                       TreeTrainEngine)
@@ -278,6 +332,25 @@ WAVE_GEN = dict(num_turns=3, turn_len_range=(256, 1536), max_parallel_tools=2)
 WAVE_BATCHES, WAVE_TREES, WAVE_SEED, WAVE_LOOKAHEAD = 4, 2, 1, 2
 WAVE_MIN_ANC = 2048           # some gateway wave must carry this many
 PARITY_CAP, PARITY_ROW, PARITY_TOKENS = 2048, 8192, (6000, 8000)
+# the async tree-RL loop (rl_loop.main), Qwen2-1.5B: RL_K branches on a
+# prompt of RL_PROMPT, RL_LOOP_STEPS steps at --max-ahead 1 (steps
+# RL_PROFILE profiled, both threads live; RL_GAPS longest idle gaps listed)
+# and RL_LOOP_STEPS_A0 on-policy; --groups and --max-new are the most
+# generation a step whose groups take at most 1/RL_TRAIN_OVER_GEN of a
+# train step (by this run's serve and train phases), max_new from
+# RL_MAX_NEW; rl parity's
+# concurrent group decodes RL_PARITY_NEW tokens beside RL_PARITY_STEPS
+# train steps.  The generator's thread name tells its launches and syncs
+# from the trainer's.
+RL_ARCH, RL_K, RL_PROMPT = "qwen2_1p5b", 8, 1024
+RL_LOOP_STEPS, RL_LOOP_STEPS_A0 = 6, 3
+RL_PROFILE, RL_GAPS, RL_TRAIN_OVER_GEN = (3, 4), 8, 1.2
+RL_MAX_NEW = (64, 48, 32, 24, 16, 12, 8, 4)
+RL_PARITY_NEW, RL_PARITY_STEPS = 64, 2
+# rl parity (b'): the GPU clock cycles its stream sleeps (about 3 s at the
+# H100's 1.98 GHz boost) before its decode steps read the snapshot
+RL_HOLD_CYCLES = 6_000_000_000
+RL_GEN_THREAD = "tree-rl-gen"
 # the MoE model (Qwen3-30B-A3B): its attention heads and the depth it
 # trains at; a serving run's weights and work may take PEAK_LIMIT of the
 # card, 6 GB of it for the caches, activations and parity replays
@@ -929,7 +1002,11 @@ def multiturn(cfg, params, impl: str, gen=None, record=None,
         t0 = time.perf_counter()
         out = fn(toks)
         torch.cuda.synchronize()
-        timing[f"{kind}_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if not timing[f"{kind}_tok"]:
+            # the 1024-token prefill; the decode step that captures
+            timing[f"first_{kind}_s"] = dt
+        timing[f"{kind}_s"] += dt
         timing[f"{kind}_tok"] += n_tok
         timing["kinds"].append(kind)
         check(bool(torch.isfinite(out).all()), f"non-finite logits ({impl})")
@@ -968,9 +1045,12 @@ def phase_serve(cfg, params, tag: str = "serve", groups: int = 4):
     n_prefill = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
+        group_s = []
         for g in range(groups):
             prompt = rng.integers(0, cfg.vocab_size, rc.prompt_len)
+            tg = time.perf_counter()
             tree, st = rollout_group(cfg, params, prompt, rc, gen)
+            group_s.append(time.perf_counter() - tg)   # it ends in a sync
             n_prefill += 1
             check(st.prefill_tokens == rc.prompt_len,
                   f"group {g}: prefill_tokens {st.prefill_tokens}")
@@ -983,6 +1063,7 @@ def phase_serve(cfg, params, tag: str = "serve", groups: int = 4):
         torch.cuda.synchronize()
         t_groups = time.perf_counter() - t0
         calls, logits, tm = multiturn(cfg, params, "kernel", gen)
+        tm["group_s"] = statistics.median(group_s)
         n_prefill += 2
     counts = launch_counts()
     launches = counts["tree_attention_fwd"]
@@ -1289,10 +1370,13 @@ def profile_step(step, name: str = "train_step_trace",
 
 
 def report_trace(trace_events, what: str = "train step",
-                 annotations: tuple = ()) -> None:
+                 annotations: tuple = (), gaps: int = 0,
+                 by_stream: bool = False) -> None:
     """``profile_step``'s report from the events of a Chrome trace that
     holds one ``train_step`` annotation; ``annotations`` names
-    ``record_function`` ranges whose kernels' device time is reported."""
+    ``record_function`` ranges whose kernels' device time is reported;
+    ``gaps``: that many longest idle gaps of the device in the window;
+    ``by_stream``: kernel time by CUDA stream."""
     events = [e for e in trace_events if e.get("ph") == "X"]
     marks = [e for e in events if e.get("name") == "train_step"
              and e.get("cat") == "user_annotation"]
@@ -1345,6 +1429,30 @@ def report_trace(trace_events, what: str = "train step",
                                             key=lambda kv: -kv[1][1]))
         + f"; device idle {(win - busy) / 1e3:.3f} ms / "
         f"{100 * (win - busy) / win:.1f}%")
+    if by_stream:
+        streams = {}
+        for e in dev:
+            if e["cat"] == "kernel" and t0 <= e["ts"] < t1:
+                sid = e.get("args", {}).get("stream", "?")
+                n, d = streams.get(sid, (0, 0.0))
+                streams[sid] = (n + 1, d + e["dur"])
+        log("profile: kernel time by CUDA stream (kernels, ms, share of the "
+            "window): " + "; ".join(
+                f"stream {sid} {n} / {d / 1e3:.3f} ms / {100 * d / win:.1f}%"
+                for sid, (n, d) in sorted(streams.items(),
+                                          key=lambda kv: -kv[1][1])))
+    if gaps:
+        idle, end = [], t0
+        for a, b in spans:
+            if a > end:
+                idle.append((a - end, end))
+            end = max(end, b)
+        if t1 > end:
+            idle.append((t1 - end, end))
+        log(f"profile: the {gaps} longest idle gaps of the device (ms, at "
+            f"ms into the window): " + ", ".join(
+                f"{d / 1e3:.3f} at {(at - t0) / 1e3:.3f}"
+                for d, at in sorted(idle, reverse=True)[:gaps]))
     # the host op that launched each kernel: the outermost op of its thread
     # around the launch call (on autograd's thread, the node it evaluates)
     launch = {e["args"]["correlation"]: e for e in events
@@ -1867,6 +1975,527 @@ def phase_wave_parity(cfg, params, tag: str = "wave parity",
         lz, gz = ctl["zeroed tails"]
         check(not (lz <= 1e-2 and gz <= l2_bar),
               f"{tag} (b): the zeroed-tails control passed the bar")
+
+
+# --------------------------------------------------------------------------
+# the async tree-RL loop: a generation thread beside the trainer
+# --------------------------------------------------------------------------
+
+class ThreadCount:
+    """A kernel's launch count kept per thread name: the wrapper's
+    ``fn.launches += 1`` calls ``__iadd__``, so the generator's launches
+    (RL_GEN_THREAD) and the trainer's (its thread and autograd's device
+    thread) are told apart."""
+
+    def __init__(self):
+        self.by: dict = {}
+        self.lock = threading.Lock()
+
+    def __iadd__(self, n: int):
+        name = threading.current_thread().name
+        with self.lock:
+            self.by[name] = self.by.get(name, 0) + n
+        return self
+
+    def split(self) -> tuple[int, int]:
+        """(the trainer's launches, the generator's)."""
+        with self.lock:
+            gen = self.by.get(RL_GEN_THREAD, 0)
+            return sum(self.by.values()) - gen, gen
+
+
+class SyncLog:
+    """While active, ``torch.cuda.set_sync_debug_mode('warn')`` is on in
+    the whole process and every synchronizing call's warning is counted by
+    the thread that raised it: autograd replays its device thread's
+    warnings on the thread that called the backward, so the trainer's
+    thread sees its whole step's.  Other warnings pass through."""
+
+    def __init__(self):
+        self.by: dict = {}
+        self.lock = threading.Lock()
+
+    def count(self, name: str) -> int:
+        with self.lock:
+            return self.by.get(name, 0)
+
+    def _hook(self, message, category, filename, lineno, file=None,
+              line=None):
+        if "called a synchronizing" in str(message):
+            name = threading.current_thread().name
+            with self.lock:
+                self.by[name] = self.by.get(name, 0) + 1
+        else:
+            self._show(message, category, filename, lineno, file, line)
+
+    def __enter__(self):
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._hook
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._cm.__exit__(*exc)
+
+
+class StepAudit:
+    """While active, wraps ``TreeTrainEngine.step`` (the launcher's steps
+    only: the warm-up and the gradient check do not step) and records per
+    step the trainer thread's synchronizing calls, the trainer's kernel
+    launches, and the device memory allocated and reserved after it.  With
+    ``profile=(a, b)`` steps a..b run under torch.profiler, both threads
+    live, inside one ``train_step`` annotation; the trace is reported after
+    the loop."""
+
+    def __init__(self, syncs: SyncLog, counters: dict, profile=None):
+        self.syncs, self.counters, self.profile = syncs, counters, profile
+        self.rows: list = []
+        self.prof = None
+
+    def __enter__(self):
+        self._orig = orig = TreeTrainEngine.step
+        audit = self
+
+        def step(engine, params, opt_state, plan):
+            i = len(audit.rows)
+            name = threading.current_thread().name
+            if audit.profile and i == audit.profile[0]:
+                from torch.profiler import (ProfilerActivity, profile,
+                                            record_function)
+                audit.prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                with CAPTURE_LOCK:  # not while the generator captures
+                    audit.prof.start()
+                audit.mark = record_function("train_step")
+                audit.mark.__enter__()
+            s0 = audit.syncs.count(name)
+            l0 = {k: c.split()[0] for k, c in audit.counters.items()}
+            h0 = engine.host_syncs
+            out = orig(engine, params, opt_state, plan)
+            audit.rows.append(dict(
+                syncs=audit.syncs.count(name) - s0,
+                host_syncs=engine.host_syncs - h0,
+                launches={k: c.split()[0] - l0[k]
+                          for k, c in audit.counters.items()},
+                alloc_gb=torch.cuda.memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.memory_reserved() / 1e9))
+            if audit.profile and i == audit.profile[1]:
+                audit.mark.__exit__(None, None, None)
+                with CAPTURE_LOCK:  # its stop syncs the device
+                    torch.cuda.synchronize()
+                    audit.prof.stop()
+            return out
+
+        TreeTrainEngine.step = step
+        return self
+
+    def __exit__(self, *exc):
+        TreeTrainEngine.step = self._orig
+
+
+def graph_pool_bytes() -> tuple[int, int]:
+    """(bytes in use, bytes reserved) in the CUDA-graph pools: the caching
+    allocator's segments outside its default pool."""
+    used = held = 0
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg["segment_pool_id"]) != (0, 0):
+            used += seg["allocated_size"]
+            held += seg["total_size"]
+    return used, held
+
+
+def rl_shape(tm: dict, step_s: float) -> tuple:
+    """(groups, max_new, predicted generation seconds a step, a group's
+    fixed s, a new token's s): the most generation a step whose groups take
+    at most 1/RL_TRAIN_OVER_GEN of a train step, reckoned from this run's
+    serve phase and train phase (the median step).  A group costs its
+    prefill (the session's 1024-token prefill) and the extra time of its
+    first decode step, which captures the session's graph (the session's
+    first step less its mean replayed step), then a new token's time, from
+    the median of the serve phase's groups of 64 new tokens.  Where no
+    shape meets the rule (a slow host), the smallest runs and the reading
+    is printed."""
+    prefill_s = tm["first_prefill_s"] * RL_PROMPT / 1024
+    n = tm["decode_tok"] // RL_K
+    capture_s = tm["first_decode_s"] - (
+        tm["decode_s"] - tm["first_decode_s"]) / (n - 1)
+    fixed_s = prefill_s + capture_s
+    tok_s = max(tm["group_s"] - fixed_s, 0.0) / 63
+    for groups in (2, 1):
+        for max_new in RL_MAX_NEW:
+            gen_s = groups * (fixed_s + (max_new - 1) * tok_s)
+            if (RL_TRAIN_OVER_GEN * gen_s <= step_s
+                    and RL_PROMPT + RL_K * max_new <= TRAIN_SEQ):
+                return groups, max_new, gen_s, fixed_s, tok_s
+    return 1, RL_MAX_NEW[-1], gen_s, fixed_s, tok_s
+
+
+def run_rl(cfg, argv: list, tag: str, profile=None) -> tuple:
+    """``rl_loop.main(argv)`` with the kernels' launches counted per
+    thread, the synchronizing calls counted per thread and each step
+    audited (``StepAudit``), and the graph pools' bytes read after each
+    rollout group in the generator's thread.  Prints a line a step and the
+    generator's totals; returns (main's record, the step rows, the
+    generator's launches, the audit)."""
+    counters = {name: ThreadCount() for name in KERNELS}
+    for name, fn in KERNELS.items():
+        fn.launches = counters[name]
+    group, pools = service.rollout_group, []
+
+    def pooled(*args, **kw):
+        out = group(*args, **kw)        # its sessions are gone on return
+        pools.append(graph_pool_bytes())
+        return out
+
+    service.rollout_group = pooled
+    try:
+        with SyncLog() as syncs, StepAudit(syncs, counters,
+                                           profile) as audit:
+            res = rl_loop.main(argv)
+    finally:
+        reset_launches()
+        service.rollout_group = group
+    gen = {k: c.split()[1] for k, c in counters.items()}
+    # the attention layers a forward runs (Zamba2: its shared block's
+    # applications)
+    L = cfg.n_layers if cfg.hybrid is None else shared_apps(cfg)
+    for m, row in zip(res["history"], audit.rows):
+        log(f"{tag} step {m['step']}: {m['ms']:.1f} ms (wall "
+            f"{m['wall_ms']:.1f} ms), loss {m['loss']:.4f}, lag "
+            f"{m.get('max_lag')}, versions {m['versions']}, peak "
+            f"{m['peak_gb']:.2f} GB, allocated after {row['alloc_gb']:.2f} "
+            f"GB, reserved {row['reserved_gb']:.2f} GB; trainer syncs "
+            f"{row['syncs']} (engine {row['host_syncs']}), trainer launches "
+            f"{row['launches']}")
+    st = res["stats"]
+    log(f"{tag}: generator thread: launches {gen} over "
+        f"{st.trees_generated} groups, synchronizing calls "
+        f"{syncs.count(RL_GEN_THREAD)} (its own, left out of the "
+        f"trainer's); {st.trees_generated} trees, {res['dropped']} "
+        f"dropped, wall {res['wall_s']:.3f} s, max lag {res['max_lag_seen']} (bound "
+        f"{res['lag_bound']}), generation busy {st.gen_busy_s * 1e3:.1f} ms, "
+        f"exposed {res['exposed_s'] * 1e3:.1f} ms, overlap "
+        f"{100 * res['overlap']:.1f}%, prefill {st.prefill_tokens} tokens "
+        f"(+{st.saved_prefill_tokens} reused), decode {st.decode_tokens} "
+        f"tokens, {res['plans_built']} plans built "
+        f"({res['plan_build_s'] * 1e3:.1f} ms), warm-up "
+        f"{res['warmup_s']:.2f} s")
+    mem = res["memory"]
+    log(f"{tag}: graph pools after each of {len(pools)} groups (MB in use, "
+        f"reserved): {[(u / 1e6, h / 1e6) for u, h in pools]}; device "
+        f"memory after the loop: {mem['reserved_gb']:.2f} GB reserved, "
+        f"{mem['free_gb']:.2f} GB of {mem['total_gb']:.2f} GB free (the "
+        f"headroom left for an allocation while a graph captures), "
+        f"{mem['cache_flushes']} cache flushes in the loop")
+    check(len(pools) == res["stats"].trees_generated
+          and all(p == pools[0] for p in pools),
+          f"{tag}: the graph pools grew from group to group: {pools}")
+    check(mem["cache_flushes"] == 0,
+          f"{tag}: the allocator flushed its cache {mem['cache_flushes']} "
+          f"times in the loop")
+    for m, row in zip(res["history"], audit.rows):
+        check(row["syncs"] == 1 and row["host_syncs"] == 1,
+              f"{tag} step {m['step']}: {row['syncs']} synchronizing calls "
+              f"on the trainer's thread, {row['host_syncs']} engine syncs")
+        check(all(n == L for n in row["launches"].values()),
+              f"{tag} step {m['step']}: trainer launches "
+              f"{row['launches']}, want {L} each")
+    check(len(audit.rows) == len(res["history"]), f"{tag}: unaudited steps")
+    return res, audit.rows, gen, audit
+
+
+def rl_argv(arch: str, **kw) -> list:
+    argv = ["--arch", arch]
+    for k, v in kw.items():
+        flag = "--" + k.replace("_", "-")
+        argv += [flag] if v is True else [flag, str(v)]
+    return argv
+
+
+def phase_rl_loop(cfg, tm: dict, step_s: float) -> dict:
+    """The async tree-RL loop, Qwen2-1.5B at full width and depth, through
+    ``rl_loop.main``: at --max-ahead 1 (RL_LOOP_STEPS steps, the gradient
+    check, a profiled window of two steps in the middle) and on-policy at
+    --max-ahead 0 (RL_LOOP_STEPS_A0 steps)."""
+    groups, max_new, gen_s, fixed_s, tok_s = rl_shape(tm, step_s)
+    log(f"rl loop: this run's serve phase: a group (prompt {RL_PROMPT}, k "
+        f"{RL_K}, 64 new tokens) {tm['group_s']:.3f} s, of which the "
+        f"prefill and the graph capture {fixed_s:.4f} s, a new token "
+        f"{tok_s * 1e3:.2f} ms; train phase: "
+        f"step {step_s:.3f} s; chosen {groups} groups x {max_new} new "
+        f"tokens: generation {gen_s:.3f} s a step, train/generation "
+        f"{step_s / gen_s:.2f} (want >= {RL_TRAIN_OVER_GEN}"
+        + ("" if step_s >= RL_TRAIN_OVER_GEN * gen_s
+           else "; not met: the smallest shape runs") + ")")
+    shape = dict(prompt_len=RL_PROMPT, k=RL_K, seq_len=TRAIN_SEQ,
+                 rows=TRAIN_ROWS, lookahead=1, groups=groups,
+                 max_new=max_new)
+    a = RL_PROFILE
+    res, rows, gen, audit = run_rl(cfg, rl_argv(
+        RL_ARCH, max_ahead=1, steps=RL_LOOP_STEPS, check_grads=True, **shape),
+        "rl loop", profile=a)
+    st = res["stats"]
+    L = cfg.n_layers
+    check(gen["tree_attention_fwd"] == L * st.trees_generated
+          and gen["tree_attention_bwd_dq"] == gen["tree_attention_bwd_dkv"]
+          == 0, f"rl loop: generator launches {gen}, want {L} forward a "
+                f"group")
+    peaks = [m["peak_gb"] for m in res["history"]]
+    snap_gb = cfg.param_count() * 2 / 1e9        # bf16 weights
+    log(f"rl loop: peak GB per step {[round(p, 2) for p in peaks]}; after "
+        f"step 1 at most {max(peaks[2:]):.2f} GB against step 1's "
+        f"{peaks[1]:.2f} GB + one snapshot ({snap_gb:.2f} GB, the one term "
+        f"that depends on whether the generator still holds the last "
+        f"snapshot)")
+    check(max(peaks[2:]) <= peaks[1] + snap_gb,
+          "rl loop: peak memory grew after step 1")
+    log(f"rl loop: profiled window (steps {a[0]}-{a[1]}, both threads "
+        f"live):")
+    path = Path(__file__).resolve().parent / "build" / "rl_loop_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    audit.prof.export_chrome_trace(str(path))
+    raw = path.read_bytes()
+    path.unlink()
+    path.with_suffix(".json.gz").write_bytes(gzip.compress(raw))
+    report_trace(json.loads(raw)["traceEvents"],
+                 f"window of steps {a[0]}-{a[1]} of the rl loop",
+                 gaps=RL_GAPS, by_stream=True)
+    del raw
+    res0, rows0, gen0, _ = run_rl(cfg, rl_argv(
+        RL_ARCH, max_ahead=0, steps=RL_LOOP_STEPS_A0, **shape),
+        "rl loop A=0")
+    w1 = statistics.mean(m["wall_ms"] for m in res["history"][1:3])
+    w0 = statistics.mean(m["wall_ms"] for m in res0["history"][1:3])
+    log(f"rl loop: per-step wall of steps 1-2, --max-ahead 1 {w1:.1f} ms "
+        f"vs --max-ahead 0 (on-policy: generation and training take turns) "
+        f"{w0:.1f} ms: {w0 / w1:.3f}x; generation busy a step "
+        f"{res['stats'].gen_busy_s / RL_LOOP_STEPS * 1e3:.1f} ms (A=1) and "
+        f"{res0['stats'].gen_busy_s / RL_LOOP_STEPS_A0 * 1e3:.1f} ms (A=0)")
+    check(res0["max_lag_seen"] == 0, "rl loop A=0: off-policy step")
+    return dict(shape=shape, res=res, rows=rows, gen=gen, res0=res0,
+                rows0=rows0, gen0=gen0, wall=(w1, w0))
+
+
+def sampled_group(cfg, store, prompt, seed: int, out: dict, got,
+                  greedy: bool = False, early=None) -> None:
+    """One group of RL_K branches and RL_PARITY_NEW tokens (sampled at
+    temperature 1 by a generator seeded ``seed``, or ``greedy``) from
+    ``store``'s snapshot, read on a stream of its own as the service's
+    generator reads it; sets ``got`` once it holds the snapshot.  The
+    thread drops its references to the snapshot before it reads the
+    results back.  With ``early`` (two events), the stream sleeps
+    RL_HOLD_CYCLES after the prefill, so that every decode step's reads
+    are still queued when the thread drops the snapshot; it then sets
+    ``early[0]``, waits for ``early[1]`` and records in ``out["queued"]``
+    whether its work is still queued.  Puts the snapshot's version, every
+    prefill and decode logit and the tokens into ``out`` (or the error)."""
+    try:
+        stream = torch.cuda.Stream()
+        temp = 0.0 if greedy else 1.0
+        with torch.cuda.stream(stream), torch.inference_mode():
+            params, out["version"] = store.get()
+            got.set()
+            gen = torch.Generator(DEV).manual_seed(seed)
+            sess = DecodeSession.create(cfg, params,
+                                        buf_len=RL_PROMPT + RL_PARITY_NEW,
+                                        graph_pool=GraphPool())
+            lg = sess.prefill(prompt)
+            logits = [lg]
+            br = sess.fork(RL_K)
+            if early is not None:
+                torch.cuda._sleep(RL_HOLD_CYCLES)
+            tok = sample_tokens(lg.expand(RL_K, -1), cfg.vocab_size, gen,
+                                temp)
+            toks = [tok]
+            for _ in range(RL_PARITY_NEW - 1):
+                lg = br.step(tok)
+                logits.append(lg)
+                tok = sample_tokens(lg, cfg.vocab_size, gen, temp)
+                toks.append(tok)
+            tokens = torch.stack(toks, 1)
+            del params, sess, br
+            if early is not None:
+                early[0].set()
+                early[1].wait(120)
+                out["queued"] = not stream.query()
+            out["tokens"] = tokens.cpu()
+            out["logits"] = logits
+            stream.synchronize()
+    except BaseException as e:          # noqa: BLE001 — reported by caller
+        out["error"] = e
+        got.set()
+        if early is not None:
+            early[0].set()
+
+
+def group_thread(cfg, store, prompt, seed: int, out: dict, **kw):
+    got = threading.Event()
+    t = threading.Thread(target=sampled_group, name=RL_GEN_THREAD,
+                         args=(cfg, store, prompt, seed, out, got),
+                         kwargs=kw)
+    t.start()
+    got.wait(120)
+    return t
+
+
+class NoRecordStream:
+    """A planted fault: ``Tensor.record_stream`` does nothing, so a
+    dropped snapshot's memory is free for reuse while another stream's
+    queued kernels still read it."""
+
+    def __enter__(self):
+        self._orig = torch.Tensor.record_stream
+        torch.Tensor.record_stream = lambda t, stream: None
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.record_stream = self._orig
+
+
+def logit_diffs(a: dict, b: dict) -> list:
+    """The logit calls of two groups that are not bit-identical."""
+    return [i for i, (x, y) in enumerate(zip(a["logits"], b["logits"]))
+            if not torch.equal(x, y)]
+
+
+def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
+    """(a) frozen rollout group: online plan path vs offline RL gradients,
+    full depth bf16 (the rl loop's --check-grads) and PARITY_LAYERS layers
+    in f32, each ≤ 1e-6 max-rel; (b) a sampled group generated from a
+    just-published snapshot while the trainer runs RL_PARITY_STEPS steps,
+    then from the same weights alone: equal tokens, every logit
+    ``torch.equal``; (b') a greedy group that drops the snapshot while its
+    reads are queued and the trainer publishes twice, against the greedy
+    group alone, and the same under ``NoRecordStream`` as a control; (c)
+    after every publish the store's snapshot equals the trainer's
+    parameters (``torch.equal`` on every leaf)."""
+    log(f"rl parity (a): full depth bf16, frozen rollout group at the rl "
+        f"loop's final weights: max-rel {grad_err:.3e} (bar 1e-6)")
+    cfg4 = cfg.replace(n_layers=PARITY_LAYERS, dtype="float32")
+    p4 = init_params(cfg4, torch.Generator(DEV).manual_seed(0))
+    rc = RolloutConfig(k=RL_K, prompt_len=RL_PROMPT, max_new=RL_PARITY_NEW,
+                       temperature=1.0)
+    with torch.inference_mode():
+        tree, _ = rollout_group(cfg4, p4, np.arange(RL_PROMPT)
+                                % cfg.vocab_size, rc,
+                                torch.Generator(DEV).manual_seed(1))
+    lc = LoaderConfig(seq_len=TRAIN_SEQ, batch_rows=TRAIN_ROWS,
+                      trees_per_batch=1, mode="tree", seed=0,
+                      loss_mode="rl", auto_partition=True)
+    err4 = rl_loop.check_frozen_grads(
+        cfg4, lc, PlannerConfig(lookahead=1, max_rows=TRAIN_ROWS), p4,
+        [tree], "kernel")
+    log(f"rl parity (a): {PARITY_LAYERS} layers f32: max-rel {err4:.3e} "
+        f"(bar 1e-6)")
+    check(grad_err <= 1e-6 and err4 <= 1e-6, "rl parity (a)")
+    del p4, tree
+    torch.cuda.empty_cache()
+
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    opt_state = init_opt_state(params)
+    store = WeightStore(params)
+    engine = TreeTrainEngine(cfg, OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=RL_PARITY_STEPS + 1),
+        weight_store=store)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, RL_PROMPT)
+    same = []
+
+    def stepped():
+        nonlocal params, opt_state
+        params, opt_state, _ = engine.step(params, opt_state, plan)
+        snap, ver = engine.weight_store.get()
+        same.append(ver == engine.steps_done and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(snap),
+                                              tree_leaves(params))))
+
+    stepped()               # publishes v1; its copy may still be queued
+    side = {}
+    t0 = time.perf_counter()
+    thread = group_thread(cfg, store, prompt, 7, side)
+    keep = map_tree(torch.clone, store.get()[0])
+    t1 = time.perf_counter()
+    for _ in range(RL_PARITY_STEPS):
+        stepped()
+    t2 = time.perf_counter()
+    thread.join(300)
+    t3 = time.perf_counter()
+    check(not thread.is_alive() and "error" not in side,
+          f"rl parity (b): the concurrent group failed: {side.get('error')}")
+    dropped = {}
+    for name, fault in (("b'", None), ("control", NoRecordStream)):
+        engine.weight_store = WeightStore(keep)    # the store holds v1
+        out = dropped[name] = {}
+        ev = (threading.Event(), threading.Event())
+        with fault() if fault else contextlib.nullcontext():
+            thread = group_thread(cfg, engine.weight_store, prompt, 7, out,
+                                  greedy=True, early=ev)
+            ev[0].wait(120)             # its last reference is gone
+            for _ in range(2):          # the store drops v1; allocations
+                stepped()
+            ev[1].set()
+            thread.join(300)
+        check(not thread.is_alive() and "error" not in out,
+              f"rl parity ({name}): the group failed: {out.get('error')}")
+    del params, opt_state, engine, store
+    torch.cuda.empty_cache()
+    alone, greedy = {}, {}
+    group_thread(cfg, WeightStore(keep), prompt, 7, alone).join(300)
+    check("error" not in alone, f"rl parity (b): {alone.get('error')}")
+    group_thread(cfg, WeightStore(keep), prompt, 7, greedy,
+                 greedy=True).join(300)
+    check("error" not in greedy, f"rl parity (b'): {greedy.get('error')}")
+    n = len(side["logits"])
+    diff = logit_diffs(side, alone)
+    log(f"rl parity (b): a group of {RL_K} x {RL_PARITY_NEW} sampled tokens "
+        f"from snapshot v{side['version']}, generated in {t3 - t0:.3f} s "
+        f"while the trainer ran {RL_PARITY_STEPS} steps ({t2 - t1:.3f} s), "
+        f"then alone: tokens equal "
+        f"{torch.equal(side['tokens'], alone['tokens'])}, {n - len(diff)} "
+        f"of {n} logit calls bit-identical")
+    late = {k: logit_diffs(v, greedy) for k, v in dropped.items()}
+    for k, v in dropped.items():
+        log(f"rl parity ({k}): a greedy group of {RL_K} x {RL_PARITY_NEW} "
+            f"tokens whose thread dropped the snapshot with its reads "
+            f"queued (the stream slept {RL_HOLD_CYCLES:.2e} cycles), the "
+            f"trainer publishing twice meanwhile"
+            + (", with record_stream disabled (a control)" if k != "b'"
+               else "")
+            + f": still queued after the steps {v['queued']}, tokens "
+              f"equal to the group alone "
+              f"{torch.equal(v['tokens'], greedy['tokens'])}, "
+              f"{n - len(late[k])} of {n} logit calls bit-identical")
+    log(f"rl parity (c): after each of {len(same)} publishes the snapshot "
+        f"equals the trainer's parameters: {same}")
+    check(side["version"] == 1, "rl parity (b): the group read another "
+                                "snapshot than v1")
+    check(torch.equal(side["tokens"], alone["tokens"]) and not diff,
+          f"rl parity (b): calls {diff[:8]} differ")
+    b2, bad = dropped["b'"], late["b'"]
+    check(b2["queued"], "rl parity (b'): the group's work was done before "
+                        "the trainer's steps; the sleep is too short")
+    check(torch.equal(b2["tokens"], greedy["tokens"]) and not bad,
+          f"rl parity (b'): calls {bad[:8]} differ")
+    check(all(same), "rl parity (c)")
+    return dict(err_bf16=grad_err, err_f32=err4, calls=n,
+                control_diffs=len(late["control"]))
+
+
+def phase_ssm_rl_loop(cfg) -> dict:
+    """The rl loop at Zamba2-1.2B's full width and depth: its sessions step
+    the prompt (no kernel launch in generation), and each train step
+    launches each kernel once per application of the shared block."""
+    res, rows, gen, _ = run_rl(cfg, rl_argv(
+        HYBRID_ARCH, prompt_len=512, k=RL_K, max_new=32, groups=1,
+        steps=RL_LOOP_STEPS_A0, seq_len=TRAIN_SEQ, rows=TRAIN_ROWS,
+        max_ahead=1), "zamba2 rl loop")
+    check(all(v == 0 for v in gen.values()),
+          f"zamba2 rl loop: generation launched {gen}")
+    return dict(res=res, rows=rows, gen=gen)
 
 
 # --------------------------------------------------------------------------
@@ -3068,6 +3697,8 @@ def run_ssm(timed) -> dict:
                           wave_step_s=w_step)
         if arch == HYBRID_ARCH:
             zw = dict(wave=w_big, launches=w_launches, waves=w_n, pad=w_pad)
+            zrl = timed("zamba2 rl loop", phase_ssm_rl_loop, cfg)
+            torch.cuda.empty_cache()
     a = zcfg.attn
     heads, hd, apps = (a.n_heads, a.n_kv_heads), a.head_dim, shared_apps(zcfg)
     lay = layout_tag(*heads, hd)
@@ -3085,7 +3716,7 @@ def run_ssm(timed) -> dict:
         "timing ZW", phase_timing_train, wave_kv_last(zw["wave"]), None,
         apps, heads, "ZW", zw["wave"].anc_A_max, hd)
     return dict(err=err, runs=runs, timing=timing, layout=lay,
-                apps=apps, train_shape=kl_z.shape, zw=zw)
+                apps=apps, train_shape=kl_z.shape, zw=zw, rl=zrl)
 
 
 def main() -> int:
@@ -3114,7 +3745,7 @@ def main() -> int:
 
     cfg = get_config("qwen2_1p5b")
     sft = train_plans(cfg, "agentic", "sep_avg", SFT_STEPS)
-    rl = train_plans(cfg, "grpo", "rl", RL_STEPS)
+    rl_plans = train_plans(cfg, "grpo", "rl", RL_STEPS)
     kl_t = np.asarray(sft[0].packed.inputs["kv_last"])
     timed("build", phase_build)
     worst_fwd = timed("kernel", phase_kernel, kernel_cases())
@@ -3129,13 +3760,13 @@ def main() -> int:
         f"{cfg.attn.head_dim} {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B "
         f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB, random "
         f"weights in {time.perf_counter() - t0:.2f} s")
-    calls, logits, _, serve_launches = timed("serve", phase_serve, cfg,
-                                             params)
+    calls, logits, serve_tm, serve_launches = timed("serve", phase_serve,
+                                                    cfg, params)
     timed("parity", phase_parity, cfg, params, calls, logits)
     del params, logits
     torch.cuda.empty_cache()
 
-    params, counts, step_s = timed("train", phase_train, cfg, sft, rl)
+    params, counts, step_s = timed("train", phase_train, cfg, sft, rl_plans)
     timed("determinism", phase_determinism, cfg, params,
           [("packed", sft[0]), ("waves", first_wave_plan(cfg))])
     params, wave_w, wave_launches, wave_n, wave_pad, _, _ = timed(
@@ -3150,6 +3781,11 @@ def main() -> int:
     wave_err = timed("wave kernel", phase_wave_kernel, (wave_w, wave_pad))
     timing_w = timed("timing W", phase_timing_train, wave_kv_last(wave_w),
                      None, cfg.n_layers, (12, 2), "W", wave_w.anc_A_max)
+    # the async tree-RL loop: generation beside the trainer on one card
+    rl = timed("rl loop", phase_rl_loop, cfg, serve_tm, step_s)
+    rl["parity"] = timed("rl parity", phase_rl_parity, cfg, rl_plans[0],
+                         rl["res"]["grad_err"])
+    torch.cuda.empty_cache()
 
     # the MoE model, Qwen3-30B-A3B, once the dense model's tensors are gone
     mcfg = get_config(MOE_ARCH)
@@ -3261,6 +3897,20 @@ def main() -> int:
                 launches_wave_step=zw["launches"][name],
                 waves_in_step=zw["waves"], max_abs_err=zw["err"][key],
                 **ssm["timing"]["wave"][key]))
+        e["rl"] = dict(
+            shape=f"rl loop: {RL_ARCH}, prompt {RL_PROMPT}, k {RL_K}, "
+                  f"{rl['shape']['groups']} groups x "
+                  f"{rl['shape']['max_new']} new tokens a step, "
+                  f"{TRAIN_ROWS} rows of {TRAIN_SEQ}, bf16",
+            launches_per_train_step=[r["launches"][name]
+                                     for r in rl["rows"]],
+            launches_generation=rl["gen"][name],
+            groups_generated=rl["res"]["stats"].trees_generated,
+            launches_per_train_step_max_ahead_0=[
+                r["launches"][name] for r in rl["rows0"]],
+            zamba2=dict(launches_per_train_step=[
+                r["launches"][name] for r in ssm["rl"]["rows"]],
+                launches_generation=ssm["rl"]["gen"][name]))
         if key == "fwd":
             e["launches_serve"] = serve_launches
             e["moe"]["launches_serve"] = moe_serve_launches

@@ -6,7 +6,10 @@ in ``.gitignore``) under a name that hashes the source, the headers beside
 it and the flags: an edited source builds anew on its next use, and an
 unchanged one is loaded as it is.  Nothing is built at import time, only on
 the first launch (or by ``build_all``), and a failed build raises with the
-compiler's output.
+compiler's output.  Builds are serialized by a process-wide lock, so
+threads that reach a first build of one source at once (the RL loop's
+trainer and generator) compile it once; a compile writes a temporary name
+that holds the process id, so processes that race write no shared file.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -22,6 +26,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# held across a whole build_all: a second thread waits, then finds the
+# libraries built
+BUILD_LOCK = threading.Lock()
+# the loaded libraries, each configured once (``load``)
+_LOADED: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -51,6 +61,11 @@ def build_all(sources) -> dict[str, tuple[Path, float]]:
     library as ``.log``.  Returns {source: (library path, seconds to
     build)}; after every process has ended, raises with the compiler's
     output of the first source (in the given order) that failed."""
+    with BUILD_LOCK:
+        return _build_all(sources)
+
+
+def _build_all(sources) -> dict[str, tuple[Path, float]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done = {src: (library_path(src), 0.0) for src in sources}
     running = {}
@@ -93,5 +108,15 @@ def build(source: str) -> Path:
     return build_all([source])[source][0]
 
 
-def load(source: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(source)))
+def load(source: str, configure=None) -> ctypes.CDLL:
+    """``csrc/<source>``'s library, built if needed and loaded once per
+    process; ``configure(lib)`` (its ``argtypes`` and ``restype``) runs
+    before any caller gets it.  Threads that call at once wait for one
+    build and one load."""
+    with _LOAD_LOCK:
+        if source not in _LOADED:
+            lib = ctypes.CDLL(str(build(source)))
+            if configure is not None:
+                configure(lib)
+            _LOADED[source] = lib
+        return _LOADED[source]

@@ -46,7 +46,6 @@ HOPPER_PATH_HEAD_DIMS = {"fwd": (64, 128, 192), "dq": (64, 128, 192),
                          "dkv": (64, 128, 192)}
 SOURCE = "tree_attention_fwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
 
 
 def kernel_path(kernel: str, dtype: torch.dtype, hd: int) -> str:
@@ -112,18 +111,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.tree_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.tree_attention_fwd.restype = ctypes.c_int
+    lib.tree_attention_error_string.argtypes = [ctypes.c_int]
+    lib.tree_attention_error_string.restype = ctypes.c_char_p
+
+
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load(SOURCE)
-        lib.tree_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.tree_attention_fwd.restype = ctypes.c_int
-        lib.tree_attention_error_string.argtypes = [ctypes.c_int]
-        lib.tree_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return build.load(SOURCE, _configure)
 
 
 def _check(q, k, v, kv_last, q_off, window, pos_q, pos_k):

@@ -59,29 +59,28 @@ from repro_torch.kernels.tree_attention import (_DTYPES, BLOCK_K, HEAD_DIMS,
 
 SOURCES = ("tree_attention_bwd_dq.cu", "tree_attention_bwd_dkv.cu")
 BLOCK = BLOCK_K          # the dk/dv kernel's key and query tiles
-_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _configure(lib: ctypes.CDLL, entry: str, n_out: int) -> None:
+    fn = getattr(lib, entry)
+    dkv = int(entry == "tree_attention_bwd_dkv")   # + sched, partial, parts
+    extra = 1 + dkv                                # dq: + o
+    fn.argtypes = ([ctypes.c_void_p] * (9 + n_out + extra)
+                   + [ctypes.c_int] * (7 + dkv)
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    if dkv:
+        lib.tree_attention_bwd_dkv_schedule.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.tree_attention_bwd_dkv_schedule.restype = ctypes.c_int
+    err = getattr(lib, entry + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
 
 
 def _library(source: str, entry: str, n_out: int) -> ctypes.CDLL:
-    if source not in _libs:
-        lib = build.load(source)
-        fn = getattr(lib, entry)
-        dkv = int(entry == "tree_attention_bwd_dkv")   # + sched, partial, parts
-        extra = 1 + dkv                                # dq: + o
-        fn.argtypes = ([ctypes.c_void_p] * (9 + n_out + extra)
-                       + [ctypes.c_int] * (7 + dkv)
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        if dkv:
-            lib.tree_attention_bwd_dkv_schedule.argtypes = (
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.tree_attention_bwd_dkv_schedule.restype = ctypes.c_int
-        err = getattr(lib, entry + "_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[source] = lib
-    return _libs[source]
+    return build.load(source, lambda lib: _configure(lib, entry, n_out))
 
 
 def dkv_schedule(kv_last: torch.Tensor, S: int, q_off: int = 0):

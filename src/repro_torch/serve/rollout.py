@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import TrajectoryTree
 from repro_torch.device import DeviceLike
 from repro_torch.serve.decode import rollouts_to_tree
-from repro_torch.serve.session import DecodeSession
+from repro_torch.serve.session import DecodeSession, GraphPool
 
 
 @dataclass(frozen=True)
@@ -80,19 +80,21 @@ def default_reward(seq: np.ndarray, prompt_len: int) -> float:
 def rollout_group(cfg: ModelConfig, params: dict, prompt, rc: RolloutConfig,
                   generator: Optional[torch.Generator] = None,
                   reward_fn: Callable[[np.ndarray, int], float]
-                  = default_reward, *, device: DeviceLike = None
+                  = default_reward, *, device: DeviceLike = None,
+                  graph_pool: Optional[GraphPool] = None
                   ) -> tuple[TrajectoryTree, GroupStats]:
     """Decode ``rc.k`` branch rollouts of ``prompt`` and merge them into
     one advantage tree.
 
     ``prompt``: 1-D int tokens; ``generator``: the sampling RNG (on the
     session's device; unused when greedy); ``device``: where the session
-    runs (CUDA by default; ``params`` must live there).  Returns
-    ``(tree, stats)``."""
+    runs (CUDA by default; ``params`` must live there); ``graph_pool``:
+    where its sessions' CUDA graphs capture (``session.GraphPool``).
+    Returns ``(tree, stats)``."""
     prompt = np.asarray(prompt, np.int32).reshape(-1)
     P, K = len(prompt), rc.k
     session = DecodeSession.create(cfg, params, buf_len=rc.buf_len,
-                                   device=device)
+                                   device=device, graph_pool=graph_pool)
     logits = session.prefill(prompt, impl=rc.impl)      # prefix: ONCE
     branches = session.fork(K)                          # KV reuse, no FLOPs
 

@@ -24,7 +24,9 @@ branches:
                 captures its step in a CUDA graph at its first step and
                 replays it afterwards: an eager step is thousands of
                 launches, whose host work bounds decode (and the SSM and
-                hybrid families' step-loop prefill).
+                hybrid families' step-loop prefill).  The capture may run
+                while another thread trains on the same card (the RL
+                loop): see ``_graph_step``.
   ``snapshot``  capture the current state as an independent session.
 
 The port writes caches in place where JAX made new arrays, so
@@ -38,6 +40,8 @@ computed once per rollout group.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass, field, replace
 from typing import ClassVar, Optional
 
@@ -51,12 +55,67 @@ from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import layer_groups, partition_forward
 from repro_torch.serve.decode import _decode_step, _init_cache
 
+# held while a session captures its decode step into a ``GraphPool``.  A
+# device-wide sync (``torch.cuda.synchronize``, a profiler's start or
+# stop) from any thread during a capture breaks the capture, so code that
+# may run one beside a generating thread takes this lock first
+CAPTURE_LOCK = threading.Lock()
+
 
 @dataclass
 class SessionStats:
     """Token accounting, shared by every fork/snapshot of one group."""
     prefill_tokens: int = 0   # prefix tokens computed (once per session)
     decode_tokens: int = 0    # single-token steps × branches
+
+
+class GraphPool:
+    """A CUDA-graph memory pool and the one stream that every capture into
+    it runs on (the caching allocator reuses a block only on the stream
+    that allocated it), for sessions that decode while another thread uses
+    the card.  A dropped session's graph gives its blocks back to the pool
+    and the next session's capture reuses them, so a stream of rollout
+    groups holds one group's graph memory.  Sessions that share it capture
+    and replay their graphs in turn, from one thread (graphs that share a
+    pool must never replay concurrently): each generating thread makes its
+    own."""
+
+    def __init__(self, device: DeviceLike = None):
+        dev = resolve_device(device)
+        with torch.cuda.device(dev):
+            self.id = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(dev)
+        # a pool lives while a graph captured into it does (a capture into
+        # a pool whose graphs all died fails an assert of the allocators):
+        # the newest graph is kept, and it is never replayed once its
+        # session is gone
+        self._anchor: Optional[torch.cuda.CUDAGraph] = None
+
+    @contextlib.contextmanager
+    def capture(self, graph: torch.cuda.CUDAGraph):
+        """Capture ``graph`` on this pool's stream (the caller's current
+        stream) beside another thread's work, under ``CAPTURE_LOCK``:
+
+        * ``thread_local`` mode: the default, ``global``, forbids every
+          thread's unsafe calls while a capture is open, and the trainer's
+          one host sync a step fails and breaks the capture (a device-wide
+          sync breaks it in any mode: ``CAPTURE_LOCK``);
+        * no device sync, garbage collection or cache emptying first
+          (``torch.cuda.graph`` does all three);
+        * the stream is a non-blocking one, so work on the legacy default
+          stream never joins the capture.
+
+        No thread may draw from the default CUDA generator while the
+        capture is open (the capture holds it; the port samples with
+        generators of its own)."""
+        with CAPTURE_LOCK:
+            graph.capture_begin(pool=self.id,
+                                capture_error_mode="thread_local")
+            try:
+                yield graph
+            finally:
+                graph.capture_end()
+        self._anchor = graph
 
 
 @dataclass
@@ -72,6 +131,10 @@ class DecodeSession:
     # on the card; a fork or snapshot captures its own
     _graph: Optional[tuple] = field(default=None, init=False, repr=False,
                                     compare=False)
+    # the pool the graphs capture into, shared by this session's forks and
+    # snapshots; None: a private pool (and side stream) per graph
+    graph_pool: Optional["GraphPool"] = field(default=None, repr=False,
+                                              compare=False)
     # False: every session steps eagerly, so Python hooked into the layers
     # (a trace, a routing log) sees each step; a replayed graph runs none
     graph_steps: ClassVar[bool] = True
@@ -79,14 +142,17 @@ class DecodeSession:
     # -- construction ------------------------------------------------------
     @classmethod
     def create(cls, cfg: ModelConfig, params: dict, *, batch: int = 1,
-               buf_len: int, device: DeviceLike = None) -> "DecodeSession":
+               buf_len: int, device: DeviceLike = None,
+               graph_pool: Optional["GraphPool"] = None
+               ) -> "DecodeSession":
         dev = resolve_device(device)
         if params["embed"]["table"].device.type != dev.type:
             raise ValueError(f"params live on "
                              f"{params['embed']['table'].device}, the "
                              f"session on {dev}")
         return cls(cfg=cfg, params=params,
-                   cache=_init_cache(cfg, batch, buf_len, dev), batch=batch)
+                   cache=_init_cache(cfg, batch, buf_len, dev), batch=batch,
+                   graph_pool=graph_pool)
 
     @property
     def device(self) -> torch.device:
@@ -214,21 +280,31 @@ class DecodeSession:
         into those and replay.  The graph writes the session's cache in
         place, as the eager step does, and reads the parameters where they
         live, so both must keep their storage (fork and snapshot make new
-        caches and capture their own graphs)."""
+        caches and capture their own graphs).
+
+        Without a ``graph_pool`` the session is alone on the card:
+        ``torch.cuda.graph`` syncs the device and empties the allocator's
+        cache before it captures (freeing dead graphs' private pools).
+        With one (``GraphPool``, the RL loop's generator) another thread
+        may train on the card meanwhile, and the pool captures as
+        ``GraphPool.capture`` says: no device sync, no cache emptied, the
+        trainer's host syncs and allocations allowed."""
         if self._graph is not None:
             graph, static, out = self._graph
             for dst, src in zip(static, (tokens, pos, widx)):
                 dst.copy_(src)
             graph.replay()
             return out.clone()
-        side = torch.cuda.Stream()
+        gp = self.graph_pool
+        side = torch.cuda.Stream() if gp is None else gp.stream
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             logits = _decode_step(self.cfg, self.params, self.cache, tokens,
                                   pos, widx)
             static = tuple(t.clone() for t in (tokens, pos, widx))
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
+            with (torch.cuda.graph(graph, stream=side) if gp is None
+                  else gp.capture(graph)):
                 out = _decode_step(self.cfg, self.params, self.cache, *static)
         torch.cuda.current_stream().wait_stream(side)
         self._graph = (graph, static, out)

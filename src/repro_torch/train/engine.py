@@ -12,11 +12,12 @@ token-CE sum and weight sum accumulate in one device vector.  Host (numpy)
 plan arrays are copied to the parameters' device inside the step,
 non-blocking, so no copy waits on the device.  ``loss_mode="rl"`` rides
 the per-token weights the serializer threads through, so one engine serves
-SFT and the RL update.
+SFT and the RL update.  With a ``weight_store`` (``serve/service``) the
+engine audits each plan's off-policy lag and publishes the updated weights
+after every step: a device copy, no host sync.
 
 Not ported: the AOT executable cache and signature universe
-(``exec_lookup``; ROADMAP.md Queue A item 7) and the RL service's weight
-store and staleness audit (item 6).
+(``exec_lookup``; ROADMAP.md Queue A item 7).
 """
 from __future__ import annotations
 
@@ -61,6 +62,9 @@ class ExecutionPlan:
     partition: Optional[PartitionPlan] = None
     num_trees: int = 0           # packed + oversized (loss normalizer)
     dropped: int = 0             # trees lost this step (no auto-partition)
+    versions: Optional[tuple] = None   # (min, max) weight_version of the
+    #                              step's trees (async RL staleness; None
+    #                              for offline/synthetic sources)
 
     @property
     def has_waves(self) -> bool:
@@ -227,12 +231,14 @@ class TreeTrainEngine:
 
     def __init__(self, cfg: ModelConfig,
                  opt_cfg: Optional[OptimizerConfig] = None, *,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", weight_store=None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.impl = impl
         self.host_syncs = 0
         self.steps_done = 0
+        self.weight_store = weight_store
+        self.max_lag_seen = 0
 
     def accumulate(self, params, plan: ExecutionPlan):
         """Run the plan's executions; returns ``(grads, scal)`` — the fp32
@@ -269,13 +275,22 @@ class TreeTrainEngine:
         metrics = dict(zip(self.METRIC_NAMES, host.tolist()))
         metrics["nll"] = metrics["nll_sum"] / max(metrics["weight_sum"],
                                                   1e-9)
+        if plan.versions is not None:
+            lag = self.steps_done - plan.versions[0]
+            metrics["max_lag"] = lag
+            self.max_lag_seen = max(self.max_lag_seen, lag)
         self.steps_done += 1
+        if self.weight_store is not None:
+            # a device copy on this stream, ordered after the in-place
+            # update: no host sync
+            self.weight_store.publish(params, self.steps_done)
         return params, opt_state, metrics
 
     def warmup(self, params, opt_state, plan: ExecutionPlan):
         """Run the full accumulate + update pipeline once WITHOUT the
         logging host sync, as the reference's compile warm-up does (it
-        updates the parameters too).  Does not count as a step."""
+        updates the parameters too).  Does not count as a step and
+        publishes no weights."""
         if self.opt_cfg is None:
             raise ValueError("TreeTrainEngine.warmup needs an OptimizerConfig")
         grads, _ = self.accumulate(params, plan)

@@ -36,8 +36,11 @@ Invariants: every generated tree is packed, partitioned or counted in
 ``dropped`` (Σ unique tokens is conserved); parents never schedule later
 than children.
 
+Each plan carries ``versions``, the (min, max) ``weight_version`` of its
+trees (the async RL service tags them; ``train/engine`` audits the lag).
+
 Not ported: the AOT warmup hook (``plans(..., warmup=)``: ROADMAP.md Queue A
-item 7) and the RL service's weight versions (item 6).
+item 7).
 """
 from __future__ import annotations
 
@@ -456,9 +459,14 @@ class PlannedStep:
                 row_multiple=pc.num_replicas,
                 forest=[o.forest(cap, chunk, lc.loss_mode)
                         for o in self.oversized])
+        vers = [v for v in (getattr(e.tree, "weight_version", None)
+                            for e in [*self.fits, *self.oversized])
+                if v is not None]
         self._plan = ExecutionPlan(packed=packed, partition=partition,
                                    num_trees=self.num_trees,
-                                   dropped=self.dropped)
+                                   dropped=self.dropped,
+                                   versions=((min(vers), max(vers))
+                                             if vers else None))
         return self._plan
 
 

@@ -43,6 +43,7 @@ it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import inspect
@@ -190,6 +191,30 @@ def build_variants(build, csrc: Path, out_dir: Path) -> dict:
     return libs
 
 
+@contextlib.contextmanager
+def swapped(build, mod, src: str, variant, base, names):
+    """Inside the block, ``mod``'s wrappers launch ``variant`` (a cut build
+    of ``src``) where they launch ``base``, its configured library: the
+    variant takes ``base``'s argtypes and restype for each entry point in
+    ``names`` and replaces ``base`` in the cache the loader reads, which
+    is ``build.load``'s where the checkout has one (``_LOADED``), else the
+    wrapper module's own (``_libs`` by source, or ``_lib``)."""
+    for name in names:
+        getattr(variant, name).argtypes = getattr(base, name).argtypes
+        getattr(variant, name).restype = getattr(base, name).restype
+    if hasattr(build, "_LOADED"):
+        cache, key = build._LOADED, src
+    elif hasattr(mod, "_libs"):
+        cache, key = mod._libs, src
+    else:
+        cache, key = vars(mod), "_lib"
+    cache[key] = variant
+    try:
+        yield
+    finally:
+        cache[key] = base
+
+
 def timed(ms: dict, key: str, fn) -> None:
     """ms[key]: CUDA events around one call (host overhead included when
     the device work is shorter); ms[key + "_device"]: ``graph_ms``."""
@@ -245,8 +270,9 @@ def main() -> int:
     lc = LoaderConfig(seq_len=4096, batch_rows=2, trees_per_batch=4,
                       kind="agentic", loss_mode="sep_avg", seed=0,
                       gen_kwargs=dict(num_turns=3, turn_len_range=(64, 256)))
-    plan = next(p for p in plans(cfg, lc, 8, device=dev) if not p.is_empty)
-    kl_t = plan.packed.inputs["kv_last"].to(torch.int32).contiguous()
+    plan = next(p for p in (ps.execution_plan() for ps in plans(cfg, lc, 8))
+                if not p.is_empty)
+    kl_t = i32(plan.packed.inputs["kv_last"]).contiguous()
     shapes = {
         "A": (1, 1024, 0, i32(np.full((1, 1024), 1023))),
         "B": (8, 200, 1056, i32(np.concatenate(
@@ -263,14 +289,9 @@ def main() -> int:
         entry = bwd_entries[src][0]
         for var in ("scan", "loads"):
             if (src, var) in libs:
-                tab._libs[src] = libs[(src, var)]
-                for name in (entry, entry + "_error_string"):
-                    getattr(tab._libs[src], name).argtypes = getattr(
-                        bwd_libs[src], name).argtypes
-                    getattr(tab._libs[src], name).restype = getattr(
-                        bwd_libs[src], name).restype
-                timed(ms, f"{key}_{var}", fn)
-                tab._libs[src] = bwd_libs[src]
+                with swapped(build, tab, src, libs[(src, var)],
+                             bwd_libs[src], (entry, entry + "_error_string")):
+                    timed(ms, f"{key}_{var}", fn)
 
     sc = HD ** -0.5
     with torch.no_grad():
@@ -287,15 +308,10 @@ def main() -> int:
                 + lse.cpu().numpy().tobytes()).hexdigest()
             for var in ("scan", "loads"):
                 if (ta.SOURCE, var) in libs:
-                    ta._lib = libs[(ta.SOURCE, var)]
-                    for name in ("tree_attention_fwd",
-                                 "tree_attention_error_string"):
-                        getattr(ta._lib, name).argtypes = getattr(
-                            fwd_lib, name).argtypes
-                        getattr(ta._lib, name).restype = getattr(
-                            fwd_lib, name).restype
-                    timed(ms, f"fwd_{var}", fwd)
-                    ta._lib = fwd_lib
+                    with swapped(build, ta, ta.SOURCE, libs[(ta.SOURCE, var)],
+                                 fwd_lib, ("tree_attention_fwd",
+                                           "tree_attention_error_string")):
+                        timed(ms, f"fwd_{var}", fwd)
             i = q_off + torch.arange(S, device=dev)
             mask = ((torch.arange(Skv, device=dev)[None, :] <= i[:, None])
                     & (kl[:, None, :] >= i[None, :, None]))[:, None]
