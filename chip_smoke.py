@@ -207,7 +207,9 @@ each at full width and depth, once the other archs' tensors are freed:
                   kernel a Zamba2 step, none for the pure SSMs), a
                   profiled step.
  27. <arch> determinism — phase 7's check on a packed plan and on the
-                  first plan of phase 28's stream (partition waves).
+                  first plan of phase 28's stream (partition waves), at
+                  SSM_DETERMINISM_LAYERS layers (8: Zamba2's shared
+                  block applied twice).
  28. <arch> waves — phase 8 at full depth on SSM_WAVE_BATCHES generator
                   batches: chunk-aligned partitions and waves (auto
                   capacity, a multiple of the chunk), the chunk-padding
@@ -234,13 +236,51 @@ each at full width and depth, once the other archs' tensors are freed:
                   ZW, the Zamba2 waves phase's gateway wave with the
                   largest A_max, H 32/Kh 32 hd 64, q_off = A_max.
 
+Then the enc-dec and VLM archs (SeamlessM4T-large v2, Phi-3-vision 4.2B),
+at full width, once the SSM archs' tensors are freed:
+ 33. mm kernel, mm bwd kernel — phases 2-3 at the two new layouts on their
+                  first train step's real kv_last: V, Phi-3's rows (B 2,
+                  576 patches + 4096 text tokens, H 32/Kh 32, hd 96: the
+                  simple kernels) and S2, Seamless's decoder rows (B 2, S
+                  4096, H 16/Kh 16, hd 64: the Hopper paths in bf16), bf16
+                  and f32.
+ 34. <arch> serve — full depth, bf16: Seamless's encoder over its 1024
+                  frames drawn from the seed and each decoder layer's
+                  cross K/V; one rollout group (prompt 1024, K 8, 64 new
+                  tokens; enc_len 0, as the reference's) and the
+                  multi-turn session (Seamless: the cross K/V loaded and
+                  tiled by the fork), prefilled through the step loop
+                  (a CUDA graph a step); prefill and decode tokens/s, the
+                  decode bound, a profiled decode step; no kernel launch.
+ 35. <arch> serve parity — 256 tokens teacher-forced, the step loop vs
+                  the packed forward: Seamless at 4 + 4 layers f32 over
+                  the same frames (atol = rtol = 5e-4), then a
+                  ``load_cross`` after the graph was captured must move
+                  the later logits (relative L2 > 1e-2) and match an
+                  eager step loop making the same swap (5e-4); full depth
+                  bf16 reported.  Phi-3 at 4 layers f32: its step loop vs
+                  the forward of its text decoder (5e-4).
+ 36. <arch> train, <arch> determinism — phase 6 (no baseline timing) on
+                  MM_TRAIN_GEN trees: 2 SFT + 1 RL steps, 2 rows of 4096,
+                  frontend rows drawn by the planner; Seamless at full
+                  depth, Phi-3 at the deepest cut ``fit_depth`` gives
+                  under TRAIN_LIMIT with ``act_bytes`` a layer (printed);
+                  each kernel once a decoder layer a step, 0 trees
+                  dropped; then phase 7's check on a packed plan.
+ 37. <arch> train parity — 4 layers f32 (Seamless: 4 + 4) on one row of
+                  2048 behind frontend rows: (a) kernel vs plain, loss and
+                  grads max-rel 1e-4; (b) tree vs per-branch baseline,
+                  loss 5e-6, grads 1e-4.
+ 38. timing V, timing S2 — phase 11's training-shape timing at V and S2.
+
 The line before the last names the card and its power limit; the one before
 it lists the kernels (each with its MoE-shape numbers under ``moe``, its
 W numbers under ``wave``, the rl loops' launches (per train step, in
 generation; Zamba2's too) under ``rl``, the five archs' layouts under
 ``archs``,
-Zamba2's layout, the SSM wave steps' launches and ZW under ``ssm``, and
-every instance its source built, with
+Zamba2's layout, the SSM wave steps' launches and ZW under ``ssm``, the
+enc-dec and VLM archs' launches and the V and S2 timings under ``mm``,
+and every instance its source built, with
 registers, spills, HGMMA and UTMALDG, under ``instances``); the
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
@@ -283,6 +323,7 @@ from repro_torch.kernels import tree_attention_bwd as tab  # noqa: E402
 from repro_torch.kernels.ref import (tree_attention_bwd_ref,  # noqa: E402
                                      tree_attention_ref_ext)
 from repro_torch.launch import rl_loop  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import logits_from_hidden  # noqa: E402
@@ -377,6 +418,10 @@ HYBRID_ARCH, SSM_SFT_STEPS, SSM_PARITY_TOKENS = "zamba2_1p2b", 3, 256
 # each SSM arch also trains SSM_WAVE_BATCHES generator batches of the waves
 # phase's trees (6k-16k tokens) through chunk-aligned partition waves
 SSM_WAVE_BATCHES = 3
+# their determinism check (a packed and a wave plan) runs at this cut, as
+# deep as Zamba2's first two applications of its shared block need, to
+# keep the script inside its time limit
+SSM_DETERMINISM_LAYERS = 8
 # their wave parity (b)'s gradient bar, where it is not phase 10's 5e-2:
 # Zamba2's bf16 partitioned tree is 5.7e-2-6.6e-2 from its bf16 whole tree
 # (the reference's own bf16 waves drift as far: tests/test_torch_ssm_bf16.py),
@@ -389,6 +434,19 @@ SSM_CONTROL_SCALE = 1.02
 # the archs' shapes: hd 192 (Nemotron-4 340B), which no other phase runs
 # at a real size; hd 128's f32 path is held at Qwen2-1.5B's shapes
 ARCH_F32_HEAD_DIMS = (192,)
+# the enc-dec and VLM archs, at full width: each serves at full depth in
+# bf16 (one rollout group and the session, prefilled through the step loop
+# as the reference does; SeamlessM4T's encoder first runs over its
+# frontend_len (1024) frames drawn from the seed and its session holds each decoder layer's
+# cross K/V), trains MM_SFT_STEPS + MM_RL_STEPS steps on planner rows of
+# MM_TRAIN_GEN trees (MM_TRAIN_TREES a batch: none larger than a row, so
+# none dropped; these families do not partition), Seamless at full depth
+# and Phi-3 at the deepest cut whose weights, fp32 grads and AdamW state
+# and ``act_bytes`` a layer fit TRAIN_LIMIT, and is held in f32 at
+# PARITY_LAYERS layers (Seamless: as many encoder layers)
+ENCDEC_ARCH, VLM_ARCH = "seamless_m4t_large_v2", "phi3_vision_4p2b"
+MM_SFT_STEPS, MM_RL_STEPS, MM_TRAIN_TREES = 2, 1, 6
+MM_TRAIN_GEN = dict(num_turns=2, turn_len_range=(64, 256))
 # a plain version runs on whole GQA groups of at most this many score
 # elements (4 GB in f32) a call
 PLAIN_CHUNK = 1 << 30
@@ -979,10 +1037,12 @@ def phase_bwd_kernel(cases) -> dict:
 
 
 def multiturn(cfg, params, impl: str, gen=None, record=None,
-              tail_steps: int = 32):
+              tail_steps: int = 32, cross=None):
     """prefill 1024 → fork(8) → 32 steps → prefill 200 "tool output"
     tokens on all 8 branches (the kernel's q_off path) → ``tail_steps``
-    steps.
+    steps.  ``cross``: an enc-dec model's cross K/V [dec_layers, 1, T, Kh,
+    hd], loaded into the session (``load_cross``) before its prefill and
+    tiled by the fork.
 
     Samples with ``gen``, or, given ``record`` (the fed tokens of an
     earlier run), replays those tokens.  Returns (fed tokens, logits per
@@ -1018,7 +1078,10 @@ def multiturn(cfg, params, impl: str, gen=None, record=None,
             return None
         return sample_tokens(lg, cfg.vocab_size, gen, 1.0)
 
-    sess = DecodeSession.create(cfg, params, buf_len=1536)
+    sess = DecodeSession.create(cfg, params, buf_len=1536, enc_len=(
+        0 if cross is None else cross[0].shape[2]))
+    if cross is not None:
+        sess.load_cross(*cross)
     lg = run("prefill", len(prompt), lambda t: sess.prefill(t, impl=impl),
              prompt)
     br = sess.fork(8)
@@ -1132,12 +1195,14 @@ def phase_parity(cfg_full, params_full, calls, logits):
 # training
 # --------------------------------------------------------------------------
 
-def train_plans(cfg, kind: str, loss_mode: str, n: int):
+def train_plans(cfg, kind: str, loss_mode: str, n: int, gen=TRAIN_GEN,
+                trees: int = 4):
     """The first ``n`` non-empty plans of the launcher's planner (host
-    arrays; the engine copies them to the card)."""
+    arrays; the engine copies them to the card), ``trees`` trees of the
+    generator settings ``gen`` a batch."""
     lc = LoaderConfig(seq_len=TRAIN_SEQ, batch_rows=TRAIN_ROWS,
-                      trees_per_batch=4, kind=kind, loss_mode=loss_mode,
-                      seed=0, gen_kwargs=TRAIN_GEN)
+                      trees_per_batch=trees, kind=kind, loss_mode=loss_mode,
+                      seed=0, gen_kwargs=gen)
     out, dropped = [], 0
     for ps in plans(cfg, lc, 8 * n):
         plan = ps.execution_plan()
@@ -1226,8 +1291,9 @@ def count_hidden_syncs(engine, fn):
                  if "called a synchronizing" in str(w.message)]
 
 
-def phase_train(cfg, sft, rl, tag: str = "train"):
-    """Full-width training through the kernels, then tree vs baseline."""
+def phase_train(cfg, sft, rl, tag: str = "train", baseline: bool = True):
+    """Full-width training through the kernels, then (``baseline``) tree vs
+    baseline."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
@@ -1290,6 +1356,9 @@ def phase_train(cfg, sft, rl, tag: str = "train"):
     params, opt_state, _ = profile_step(
         lambda: engine.step(params, opt_state, sft[0]),
         tag.replace(" ", "_") + "_step_trace")
+    if not baseline:
+        del opt_state
+        return params, counts, step_s
 
     # tree vs per-branch baseline on the planner's multi-row output: its
     # first step with two or more trees in each row of 2048, and the same
@@ -3680,8 +3749,10 @@ def run_ssm(timed) -> dict:
         torch.cuda.empty_cache()
         params, counts, deltas, step_s = timed(
             f"{arch} train", phase_ssm_train, cfg, sft, rl, f"{arch} train")
-        timed(f"{arch} determinism", phase_determinism, cfg, params,
-              [("packed", sft[0]), ("waves", first_wave_plan(cfg))],
+        dcfg = cfg.replace(n_layers=SSM_DETERMINISM_LAYERS)
+        timed(f"{arch} determinism", phase_determinism, dcfg,
+              init_params(dcfg, torch.Generator(DEV).manual_seed(0)),
+              [("packed", sft[0]), ("waves", first_wave_plan(dcfg))],
               f"{arch} determinism")
         params, w_big, w_launches, w_n, w_pad, w_deltas, w_step = timed(
             f"{arch} waves", phase_waves, cfg, params, f"{arch} waves",
@@ -3717,6 +3788,405 @@ def run_ssm(timed) -> dict:
         apps, heads, "ZW", zw["wave"].anc_A_max, hd)
     return dict(err=err, runs=runs, timing=timing, layout=lay,
                 apps=apps, train_shape=kl_z.shape, zw=zw, rl=zrl)
+
+# --------------------------------------------------------------------------
+# the enc-dec and VLM archs (SeamlessM4T-large v2, Phi-3-vision 4.2B)
+# --------------------------------------------------------------------------
+
+def act_bytes(cfg, tokens: int) -> float:
+    """Saved activation bytes of one layer of ``cfg`` over ``tokens`` row
+    tokens: TRAIN_ACT_BYTES (a Qwen3-32B layer at TRAIN_ROWS x TRAIN_SEQ)
+    in proportion to tokens x (d_model + d_ff + q_dim)."""
+    def width(c):
+        return c.d_model + c.d_ff + c.attn.q_dim
+    return TRAIN_ACT_BYTES * tokens * width(cfg) / (
+        TRAIN_ROWS * TRAIN_SEQ * width(get_config(TRAIN_ARCH)))
+
+
+def prefix_kv_last(kv_last: np.ndarray, F: int) -> np.ndarray:
+    """The kv_last the kernels see on rows of text ``kv_last`` [B, S]
+    behind a multimodal prefix of F rows (``transformer._mm_prefix_meta``):
+    the prefix visible to the whole row, the text's indices shifted by F."""
+    B, S = kv_last.shape
+    return np.concatenate([np.full((B, F), F + S - 1),
+                           np.where(kv_last >= 0, kv_last + F, -1)], 1)
+
+
+def mm_kernel_cases(kl_v, kl_s2):
+    """The three kernels at the two new layouts on their first train
+    step's real kv_last: V, Phi-3-vision's rows (its 576-patch prefix and
+    the text, H 32/Kh 32, hd 96: the simple kernels in bf16 and f32), and
+    S2, SeamlessM4T's decoder rows (H 16/Kh 16, hd 64: the Hopper paths in
+    bf16, the simple kernels in f32)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    add = case_adder(np.random.default_rng(80), cases)
+    for tag, arch, kl in (("V", VLM_ARCH, kl_v), ("S2", ENCDEC_ARCH, kl_s2)):
+        a = get_config(arch).attn
+        H, Kh, hd = a.n_heads, a.n_kv_heads, a.head_dim
+        B, S = kl.shape
+        for dt in (bf16, f32):
+            add(f"{tag}: {layout_tag(H, Kh, hd)} ({arch}; bf16 paths: "
+                f"{bf16_paths(hd)}) train rows (B={B}, S={S}) {dt}", dt, B,
+                S, H, Kh, hd, kl)
+    return cases
+
+
+def mm_desc(cfg) -> str:
+    a = cfg.attn
+    enc = "" if cfg.encdec is None else (
+        f"{cfg.encdec.enc_layers} encoder + ")
+    layers = (f"{enc}{cfg.n_layers} decoder layers" if cfg.encdec is not None
+              else f"{cfg.n_layers} layers")
+    return (f"{cfg.name} ({cfg.family}) {layers} d {cfg.d_model} d_ff "
+            f"{cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}) "
+            f"heads {a.n_heads}/{a.n_kv_heads} hd {a.head_dim}, "
+            f"{cfg.frontend} frontend stub of {cfg.frontend_len} rows, "
+            f"{cfg.dtype}")
+
+
+def cross_kv(cfg, params, enc):
+    """Each decoder layer's cross K/V over the encoder output ``enc`` [B,
+    T, D], stacked [dec_layers, B, T, Kh, hd] for ``load_cross``."""
+    n = cfg.encdec.dec_layers
+    xattn = params["layer_stacks"][0]["xattn"]
+    ks, vs = zip(*[attn_mod.project_cross_kv(
+        {k: v[i] for k, v in xattn.items()}, cfg.attn, enc)
+        for i in range(n)])
+    return torch.stack(ks), torch.stack(vs)
+
+
+def encode_frames(cfg, params, seed: int):
+    """Frame embeddings [1, frontend_len, D] drawn from ``seed`` (the stub
+    frontend),
+    the encoder over them, and each decoder layer's cross K/V.  Returns
+    (frames, (k, v), seconds on the host clock around synced calls)."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    frames = torch.randn((1, cfg.frontend_len, cfg.d_model), generator=gen,
+                         device=DEV)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, _ = transformer.encode(cfg, params, frames)
+        kv = cross_kv(cfg, params, enc)
+        torch.cuda.synchronize()
+    return frames, kv, time.perf_counter() - t0
+
+
+def mm_decode_bound(cfg, params, tm, tag: str, enc_len: int) -> None:
+    """The session's decode rate against its bound: a step of 8 branches
+    reads every decoder weight it uses once (not the embedding table, the
+    encoder, which ran once before, nor the cross blocks' K/V
+    projections, applied to the encoder output there), every slot of its
+    KV rings (1536 a branch, read whole and masked) and, enc-dec, every
+    branch's cross K/V."""
+    w = sum(t.numel() * t.element_size() for p, t in flatten_tree(params)
+            if p[0] not in ("embed", "encoder", "enc_norm")
+            and not (len(p) > 3 and p[2] == "xattn"
+                     and p[3] in ("wk", "wv", "bk", "bv")))
+    cache = decode._init_cache(cfg, 8, 1536, DEV, enc_len)
+    ring = sum(t.numel() * t.element_size() for g, grp in cache.items()
+               if g != "cross" for t in grp.values())
+    xkv = sum(t.numel() * t.element_size()
+              for t in cache.get("cross", {}).values())
+    del cache
+    step_bytes = w + ring + xkv
+    bound_s = step_bytes / PEAK_BYTES
+    log(f"{tag}: decode {tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
+        f"(8 branches, {tm['decode_s'] / (tm['decode_tok'] / 8) * 1e3:.2f} ms "
+        f"a step) against its bound: a step reads {step_bytes / 1e9:.3f} GB "
+        f"({w / 1e9:.3f} GB of decoder weights, {ring / 1e9:.3f} GB of KV "
+        f"rings, {xkv / 1e9:.3f} GB of cross K/V), >= {bound_s * 1e3:.3f} ms "
+        f"at {PEAK_BYTES / 1e12:.2f} TB/s, so at most {8 / bound_s:.1f} "
+        f"tokens/s")
+
+
+def phase_mm_serve(arch: str):
+    """One arch at full width and depth, random bf16 weights.  Seamless:
+    its encoder over its 1024 frames drawn from the seed, each decoder
+    layer's cross K/V projected.  Then one rollout group (prompt 1024, K 8,
+    64 new tokens; its session holds no encoder output, enc_len 0, as the
+    reference's ``rollout_group`` makes it) and the multi-turn session
+    (Seamless: the cross K/V loaded, and tiled by the fork), both
+    prefilled through the step loop as the reference's sessions are, every
+    step a CUDA-graph replay; prefill and decode tokens/s against the
+    decode bound; a profiled decode step.  No tree-attention kernel may
+    launch.  Returns (cfg, params, launch counts, frames or None)."""
+    tag = f"{arch} serve"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in flatten_tree(params))
+    log(f"{tag}: {mm_desc(cfg)}: {n / 1e9:.3f} B parameters "
+        f"({cfg.param_count() / 1e9:.3f} B by the reference's formula), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, random weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_launches()
+    frames, cross = None, None
+    if cfg.encdec is not None:
+        frames, cross, t_enc = encode_frames(cfg, params, 3)
+        log(f"{tag}: encoder over {cfg.frontend_len} frames "
+            f"({cfg.encdec.enc_layers}"
+            f" bidirectional layers, plain attention) and {cfg.n_layers} "
+            f"layers' cross K/V {tuple(cross[0].shape)} in {t_enc:.3f} s "
+            f"({cfg.frontend_len / t_enc:.0f} frames/s, first call)")
+    rc = RolloutConfig(k=8, prompt_len=1024, max_new=64, temperature=1.0)
+    gen = torch.Generator(DEV).manual_seed(1)
+    rng = np.random.default_rng(7)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, st = rollout_group(cfg, params, rng.integers(
+            0, cfg.vocab_size, rc.prompt_len), rc, gen)
+        torch.cuda.synchronize()
+        t_group = time.perf_counter() - t0
+        check(st.prefill_tokens == rc.prompt_len
+              and st.decode_tokens == rc.k * (rc.max_new - 1),
+              f"{tag}: group token counts {st}")
+        check(tree.root.size >= rc.prompt_len and tree.num_leaves() == rc.k,
+              f"{tag}: prompt not shared by {rc.k} leaves")
+        calls, logits, tm = multiturn(cfg, params, "kernel", gen,
+                                      cross=cross)
+    counts = launch_counts()
+    log(f"{tag}: one rollout group (prompt {rc.prompt_len}, k {rc.k}, "
+        f"max_new {rc.max_new}, enc_len 0) in {t_group:.3f} s; multi-turn "
+        f"session{' with the cross K/V loaded' if cross else ''}: prefill "
+        f"{tm['prefill_tok'] / tm['prefill_s']:.1f} tokens/s "
+        f"({tm['prefill_tok']} tokens through the step loop in "
+        f"{tm['prefill_s']:.3f} s), decode "
+        f"{tm['decode_tok'] / tm['decode_s']:.1f} tokens/s "
+        f"({tm['decode_tok']} tokens in {tm['decode_s']:.3f} s); kernel "
+        f"launches {counts} (the step loop runs no tree-attention kernel)")
+    check(all(v == 0 for v in counts.values()),
+          f"{tag}: serving launched a tree-attention kernel")
+    enc_len = 0 if cross is None else cfg.frontend_len
+    mm_decode_bound(cfg, params, tm, tag, enc_len)
+    with torch.inference_mode():
+        sess = DecodeSession.create(cfg, params, buf_len=1536,
+                                    enc_len=enc_len)
+        if cross is not None:
+            sess.load_cross(*cross)
+        sess.prefill(rng.integers(0, cfg.vocab_size, 16))
+        br = sess.fork(8)
+        tok = torch.zeros(8, dtype=torch.long, device=DEV)
+        for _ in range(2):
+            br.step(tok)
+        profile_step(lambda: (br.step(tok), torch.cuda.synchronize()),
+                     f"{arch}_decode_step_trace", "decode step")
+    del calls, logits, br, sess, cross
+    return cfg, params, counts, frames
+
+
+def chain_logits(cfg, params, toks, frames=None):
+    """The packed forward's logits at the positions of ``toks`` (one chain;
+    ``frames`` the frontend rows, the stub's zeros if None)."""
+    tb = pack_trees([serialize_tree(TrajectoryTree(TreeNode(tokens=toks)))],
+                    len(toks))
+    with torch.inference_mode():
+        hidden, _ = transformer.forward(cfg, params, prepare_batch(
+            cfg, tb, frames, device=DEV))
+        return logits_from_hidden(params["embed"], params.get("lm_head"),
+                                  hidden[0])
+
+
+def stepped_logits(cfg, params, toks, cross=None, swap=None):
+    """Teacher-forced: the logits of a session stepping ``toks`` one by one
+    (a CUDA-graph replay a step, captured at the first), with the cross
+    K/V ``cross`` loaded before the first step and, given ``swap`` = (i,
+    K/V), the K/V replaced by ``load_cross`` before step i."""
+    T = 0 if cross is None else cross[0].shape[2]
+    with torch.inference_mode():
+        sess = DecodeSession.create(cfg, params, buf_len=len(toks),
+                                    enc_len=T)
+        if cross is not None:
+            sess.load_cross(*cross)
+        out = []
+        for i, t in enumerate(toks):
+            if swap is not None and i == swap[0]:
+                sess.load_cross(*swap[1])
+            out.append(sess.step([int(t)])[0])
+        return torch.stack(out)
+
+
+def phase_mm_serve_parity(cfg, params, frames):
+    """The step loop (the serving path) against the packed forward (the
+    training path) on SSM_PARITY_TOKENS teacher-forced tokens:
+    - Seamless, PARITY_LAYERS encoder and decoder layers in f32: the step
+      loop with the cross K/V of ``frames`` loaded within atol = rtol =
+      5e-4 of the forward over the same frames (tests/test_serve.py:72-114);
+      then a ``load_cross`` after the graph was captured: K/V of other
+      frames loaded before step SSM_PARITY_TOKENS / 2 must move the later
+      logits (relative L2 > 1e-2 from the first run's) and match an eager
+      step loop that makes the same swap (5e-4); full depth bf16: the step
+      loop's relative L2 from the bf16 forward, reported;
+    - Phi-3-vision, PARITY_LAYERS layers in f32: the VLM session is its
+      text decoder (the reference's session feeds no image), so its step
+      loop equals the forward of the same weights as a dense model with
+      no frontend, within 5e-4."""
+    tag = f"{cfg.name} serve parity"
+    P = SSM_PARITY_TOKENS
+    toks = np.random.default_rng(14).integers(0, cfg.vocab_size, P)
+    c4 = cfg.replace(n_layers=PARITY_LAYERS, dtype="float32")
+    if cfg.encdec is not None:
+        c4 = c4.replace(encdec=dataclasses.replace(
+            cfg.encdec, enc_layers=PARITY_LAYERS, dec_layers=PARITY_LAYERS))
+    p4 = init_params(c4, torch.Generator(DEV).manual_seed(0))
+    if cfg.encdec is None:
+        text = c4.replace(family="dense", frontend=None, frontend_len=0)
+        ok, err = close(stepped_logits(c4, p4, toks),
+                        chain_logits(text, p4, toks), 5e-4)
+        log(f"{tag}: {PARITY_LAYERS} layers f32, {P} tokens teacher-forced: "
+            f"the VLM step loop vs the forward of its text decoder (dense, "
+            f"no frontend): max abs error {err:.3e} (atol = rtol = 5e-4)")
+        check(ok, f"{tag} (f32)")
+        del p4
+        return
+    f4, kv4, _ = encode_frames(c4, p4, 3)
+    _, other, _ = encode_frames(c4, p4, 4)
+    want = chain_logits(c4, p4, toks, f4)
+    got = stepped_logits(c4, p4, toks, kv4)
+    ok, err = close(got, want, 5e-4)
+    half = P // 2
+    swapped = stepped_logits(c4, p4, toks, kv4, (half, other))
+    DecodeSession.graph_steps = False
+    try:
+        eager = stepped_logits(c4, p4, toks, kv4, (half, other))
+    finally:
+        DecodeSession.graph_steps = True
+    ok_swap, err_swap = close(swapped, eager, 5e-4)
+    moved = rel_l2(swapped[half:], got[half:])
+    ok_before, before = close(swapped[:half], got[:half], 5e-4)
+    log(f"{tag}: {PARITY_LAYERS} + {PARITY_LAYERS} layers f32, {P} tokens "
+        f"teacher-forced over {cfg.frontend_len} frames: step loop (cross K/V "
+        f"loaded) vs packed forward max abs error {err:.3e} (atol = rtol = "
+        f"5e-4); load_cross of other frames' K/V after the graph was "
+        f"captured, before step {half}: the later logits move by relative "
+        f"L2 {moved:.3e} (must exceed 1e-2; the earlier ones stay within "
+        f"5e-4: max abs {before:.3e}), and match an eager step loop making "
+        f"the same swap: max abs error {err_swap:.3e} (5e-4)")
+    check(ok, f"{tag} (f32 step loop vs forward)")
+    check(ok_swap and ok_before and moved > 1e-2,
+          f"{tag}: load_cross after the capture")
+    del p4, kv4, other
+    kv = cross_kv(cfg, params, transformer.encode(cfg, params, frames)[0])
+    fb = chain_logits(cfg, params, toks, frames)
+    sb = stepped_logits(cfg, params, toks, kv)
+    log(f"{tag}: {cfg.encdec.enc_layers} + {cfg.n_layers} layers bf16: step "
+        f"loop vs packed forward relative L2 of logits {rel_l2(sb, fb):.3e} "
+        f"(reported; finite: {bool(torch.isfinite(sb).all())})")
+    check(bool(torch.isfinite(sb).all()), f"{tag}: non-finite bf16 logits")
+
+
+def phase_mm_train_parity(cfg_full):
+    """PARITY_LAYERS layers in f32 (Seamless: as many encoder layers) on
+    one packed row of 2048 text tokens behind frontend rows drawn from the
+    seed: (a) the kernels against the plain attention, loss and grads
+    within 1e-4 max-rel (tests/test_equivalence.py:62); (b) tree vs the
+    per-branch baseline, every path row behind the same frontend rows,
+    through the kernels: loss rtol 5e-6 (tests/test_equivalence.py:65-80),
+    grads max-rel 1e-4."""
+    tag = f"{cfg_full.name} train parity"
+    cfg = cfg_full.replace(n_layers=PARITY_LAYERS, dtype="float32")
+    if cfg.encdec is not None:
+        cfg = cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, enc_layers=PARITY_LAYERS, dec_layers=PARITY_LAYERS))
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    trees = row_trees(cfg, 2048)
+    tb = pack_trees([serialize_tree(t) for t in trees], 2048, batch_size=1)
+    lb = pack_linear_paths([t.linearize_paths() for t in trees], 2048)
+    ext = np.random.default_rng(15).normal(
+        size=(1, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    bt = prepare_batch(cfg, tb, ext, device=DEV)
+    bb = prepare_batch(cfg, lb, np.repeat(ext, lb.tokens.shape[0], 0),
+                       device=DEV)
+    lk, _, gk = value_and_grad(cfg, params, bt, "kernel")
+    lr, _, gr = value_and_grad(cfg, params, bt, "ref")
+    e_loss = abs(float(lk) - float(lr)) / abs(float(lr))
+    e_g, leaf, l2, _ = grads_rel(gk, gr)
+    log(f"{tag} (a): {PARITY_LAYERS} layers f32, one packed row of 2048 "
+        f"({len(trees)} trees, {int(bt['valid'].sum())} tokens) behind "
+        f"{cfg.frontend_len} frontend rows, kernel vs plain attention: loss "
+        f"{float(lk):.6f} vs {float(lr):.6f}, relative error {e_loss:.3e} "
+        f"(limit 1e-4); grads max-rel {e_g:.3e} at {leaf} (limit 1e-4), "
+        f"relative L2 {l2:.3e}")
+    del gr
+    lbl, _, gb = value_and_grad(cfg, params, bb, "kernel")
+    e_loss_b = abs(float(lk) - float(lbl)) / abs(float(lbl))
+    e_g_b, leaf_b, l2_b, _ = grads_rel(gk, gb)
+    log(f"{tag} (b): {PARITY_LAYERS} layers f32 through the kernels, tree "
+        f"(1 row) vs per-branch baseline ({bb['tokens'].shape[0]} rows of "
+        f"2048, {int(bb['valid'].sum())} tokens, each behind the same "
+        f"frontend rows): loss {float(lk):.6f} vs {float(lbl):.6f}, "
+        f"relative error {e_loss_b:.3e} (limit 5e-6); grads max-rel "
+        f"{e_g_b:.3e} at {leaf_b} (limit 1e-4), relative L2 {l2_b:.3e}")
+    check(e_loss <= 1e-4 and e_g <= 1e-4, f"{tag} (a)")
+    check(e_loss_b <= 5e-6 and e_g_b <= 1e-4, f"{tag} (b)")
+    del params, gk, gb
+
+
+def run_mm(timed) -> dict:
+    """The enc-dec and VLM archs: the three kernels at their layouts (V,
+    S2) against the plain versions; each arch served at full depth
+    (``phase_mm_serve``), held step loop vs forward, trained (Phi-3 at the
+    deepest cut ``fit_depth`` gives), checked for deterministic grads and
+    held in f32 kernel vs plain and tree vs baseline; the kernels timed at
+    V and S2 on their first train step's real kv_last.  Returns the
+    kernels' worst errors, each arch's launches, step times and depth, and
+    the timings."""
+    ecfg, vfull = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
+    Fv = vfull.frontend_len
+    per_layer = act_bytes(vfull, TRAIN_ROWS * (TRAIN_SEQ + Fv))
+    vcfg = vfull.replace(n_layers=fit_depth(vfull, TRAIN_LIMIT, scale=7,
+                                            per_layer=per_layer))
+    log(f"{VLM_ARCH} train: the deepest cut whose bf16 weights, fp32 grads "
+        f"and AdamW state (14 bytes a parameter) and {per_layer / 1e9:.2f} GB "
+        f"of activations a layer ({TRAIN_ROWS} rows of {Fv} + {TRAIN_SEQ} "
+        f"tokens) fit {TRAIN_LIMIT / 1e9:.0f} GB: {vcfg.n_layers} of "
+        f"{vfull.n_layers} layers (reduced)")
+    plans_of = {}
+    for arch, cfg in ((ENCDEC_ARCH, ecfg), (VLM_ARCH, vcfg)):
+        kw = dict(gen=MM_TRAIN_GEN, trees=MM_TRAIN_TREES)
+        plans_of[arch] = (
+            train_plans(cfg, "agentic", "sep_avg", MM_SFT_STEPS, **kw),
+            train_plans(cfg, "grpo", "rl", MM_RL_STEPS, **kw))
+    kl_s2 = np.asarray(plans_of[ENCDEC_ARCH][0][0].packed.inputs["kv_last"])
+    kl_v = prefix_kv_last(np.asarray(
+        plans_of[VLM_ARCH][0][0].packed.inputs["kv_last"]), Fv)
+    err = {"fwd": timed("mm kernel", phase_kernel,
+                        mm_kernel_cases(kl_v, kl_s2), False)}
+    err.update(timed("mm bwd kernel", phase_bwd_kernel,
+                     mm_kernel_cases(kl_v, kl_s2)))
+    runs = {}
+    for arch, tcfg in ((ENCDEC_ARCH, ecfg), (VLM_ARCH, vcfg)):
+        sft, rl = plans_of[arch]
+        cfg, params, serve_counts, frames = timed(
+            f"{arch} serve", phase_mm_serve, arch)
+        timed(f"{arch} serve parity", phase_mm_serve_parity, cfg, params,
+              frames)
+        del params, frames
+        torch.cuda.empty_cache()
+        params, counts, step_s = timed(f"{arch} train", phase_train, tcfg,
+                                       sft, rl, f"{arch} train", False)
+        dropped = sum(p.dropped for p in (*sft, *rl))
+        check(dropped == 0, f"{arch} train: {dropped} trees dropped")
+        timed(f"{arch} determinism", phase_determinism, tcfg, params,
+              [("packed", sft[0])], f"{arch} determinism")
+        del params
+        torch.cuda.empty_cache()
+        timed(f"{arch} train parity", phase_mm_train_parity, cfg)
+        torch.cuda.empty_cache()
+        runs[arch] = dict(counts=counts, step_s=step_s, layers=tcfg.n_layers,
+                          serve_counts=serve_counts)
+    timing = {}
+    for key, arch, kl, n in (("V", VLM_ARCH, kl_v, vcfg.n_layers),
+                             ("S2", ENCDEC_ARCH, kl_s2, ecfg.n_layers)):
+        a = get_config(arch).attn
+        timing[key] = timed(
+            f"timing {key}", phase_timing_train, kl, runs[arch]["step_s"], n,
+            (a.n_heads, a.n_kv_heads), key, 0, a.head_dim)
+    return dict(err=err, runs=runs, timing=timing, shapes={
+        "V": kl_v.shape, "S2": kl_s2.shape})
 
 
 def main() -> int:
@@ -3819,6 +4289,11 @@ def main() -> int:
     ssm = run_ssm(timed)
     worst_fwd = max(worst_fwd, ssm["err"]["fwd"])
     worst_bwd = {k: max(worst_bwd[k], ssm["err"][k]) for k in worst_bwd}
+
+    # the enc-dec and VLM archs, once the SSM archs' tensors are gone
+    mm = run_mm(timed)
+    worst_fwd = max(worst_fwd, mm["err"]["fwd"])
+    worst_bwd = {k: max(worst_bwd[k], mm["err"][k]) for k in worst_bwd}
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
@@ -3897,6 +4372,27 @@ def main() -> int:
                 launches_wave_step=zw["launches"][name],
                 waves_in_step=zw["waves"], max_abs_err=zw["err"][key],
                 **ssm["timing"]["wave"][key]))
+        e["mm"] = dict(
+            max_abs_err=mm["err"][key],
+            launches_serve={a: mm["runs"][a]["serve_counts"][name]
+                            for a in (ENCDEC_ARCH, VLM_ARCH)},
+            launches_train={a: mm["runs"][a]["counts"][name]
+                            for a in (ENCDEC_ARCH, VLM_ARCH)},
+            train_layers={a: mm["runs"][a]["layers"]
+                          for a in (ENCDEC_ARCH, VLM_ARCH)},
+            V=dict(shape=f"V: the {mm['runs'][VLM_ARCH]['layers']}-layer "
+                         f"{VLM_ARCH} step's rows, B {mm['shapes']['V'][0]}, "
+                         f"S {mm['shapes']['V'][1]} (576 patches + "
+                         f"{TRAIN_SEQ} text), real kv_last, H 32, Kh 32, "
+                         f"bf16, hd 96",
+                   path=ta.kernel_path(key, torch.bfloat16, 96),
+                   **mm["timing"]["V"][key]),
+            S2=dict(shape=f"S2: the {ENCDEC_ARCH} decoder step's rows, B "
+                          f"{mm['shapes']['S2'][0]}, S "
+                          f"{mm['shapes']['S2'][1]}, real kv_last, H 16, "
+                          f"Kh 16, bf16, hd 64",
+                    path=ta.kernel_path(key, torch.bfloat16, 64),
+                    **mm["timing"]["S2"][key]))
         e["rl"] = dict(
             shape=f"rl loop: {RL_ARCH}, prompt {RL_PROMPT}, k {RL_K}, "
                   f"{rl['shape']['groups']} groups x "

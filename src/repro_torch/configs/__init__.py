@@ -1,5 +1,6 @@
-"""Architecture registry of the port: the dense, MoE, SSM and hybrid archs
-of ``repro/configs``, in the reference's order.  Each module exposes
+"""Architecture registry of the port: every arch of ``repro/configs``
+(dense, MoE, SSM, hybrid, the enc-dec SeamlessM4T and the VLM Phi-3-vision),
+in the reference's order.  Each module exposes
 ``config()`` (published dims) and ``smoke()`` (a reduced same-family
 variant for CPU tests).  ``long_context_variant`` is the reference's
 sliding-window variant.  The reference's ``supports_long_decode`` /
@@ -14,8 +15,10 @@ from repro_torch.configs.base import AttnCfg, ModelConfig, config_from_dict
 
 ARCH_IDS = [
     "qwen3_8b",
+    "seamless_m4t_large_v2",
     "llama4_scout_17b_a16e",
     "zamba2_1p2b",
+    "phi3_vision_4p2b",
     "rwkv6_1p6b",
     "qwen1p5_0p5b",
     "kimi_k2_1t_a32b",
@@ -35,8 +38,7 @@ def _canon(arch: str) -> str:
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     name = _canon(arch)
     if name not in ARCH_IDS:
-        raise KeyError(f"{arch!r} is not ported yet (ported: {ARCH_IDS}); "
-                       f"see ROADMAP.md Queue A")
+        raise KeyError(f"unknown arch {arch!r} (known: {ARCH_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke() if smoke else mod.config()
 

@@ -107,7 +107,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (the reference's formula, all
-        experts counted) of a dense, MoE, SSM or hybrid decoder."""
+        experts counted); an enc-dec model counts its encoder layers and
+        each decoder layer's cross-attention."""
         D, F, L = self.d_model, self.d_ff, self.n_layers
         emb = self.padded_vocab * D * (1 if self.tie_embeddings else 2)
         per_attn = 0
@@ -134,6 +135,10 @@ class ModelConfig:
             di = s.d_inner(D)
             per_ssm = D * 2 * di + di * D + di * s.d_state * 2
             return emb + L * per_ssm + per_attn + mult * D * F + 2 * D * D
+        if self.encdec is not None:
+            e = self.encdec
+            return emb + (e.enc_layers + e.dec_layers) * (
+                per_attn + mult * D * F) + e.dec_layers * per_attn
         return emb + L * (per_attn + mult * D * F)
 
 

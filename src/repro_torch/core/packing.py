@@ -36,11 +36,27 @@ class TreeBatch:
     valid: np.ndarray         # bool [B, S]
     chunk_parent: Optional[np.ndarray] = None  # i32 [B, C] (−1 = init state)
     num_trees: int = 1        # loss normalizer (mean over trees)
+    extra_embeds: Optional[np.ndarray] = None  # f32 [B, T_src, D] frontend stub
     row_trees: Optional[np.ndarray] = None     # i32 [B] trees per row
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.tokens.shape  # type: ignore[return-value]
+
+    def row_slice(self, b: int) -> "TreeBatch":
+        """Row ``b`` as a one-row batch, its own tree count the loss
+        normalizer."""
+        sl = lambda a: None if a is None else a[b:b + 1]  # noqa: E731
+        if self.row_trees is not None:
+            n = int(self.row_trees[b])
+        else:
+            # a tree root is the only valid token with no path predecessor
+            n = int(((self.prev_idx[b] == -1) & self.valid[b]).sum())
+        return TreeBatch(self.tokens[b:b + 1], self.pos_ids[b:b + 1],
+                         self.kv_last[b:b + 1], self.weight[b:b + 1],
+                         self.prev_idx[b:b + 1], self.valid[b:b + 1],
+                         sl(self.chunk_parent), max(n, 1),
+                         sl(self.extra_embeds), sl(self.row_trees))
 
 
 def _empty_row(S: int) -> dict[str, np.ndarray]:

@@ -1,17 +1,21 @@
-"""Tree-aware GQA attention (self-attention of the dense decoder).
+"""Tree-aware GQA attention: the decoders' self-attention, the enc-dec
+model's bidirectional encoder and cross-attention, and the decode step.
 
-Port of ``repro/models/attention.py``'s self-attention and decode paths.
-The tree mask is driven by the per-key bound ``kv_last``:
-visible(i, j) ⇔ j ≤ i ∧ kv_last[j] ≥ i, and with a window also
-pos_i − pos_j < window.
+Port of ``repro/models/attention.py``.  The tree mask is driven by the
+per-key bound ``kv_last``: visible(i, j) ⇔ j ≤ i ∧ kv_last[j] ≥ i, and with
+a window also pos_i − pos_j < window.
 
 Implementations of ``attention``:
   - 'ref'    : materialized mask (the reference's oracle path);
   - 'kernel' : ``kernels/ops.tree_attention`` — the hand-written CUDA kernel
                for tensors on the card, its plain version on the CPU.  The
                counterpart of the reference's 'pallas'.
-Cross-attention, bidirectional encoders and the 'chunked' XLA scan are not
-ported yet (ROADMAP.md Queue A).
+The encoder's bidirectional attention (keys masked by ``valid`` only, no
+RoPE) and the cross-attention over pre-projected encoder K/V are the
+plain softmax under either impl, as the reference's 'pallas' path takes
+its oracle for them; in training their scores are recomputed in the
+backward (``ssm.common.checkpointed``).  The reference's 'chunked' XLA scan
+is not ported (ROADMAP.md Queue A item 7).
 """
 from __future__ import annotations
 
@@ -21,14 +25,16 @@ import torch
 
 from repro_torch.configs.base import AttnCfg
 from repro_torch.models.layers import _dense_init, init_rmsnorm, rmsnorm, rope
+from repro_torch.models.ssm.common import checkpointed
 
 NEG_INF = -1e30
 BIG = 1 << 30
 
 
 def init_attention(generator, cfg: AttnCfg, d_model: int, dtype=torch.float32,
-                   device=None, lead=()) -> dict:
-    """``lead`` prepends stacked-layer dims to every leaf."""
+                   device=None, lead=(), cross: bool = False) -> dict:
+    """``lead`` prepends stacked-layer dims to every leaf.  A ``cross``
+    block has no q/k norm."""
     kw = dict(dtype=dtype, device=device)
     p = {
         "wq": _dense_init(generator, (*lead, d_model, cfg.q_dim), **kw),
@@ -40,7 +46,7 @@ def init_attention(generator, cfg: AttnCfg, d_model: int, dtype=torch.float32,
         p["bq"] = torch.zeros((*lead, cfg.q_dim), **kw)
         p["bk"] = torch.zeros((*lead, cfg.kv_dim), **kw)
         p["bv"] = torch.zeros((*lead, cfg.kv_dim), **kw)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = init_rmsnorm(cfg.head_dim, lead=lead, **kw)
         p["k_norm"] = init_rmsnorm(cfg.head_dim, lead=lead, **kw)
     return p
@@ -76,6 +82,12 @@ def _tree_bias(i_idx, kv_last, pos_q, pos_k, window):
     return torch.where(vis, 0.0, NEG_INF)[:, None, None]
 
 
+def _valid_bias(valid_k):
+    """Additive bias [B, 1, 1, 1, Sk] that hides the keys ``valid_k`` [B,
+    Sk] marks False: the encoder's and the cross-attention's only mask."""
+    return torch.where(valid_k, 0.0, NEG_INF)[:, None, None, None]
+
+
 def _attend_ref(q, k, v, bias, scale):
     B, S, H, hd = q.shape
     Kh = k.shape[2]
@@ -86,12 +98,34 @@ def _attend_ref(q, k, v, bias, scale):
     return o.reshape(B, S, H, hd)
 
 
+def cross_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """Queries ``x`` [B, S, D] over pre-projected encoder K/V [B, T, Kh,
+    hd] (``project_cross_kv``), keys masked by ``valid`` [B, T] only: the
+    mask is the same for every branch of a tree (the reference's cross
+    branch: no bias, norm or RoPE on q).  T may be 0 (a session with no
+    encoder output): the term is then 0."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    o = checkpointed(_attend_ref, q, k, v, _valid_bias(valid), _scale(cfg))
+    return o.reshape(B, S, -1) @ params["wo"]
+
+
 def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
               pos_ids: torch.Tensor, kv_last: torch.Tensor,
-              impl: str = "kernel", extra_kv: Optional[dict] = None,
+              impl: str = "kernel", valid: Optional[torch.Tensor] = None,
+              bidirectional: bool = False,
+              cross_kv: Optional[tuple] = None,
+              cross_valid: Optional[torch.Tensor] = None,
+              extra_kv: Optional[dict] = None,
               capture_idx: Optional[dict] = None):
-    """Full-sequence (prefill) self-attention.  x: [B, S, D].
+    """Full-sequence (train/prefill) attention.  x: [B, S, D].
 
+    bidirectional: the encoder's attention, every ``valid`` [B, S] key
+    visible to every query, no RoPE (``kv_last`` unused).  cross_kv: pre-
+    projected encoder (k, v) → ``cross_attention`` with ``cross_valid``.
+    Neither takes ``extra_kv`` or ``capture_idx``.
     extra_kv: gateway ancestor KV — dict(k, v, pos[, valid]) with k/v
     [B, A, Kh, hd] already roped; ancestors are visible to every query, a
     False in ``valid`` [B, A] hides one.  capture_idx: dict name → index
@@ -99,7 +133,13 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
     session writes them into its cache).
     """
     B, S, _ = x.shape
+    if cross_kv is not None:
+        return cross_attention(params, cfg, x, *cross_kv, cross_valid)
     q, k, v = _project_qkv(params, cfg, x)
+    if bidirectional:
+        o = checkpointed(_attend_ref, q, k, v, _valid_bias(valid),
+                         _scale(cfg))
+        return o.reshape(B, S, -1) @ params["wo"]
     q = rope(q, pos_ids, cfg.rope_theta)
     k = rope(k, pos_ids, cfg.rope_theta)
 
@@ -142,14 +182,29 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
     return y
 
 
+def project_cross_kv(params: dict, cfg: AttnCfg, enc_out: torch.Tensor):
+    """A cross block's K/V [B, T, Kh, hd] of the encoder output [B, T,
+    D]."""
+    B, T, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ params["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    if "bk" in params:
+        k = k + params["bk"].reshape(1, 1, cfg.n_kv_heads, cfg.head_dim)
+        v = v + params["bv"].reshape(1, 1, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
 def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
-                     cache: dict, pos: torch.Tensor, write_idx: torch.Tensor
-                     ) -> torch.Tensor:
+                     cache: dict, pos: torch.Tensor, write_idx: torch.Tensor,
+                     cross_cache: Optional[dict] = None) -> torch.Tensor:
     """One-token decode.  x: [B, 1, D]; cache: one layer's ring buffer
     {k, v [B, T, Kh, hd], pos [B, T]}, which this call updates **in place**
     (slot ``write_idx``, a [1] int64 tensor on the cache's device, takes
     the new token: a device index, so a captured CUDA graph replays with
-    the slot of each step); pos: [B] position ids."""
+    the slot of each step); pos: [B] position ids.  cross_cache: {k, v
+    [B, T_enc, Kh, hd], valid [B, T_enc]}, whose attention output joins
+    the self-attention's before ``wo`` (the reference's ``cross_cache``
+    term; the enc-dec decode layer runs its own cross block instead)."""
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, cfg, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
@@ -170,4 +225,10 @@ def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
     logits = logits * _scale(cfg) + bias[..., None, :]
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgij,bjkd->bikgd", w.to(v.dtype), v)
-    return o.reshape(B, 1, cfg.q_dim) @ params["wo"]
+    o = o.reshape(B, 1, cfg.q_dim)
+    if cross_cache is not None:
+        qc = (x @ params["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        oc = _attend_ref(qc, cross_cache["k"], cross_cache["v"],
+                         _valid_bias(cross_cache["valid"]), _scale(cfg))
+        o = o + oc.reshape(B, 1, cfg.q_dim)
+    return o @ params["wo"]

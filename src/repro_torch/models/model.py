@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -38,20 +39,19 @@ def max_conv_taps(cfg: ModelConfig) -> int:
     return cfg.ssm.conv_kernel - 1
 
 
-def batch_arrays(cfg: ModelConfig, tb: TreeBatch, *,
-                 num_trees: Optional[int] = None) -> dict:
+def batch_arrays(cfg: ModelConfig, tb: TreeBatch, extra_embeds=None, *,
+                 extra_valid=None, num_trees: Optional[int] = None) -> dict:
     """TreeBatch → the model's input columns as host (numpy) arrays, plus
     ``num_trees``, the loss normalizer (mean over trees; ``num_trees``
     overrides the batch's own count).  The planner's threads build these;
     the engine copies them to its device (``device_batch``), except
     ``chunk_parent`` (SSM and hybrid families), which the chunk loop reads
     on the host; ``prev_pows`` [B, S, K−1] are the conv's
-    path predecessors.  Frontend embeddings are not ported: VLM/audio
-    raise."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} needs frontend embeddings, which are not "
-            f"ported yet; see ROADMAP.md Queue A item 5")
+    path predecessors.  A model with a frontend (VLM, audio) also takes
+    ``extra_embeds`` [B, frontend_len, d_model]: the argument, else the
+    batch's own, else the stub's zeros (f32; the model casts them to its
+    dtype, so they equal the reference's zeros of that dtype), and
+    ``extra_valid`` [B, frontend_len] where given."""
     d: dict = {k: getattr(tb, k) for k in ("tokens", "pos_ids", "kv_last",
                                            "weight", "prev_idx", "valid")}
     if needs_chunks(cfg):
@@ -60,16 +60,27 @@ def batch_arrays(cfg: ModelConfig, tb: TreeBatch, *,
                              f"with chunk_size={cfg.ssm.chunk_size})")
         d["chunk_parent"] = tb.chunk_parent
         d["prev_pows"] = prev_powers(tb.prev_idx, max(1, max_conv_taps(cfg)))
+    if extra_embeds is not None:
+        d["extra_embeds"] = extra_embeds
+    elif tb.extra_embeds is not None:
+        d["extra_embeds"] = tb.extra_embeds
+    elif cfg.frontend is not None:
+        d["extra_embeds"] = np.zeros(
+            (tb.tokens.shape[0], cfg.frontend_len, cfg.d_model), np.float32)
+    if extra_valid is not None:
+        d["extra_valid"] = extra_valid
     d["num_trees"] = tb.num_trees if num_trees is None else num_trees
     return d
 
 
-def prepare_batch(cfg: ModelConfig, tb: TreeBatch, *,
-                  num_trees: Optional[int] = None,
+def prepare_batch(cfg: ModelConfig, tb: TreeBatch, extra_embeds=None, *,
+                  extra_valid=None, num_trees: Optional[int] = None,
                   device: DeviceLike = None) -> dict:
     """``batch_arrays`` as tensors on ``device`` (the CUDA device by
     default), ``chunk_parent`` kept host (``device_batch``)."""
-    return device_batch(batch_arrays(cfg, tb, num_trees=num_trees),
+    return device_batch(batch_arrays(cfg, tb, extra_embeds,
+                                     extra_valid=extra_valid,
+                                     num_trees=num_trees),
                         resolve_device(device))
 
 

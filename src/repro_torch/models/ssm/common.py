@@ -111,9 +111,12 @@ def checkpointed(fn, *args):
     same numbers, in the same order, so the gradient is unchanged and
     deterministic; ``fn`` draws no random numbers, so no RNG state is
     stashed).  The SSM layers' chunk terms hold [L, L] tensors per chunk
-    and head: kept for all layers of a full-width row pair they would
-    pass the card's memory."""
-    if not torch.is_grad_enabled():
+    and head, the plain encoder and cross-attention (``models/attention``)
+    fp32 scores per query and key: kept for all layers of a full-width row
+    pair they would pass the card's memory.  Where no argument requires
+    grad (a decode step) nothing would be kept, and ``fn`` runs as it is."""
+    if not (torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
         return fn(*args)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
                                              preserve_rng_state=False)

@@ -1,10 +1,13 @@
-"""Model assembly for the dense, MoE, SSM and hybrid decoders.
+"""Model assembly: the dense, MoE, SSM and hybrid decoders, the enc-dec
+model and the multimodal (VLM) prefix.
 
-Port of ``repro/models/transformer.py`` for those families:
-``init_params``, ``forward`` (:316, with the Zamba2 hybrid's stages and
-shared attention block, :360), ``partition_forward`` (:398, the session's
-prefill and the partition waves), ``partition_loss``
-(:477) and ``loss_and_metrics`` (:520).  Parameters keep the reference's layout —
+Port of ``repro/models/transformer.py``: ``init_params``, ``forward``
+(:316, with the Zamba2 hybrid's stages and shared attention block, :360;
+the VLM prefix rows, ``_mm_prefix_meta`` :295, and the audio encoder,
+``encode``), ``partition_forward`` (:398, the session's prefill and the
+partition waves; it refuses the VLM and audio families, as the
+reference's does), ``partition_loss`` (:477) and ``loss_and_metrics``
+(:520).  Parameters keep the reference's layout —
 ``layer_stacks[g]`` holds one scan group of same-kind layers with a leading
 layer dimension — so the weight bridge is an identity rename.  Layers loop
 in Python where the reference scans; each forward unbinds every stacked
@@ -12,9 +15,10 @@ leaf once (``_unstack``), so the backward writes each leaf's gradient once
 instead of one zero-filled whole stack per layer.  The SSM layers
 (``models/ssm``) take the batch's host ``chunk_parent`` and device
 ``prev_pows``, and in a partition their gateway state and conv or shift
-context.
-Enc-dec and VLM raise (later items of Queue A), as does ``remat="full"``
-(item 7).  The reference's ``shard_activation`` and
+context.  An enc-dec model also holds ``encoder`` (one stacked group of
+bidirectional layers) and ``enc_norm``; each decoder layer also ``ln_x``
+and the cross block ``xattn``.  ``remat="full"`` raises (ROADMAP.md
+Queue A item 7).  The reference's ``shard_activation`` and
 ``shard_logits`` are the identity without a device mesh, and the one-card
 port has none.
 """
@@ -26,7 +30,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, map_tree, resolve_device
-from repro_torch.models.attention import attention, init_attention
+from repro_torch.models.attention import (attention, init_attention,
+                                          project_cross_kv)
 from repro_torch.models.layers import (_dense_init, embed, init_embedding,
                                        init_lm_head, init_mlp, init_rmsnorm,
                                        mlp, rmsnorm, take_rows, token_nll)
@@ -44,19 +49,19 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _layer_kinds(cfg: ModelConfig) -> list[str]:
     """Kind of every decoder layer, in order (the hybrid's shared attention
-    block is not a layer of the stack)."""
+    block and the enc-dec model's encoder are not layers of the stack)."""
+    if cfg.family in ("dense", "vlm"):
+        return ["dense"] * cfg.n_layers
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         return ["dense"] * fd + ["moe"] * (cfg.n_layers - fd)
-    if cfg.family == "dense":
-        return ["dense"] * cfg.n_layers
     if cfg.family == "ssm" and cfg.ssm.kind in ("rwkv6", "gdn"):
         return [cfg.ssm.kind] * cfg.n_layers
     if cfg.family in ("ssm", "hybrid"):
         return ["mamba2"] * cfg.n_layers
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
-        f"hybrid); see ROADMAP.md Queue A (enc-dec/VLM items)")
+    if cfg.family == "audio":
+        return ["decoder_cross"] * cfg.encdec.dec_layers
+    raise ValueError(cfg.family)
 
 
 def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -76,12 +81,18 @@ def _init_layers(cfg: ModelConfig, kind: str, lead: tuple, generator, dtype,
     a group of n, () for the hybrid's shared block); each weight's fan-in
     is its shape[-2], so every layer gets the reference's per-layer
     scale.  An MoE layer's router stays fp32, as do the SSM layers' decay
-    and skip parameters."""
+    and skip parameters.  An ``encoder`` layer has a dense layer's leaves,
+    a ``decoder_cross`` layer also ``ln_x`` and the cross block ``xattn``
+    (no q/k norm)."""
     D = cfg.d_model
     kw = dict(dtype=dtype, device=device, lead=lead)
     p = {"ln1": init_rmsnorm(D, **kw)}
-    if kind in ("dense", "moe"):
+    if kind in ("dense", "moe", "encoder", "decoder_cross"):
         p["attn"] = init_attention(generator, cfg.attn, D, **kw)
+        if kind == "decoder_cross":
+            p["ln_x"] = init_rmsnorm(D, **kw)
+            p["xattn"] = init_attention(generator, cfg.attn, D, cross=True,
+                                        **kw)
         p["ln2"] = init_rmsnorm(D, **kw)
         if kind == "moe":
             p["moe"] = init_moe(generator, cfg.moe, D, cfg.mlp_activation,
@@ -133,12 +144,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             params["shared_in"] = _dense_init(
                 generator, (2 * cfg.d_model, cfg.d_model), dtype=dt,
                 device=dev)
+    if cfg.family == "audio":
+        params["encoder"] = _init_layers(cfg, "encoder",
+                                         (cfg.encdec.enc_layers,), generator,
+                                         dt, dev)
+        params["enc_norm"] = init_rmsnorm(cfg.d_model, dt, dev)
     return params
 
 
 def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
                  meta: dict, impl: str, gw=None, capspec=None):
-    """One decoder layer.  Returns (x, aux, captures): aux is the MoE
+    """One layer (of a decoder, or the enc-dec model's ``encoder``: its
+    attention bidirectional over ``meta["valid"]``; a ``decoder_cross``
+    layer also attends to ``meta["enc_out"]`` under ``meta["enc_valid"]``).
+    Returns (x, aux, captures): aux is the MoE
     layer's summed aux losses (f32 scalar), None for other kinds.  gw:
     this layer's gateway or None — ancestor KV {"attn": {k, v}}; RWKV6
     {"tm": {state, shift}, "cm": {shift}}; Mamba2 and GDN {"ssm": {state,
@@ -185,6 +204,16 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
             x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
                         cfg.mlp_activation)
         return x, None, caps
+    if kind == "decoder_cross":
+        x = x + attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
+                          pos_ids=meta["pos_ids"], kv_last=meta["kv_last"],
+                          impl=impl)
+        kv = project_cross_kv(p["xattn"], cfg.attn, meta["enc_out"])
+        x = x + attention(p["xattn"], cfg.attn, rmsnorm(p["ln_x"], x, eps),
+                          pos_ids=meta["pos_ids"], kv_last=meta["kv_last"],
+                          cross_kv=kv, cross_valid=meta["enc_valid"])
+        return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
+                       cfg.mlp_activation), None, caps
     cap_idx = None if capspec is None else \
         {n: s["path_idx"] for n, s in capspec.items()}
     egw = gw.get("attn")
@@ -192,7 +221,9 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
         egw = {**egw, "pos": meta["anc_pos"], "valid": meta.get("anc_valid")}
     a = attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
                   pos_ids=meta["pos_ids"], kv_last=meta["kv_last"],
-                  impl=impl, extra_kv=egw, capture_idx=cap_idx)
+                  valid=meta["valid"], impl=impl,
+                  bidirectional=kind == "encoder", extra_kv=egw,
+                  capture_idx=cap_idx)
     if cap_idx is not None:
         a, caps["attn"] = a
     x = x + a
@@ -237,8 +268,13 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
     block, with a leading layer axis of 1; ``batch["anc_pos"]``/
     ``["anc_valid"]`` give the ancestors' positions and validity.  Returns
     (hidden, aux, captures): aux the summed MoE aux losses, the captures
-    stacked like ``gw_in``.
+    stacked like ``gw_in``.  The VLM and audio families raise, as the
+    reference's do (``transformer.py:414``): their prefix and encoder are
+    not partitioned.
     """
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            "partitioned training currently covers dense/moe/ssm/hybrid")
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
                                   "chunk_parent", "prev_pows", "anc_pos",
                                   "anc_valid") if k in batch}
@@ -265,11 +301,61 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caps_all
 
 
+def _mm_prefix_meta(batch: dict) -> dict:
+    """The text columns behind a multimodal prefix of F embedding rows:
+    the prefix takes positions 0..F−1 and is visible to every later token
+    of its row (kv_last = F + S − 1), causal within itself; the text's
+    positions and DFS indices shift by F (−1 stays −1)."""
+    F = batch["extra_embeds"].shape[1]
+    B, S = batch["tokens"].shape
+    dev = batch["tokens"].device
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def shift(a):
+        return torch.where(a >= 0, a + F, -1).to(torch.int32)
+
+    return dict(
+        pos_ids=torch.cat([torch.arange(F, **i32).expand(B, F),
+                           batch["pos_ids"] + F], dim=1).to(torch.int32),
+        kv_last=torch.cat([torch.full((B, F), F + S - 1, **i32),
+                           shift(batch["kv_last"])], dim=1),
+        prev_idx=torch.cat([torch.full((B, F), -1, **i32),
+                            shift(batch["prev_idx"])], dim=1),
+        valid=torch.cat([torch.ones((B, F), dtype=torch.bool, device=dev),
+                         batch["valid"].bool()], dim=1),
+        prefix_len=F)
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           valid: Optional[torch.Tensor] = None, impl: str = "kernel"):
+    """The enc-dec model's encoder over frame embeddings [B, T, D]:
+    bidirectional layers over the frames ``valid`` [B, T] marks (all by
+    default), then ``enc_norm``.  Returns (enc_out [B, T, D], valid)."""
+    B, T = frames.shape[:2]
+    dev = frames.device
+    if valid is None:
+        valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    meta = dict(pos_ids=torch.arange(T, dtype=torch.int32,
+                                     device=dev).expand(B, T),
+                kv_last=torch.full((B, T), T - 1, dtype=torch.int32,
+                                   device=dev),
+                prev_idx=torch.full((B, T), -1, dtype=torch.int32,
+                                    device=dev),
+                valid=valid)
+    x = frames.to(_dtype(cfg))
+    for lp in _unstack(params["encoder"], cfg.encdec.enc_layers):
+        x, _, _ = _apply_layer(cfg, lp, "encoder", x, meta, impl)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps), valid
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden [B, S, D] post-final-norm, aux_loss): the f32 sum of
     the MoE layers' aux losses (zero without MoE layers).  SSM and hybrid
-    batches also carry ``chunk_parent`` (host) and ``prev_pows``."""
+    batches also carry ``chunk_parent`` (host) and ``prev_pows``.  A VLM
+    batch's ``extra_embeds`` [B, F, D] are a prefix of every row, sliced
+    off the hidden states again; an audio batch's are the encoder's
+    frames (``extra_valid`` [B, F] masks them, all valid by default)."""
     if cfg.remat != "none":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet; see ROADMAP.md Queue A "
@@ -277,6 +363,15 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
                                   "chunk_parent", "prev_pows") if k in batch}
     x = embed(params["embed"], batch["tokens"])
+    F = 0
+    if cfg.family == "vlm" or (cfg.frontend and cfg.family != "audio"):
+        meta.update(_mm_prefix_meta(batch))
+        F = meta.pop("prefix_len")
+        x = torch.cat([batch["extra_embeds"].to(x.dtype), x], dim=1)
+    if cfg.family == "audio":
+        meta["enc_out"], meta["enc_valid"] = encode(
+            cfg, params, batch["extra_embeds"], batch.get("extra_valid"),
+            impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         x, _ = _hybrid_forward(cfg, params, x, meta, impl)
@@ -287,7 +382,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
                 x, a, _ = _apply_layer(cfg, lp, kind, x, meta, impl)
                 if a is not None:
                     aux = aux + a
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return (x[:, F:] if F else x), aux
 
 
 def _hybrid_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,

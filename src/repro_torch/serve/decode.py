@@ -1,16 +1,22 @@
 """Serving internals: the per-layer caches, the one-token decode step,
 and ``rollouts_to_tree``.
 
-Port of ``repro/serve/decode.py`` for the dense, MoE, SSM and hybrid
-families (its deprecated free functions are left out).  The cache keeps
-the reference's layout, per layer group ``g{i}``:
+Port of ``repro/serve/decode.py`` (its deprecated free functions are left
+out).  The cache keeps the reference's layout, per layer group ``g{i}``:
 
-  attention : k/v [L, B, T, Kh, hd] and pos [L, B, T] (−1 = empty slot);
+  attention : k/v [L, B, T, Kh, hd] and pos [L, B, T] (−1 = empty slot),
+              also the enc-dec decoder's self-attention;
   mamba2    : h [L, B, H, d_state, hd] fp32 and the conv tail [L, B, K−1, ·];
   gdn       : S [L, B, H, hd, hd] fp32 and the conv tail;
   rwkv6     : S [L, B, H, hd, hd] fp32 and the token-shift tails x_tm, x_cm;
   hybrid    : the mamba2 stack plus ``shared``, one KV ring per application
-              of the shared attention block [n_apps, B, T, Kh, hd].
+              of the shared attention block [n_apps, B, T, Kh, hd];
+  audio     : plus ``cross``, the encoder's K/V for every decoder layer,
+              k/v [dec_layers, B, enc_len, Kh, hd] and valid [B, enc_len]
+              (``session.load_cross`` fills them).
+A VLM decodes as the dense decoder: its image prefix reaches the cache
+through the session's step-loop prefill like any token, as in the
+reference.
 
 The port writes the cache **in place**: ``_decode_step`` updates the cache
 it is given.  ``serve/session.py`` owns when that is safe.
@@ -23,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import TrajectoryTree, TreeNode
 from repro_torch.data.synthetic import group_normalized_advantages
-from repro_torch.models.attention import decode_attention
+from repro_torch.models.attention import cross_attention, decode_attention
 from repro_torch.models.layers import embed, logits_from_hidden, mlp, rmsnorm
 from repro_torch.models.moe import moe
 from repro_torch.models.ssm.gdn import gdn_decode, init_gdn_cache
@@ -51,24 +57,38 @@ def _ssm_cache(L: int, B: int, cfg: ModelConfig, dt, device) -> dict:
     return init(B, cfg.ssm, cfg.d_model, dt, device, lead=(L,))
 
 
-def _init_cache(cfg: ModelConfig, batch: int, buf_len: int, device) -> dict:
-    """buf_len: KV slots (= max context, or the window for sliding)."""
+def _init_cache(cfg: ModelConfig, batch: int, buf_len: int, device,
+                enc_len: int = 0) -> dict:
+    """buf_len: KV slots (= max context, or the window for sliding);
+    enc_len: encoder positions of an enc-dec model's cross K/V (0: the
+    cross term attends to no key and adds nothing)."""
     dt = _dtype(cfg)
-    if cfg.attn is not None and cfg.attn.window is not None:
-        buf_len = min(buf_len, cfg.attn.window)
+    a = cfg.attn
+    if a is not None and a.window is not None:
+        buf_len = min(buf_len, a.window)
     cache = {f"g{gi}": (_attn_cache(n, batch, buf_len, cfg, dt, device)
-                        if kind in ("dense", "moe")
+                        if kind in ("dense", "moe", "decoder_cross")
                         else _ssm_cache(n, batch, cfg, dt, device))
              for gi, (kind, n) in enumerate(layer_groups(cfg))}
     if cfg.family == "hybrid":
         n_apps = -(-cfg.n_layers // cfg.hybrid.attn_every)
         cache["shared"] = _attn_cache(n_apps, batch, buf_len, cfg, dt, device)
+    if cfg.family == "audio":
+        shape = (cfg.encdec.dec_layers, batch, enc_len, a.n_kv_heads,
+                 a.head_dim)
+        cache["cross"] = {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "valid": torch.ones((batch, enc_len), dtype=torch.bool,
+                                device=device)}
     return cache
 
 
 def _decode_layer(cfg: ModelConfig, p: dict, kind: str, x, cache_l, pos,
-                  widx):
-    """One layer of a decode step, updating ``cache_l`` in place.  An MoE
+                  widx, cross_l=None):
+    """One layer of a decode step, updating ``cache_l`` in place; a
+    ``decoder_cross`` layer also attends to its slice ``cross_l`` {k, v,
+    valid} of the cross cache.  An MoE
     layer routes the step's B tokens as one batch with every token valid,
     as the reference does: its capacity is max(1, round(B·K/E·cf)), so C =
     1 at 8 branches of 128 experts top-8, and slots past an expert's first
@@ -89,6 +109,10 @@ def _decode_layer(cfg: ModelConfig, p: dict, kind: str, x, cache_l, pos,
                        cfg.mlp_activation)
     x = x + decode_attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
                              cache_l, pos, widx)
+    if kind == "decoder_cross":
+        x = x + cross_attention(p["xattn"], cfg.attn,
+                                rmsnorm(p["ln_x"], x, eps), cross_l["k"],
+                                cross_l["v"], cross_l["valid"])
     h = rmsnorm(p["ln2"], x, eps)
     if kind == "moe":
         m, _ = moe(p["moe"], cfg.moe, h,
@@ -114,8 +138,15 @@ def _decode_step(cfg: ModelConfig, params: dict, cache: dict,
         for gi, ((kind, n), stacked) in enumerate(
                 zip(layer_groups(cfg), params["layer_stacks"])):
             grp = cache[f"g{gi}"]
-            for lp, cache_l in zip(_unstack(stacked, n), _unstack(grp, n)):
-                x = _decode_layer(cfg, lp, kind, x, cache_l, pos, write_idx)
+            cross = [None] * n
+            if kind == "decoder_cross":
+                cx = cache["cross"]
+                cross = [{"k": k, "v": v, "valid": cx["valid"]} for k, v in
+                         zip(_unstack(cx["k"], n), _unstack(cx["v"], n))]
+            for lp, cache_l, cl in zip(_unstack(stacked, n), _unstack(grp, n),
+                                       cross):
+                x = _decode_layer(cfg, lp, kind, x, cache_l, pos, write_idx,
+                                  cl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params["embed"], params.get("lm_head"), x)[:, 0]
 

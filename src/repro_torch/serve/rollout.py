@@ -9,7 +9,9 @@ advantage-weighted :class:`TrajectoryTree` with ``rollouts_to_tree``.
 The reference fuses the decode loop into one jitted ``lax.scan``; PyTorch
 runs eagerly, so here it is a Python loop of ``DecodeSession.step``.
 ``prefill_tokens`` in the returned stats equals the prompt length, not K×
-it: the proof that the shared prefix is computed once per group.
+it: the proof that the shared prefix is computed once per group.  An
+enc-dec model's group holds no encoder output (its session is made with
+``enc_len`` 0, as the reference's is), so its cross-attention adds 0.
 """
 from __future__ import annotations
 

@@ -1,8 +1,7 @@
 """DecodeSession — the serving API: prefill / fork / step / snapshot.
 
-Port of ``repro/serve/session.py`` for the dense, MoE, SSM and hybrid
-families.  One session owns a decode cache for ``batch`` lockstep
-branches:
+Port of ``repro/serve/session.py``.  One session owns a decode cache for
+``batch`` lockstep branches:
 
   ``create``    allocate the cache on the session's device (CUDA unless
                 the caller passes ``device="cpu"``).
@@ -13,9 +12,13 @@ branches:
                 the cache.  On a session that already holds context (a
                 fork, or a second prefill) the cached slots ride in as
                 gateway ancestors — the tree-attention kernel's ``q_off``
-                shape.  Sliding-window configs and the SSM and hybrid
-                families prefill through the step loop, as the reference's
-                do (still one computation of the prefix per session).
+                shape.  Sliding-window configs, the SSM and hybrid
+                families and the models with a frontend (VLM, enc-dec)
+                prefill through the step loop, as the reference's do
+                (still one computation of the prefix per session).
+  ``load_cross`` install an enc-dec model's cross K/V (a session made
+                with ``enc_len``) by copying into the cache's buffers, so
+                a step graph captured earlier reads them.
   ``fork``      split a 1-branch session into K branches that share the
                 prefilled prefix: the cache rows (KV and recurrent states)
                 are copied, the prefix is not recomputed (the paper's
@@ -126,6 +129,7 @@ class DecodeSession:
     cache: dict
     batch: int
     t: int = 0                        # next absolute position
+    enc_len: int = 0                  # encoder positions of the cross K/V
     stats: SessionStats = field(default_factory=SessionStats)
     # the captured step (graph, static inputs, static logits) of a session
     # on the card; a fork or snapshot captures its own
@@ -142,7 +146,7 @@ class DecodeSession:
     # -- construction ------------------------------------------------------
     @classmethod
     def create(cls, cfg: ModelConfig, params: dict, *, batch: int = 1,
-               buf_len: int, device: DeviceLike = None,
+               buf_len: int, enc_len: int = 0, device: DeviceLike = None,
                graph_pool: Optional["GraphPool"] = None
                ) -> "DecodeSession":
         dev = resolve_device(device)
@@ -151,8 +155,8 @@ class DecodeSession:
                              f"{params['embed']['table'].device}, the "
                              f"session on {dev}")
         return cls(cfg=cfg, params=params,
-                   cache=_init_cache(cfg, batch, buf_len, dev), batch=batch,
-                   graph_pool=graph_pool)
+                   cache=_init_cache(cfg, batch, buf_len, dev, enc_len),
+                   batch=batch, enc_len=enc_len, graph_pool=graph_pool)
 
     @property
     def device(self) -> torch.device:
@@ -167,11 +171,30 @@ class DecodeSession:
                 return grp["pos"].shape[2]
         return None
 
+    def load_cross(self, k: torch.Tensor, v: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> None:
+        """Install encoder cross K/V [dec_layers, batch, enc_len, Kh, hd]
+        (``attention.project_cross_kv`` of each decoder layer over
+        ``transformer.encode``'s output) and optionally ``valid`` [batch,
+        enc_len].  Copied into the cache's own buffers, never rebound: a
+        decode graph captured before reads the new values."""
+        cross = self.cache["cross"]
+        if tuple(k.shape) != tuple(cross["k"].shape) or \
+                tuple(v.shape) != tuple(cross["v"].shape):
+            raise ValueError(f"cross K/V of shape {tuple(k.shape)}, "
+                             f"{tuple(v.shape)}; the session holds "
+                             f"{tuple(cross['k'].shape)}")
+        cross["k"].copy_(k)
+        cross["v"].copy_(v)
+        if valid is not None:
+            cross["valid"].copy_(valid)
+
     # -- prefill -----------------------------------------------------------
     def _can_parallel_prefill(self, P: int) -> bool:
-        if self.cfg.family not in ("dense", "moe"):
+        cfg = self.cfg
+        if cfg.family not in ("dense", "moe"):
             return False
-        if self.cfg.attn.window is not None:
+        if cfg.attn.window is not None or cfg.frontend is not None:
             return False
         return self.t + P <= self._ring
 
@@ -245,10 +268,14 @@ class DecodeSession:
 
         The prefilled prefix is NOT recomputed: its KV rows are copied into
         fresh buffers (a later in-place step on one branch touches no
-        other).  Only 1-branch sessions fork; the forks share the stats."""
+        other).  The cross cache's ``valid`` [B, enc_len] tiles on its
+        axis 0, every other leaf on axis 1.  Only 1-branch sessions fork;
+        the forks share the stats."""
         if self.batch != 1:
             raise ValueError("fork() requires a 1-branch session")
-        cache = map_tree(lambda a: a.repeat_interleave(k, dim=1), self.cache)
+        cache = {name: {key: a.repeat_interleave(
+            k, dim=0 if (name, key) == ("cross", "valid") else 1)
+            for key, a in grp.items()} for name, grp in self.cache.items()}
         return replace(self, cache=cache, batch=k)
 
     def snapshot(self) -> "DecodeSession":

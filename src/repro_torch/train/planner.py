@@ -38,6 +38,9 @@ than children.
 
 Each plan carries ``versions``, the (min, max) ``weight_version`` of its
 trees (the async RL service tags them; ``train/engine`` audits the lag).
+For a model with a frontend (VLM, enc-dec) each step's packed rows get
+stub frontend embeddings drawn as the reference's planner draws them,
+``np.random.default_rng([seed, 7919, step index])``.
 
 Not ported: the AOT warmup hook (``plans(..., warmup=)``: ROADMAP.md Queue A
 item 7).
@@ -356,7 +359,9 @@ def _permute_tb_rows(tb, order: Sequence[int]):
                      kv_last=tb.kv_last[idx], weight=tb.weight[idx],
                      prev_idx=tb.prev_idx[idx], valid=tb.valid[idx],
                      chunk_parent=sl(tb.chunk_parent),
-                     num_trees=tb.num_trees, row_trees=sl(tb.row_trees))
+                     num_trees=tb.num_trees,
+                     extra_embeds=sl(tb.extra_embeds),
+                     row_trees=sl(tb.row_trees))
 
 
 # ---------------------------------------------------------------------------
@@ -422,10 +427,18 @@ class PlannedStep:
                 tree_counts=[f.n_src for f in self.fits])
         inputs = None
         if tb is not None:
+            extra = None
+            if cfg.frontend is not None:
+                # the stub frontend's patch or frame embeddings, drawn as
+                # the reference's planner draws them
+                rng = np.random.default_rng([lc.seed, 7919, self.index])
+                extra = rng.normal(
+                    size=(tb.tokens.shape[0], cfg.frontend_len,
+                          cfg.d_model)).astype(np.float32)
             # normalize by the step's FULL tree count: oversized trees on
             # the partition waves share this step's mean-over-trees loss
             inputs = batch_arrays(
-                cfg, tb,
+                cfg, tb, extra,
                 num_trees=self.num_trees if self.oversized else None)
         self._sb = StepBatch(inputs=inputs, tb=tb,
                              oversized=[o.tree for o in self.oversized],

@@ -106,12 +106,10 @@ def _toks(seed, n, vocab):
 
 @needs_jax
 def test_registry_holds_every_dense_and_moe_arch_of_the_reference():
-    """ARCH_IDS is the reference's dense, MoE, SSM and hybrid archs in its
-    order (every dense and MoE arch among them), and ``get_config`` gives
-    each (full and smoke) equal to the reference's."""
-    ref = [a for a in jconfigs.ARCH_IDS if jconfigs.get_config(a).family
-           in ("dense", "moe", "ssm", "hybrid")]
-    assert ARCH_IDS == ref and len(ARCH_IDS) == 11
+    """ARCH_IDS is every arch of the reference in its order (every dense
+    and MoE arch among them), and ``get_config`` gives each (full and
+    smoke) equal to the reference's."""
+    assert ARCH_IDS == jconfigs.ARCH_IDS and len(ARCH_IDS) == 13
     assert sum(get_config(a).family in ("dense", "moe")
                for a in ARCH_IDS) == 8
     for arch in ARCH_IDS:
