@@ -240,10 +240,16 @@ Then the enc-dec and VLM archs (SeamlessM4T-large v2, Phi-3-vision 4.2B),
 at full width, once the SSM archs' tensors are freed:
  33. mm kernel, mm bwd kernel — phases 2-3 at the two new layouts on their
                   first train step's real kv_last: V, Phi-3's rows (B 2,
-                  576 patches + 4096 text tokens, H 32/Kh 32, hd 96: the
-                  simple kernels) and S2, Seamless's decoder rows (B 2, S
-                  4096, H 16/Kh 16, hd 64: the Hopper paths in bf16), bf16
-                  and f32.
+                  576 patches + 4096 text tokens, H 32/Kh 32, hd 96: in
+                  bf16 dq and dk/dv Hopper, the forward simple, chained as
+                  training chains them) and S2, Seamless's decoder rows (B
+                  2, S 4096, H 16/Kh 16, hd 64: the Hopper paths in bf16),
+                  bf16 and f32; and hd 96 bf16 beyond Phi-3's MHA: GQA
+                  32/8, MQA 32/1, padding keys, gateway ancestors with a
+                  window, and a ragged S behind a prefix (the dq kernel's
+                  Δ, two launches bit-identical, invisible keys' dk/dv
+                  exactly 0, the dk/dv schedule against its plain
+                  version).
  34. <arch> serve — full depth, bf16: Seamless's encoder over its 1024
                   frames drawn from the seed and each decoder layer's
                   cross K/V; one rollout group (prompt 1024, K 8, 64 new
@@ -354,7 +360,8 @@ TOL_BWD_L2 = 1e-2             # bf16 backward: relative L2 per output
 TOL_BWD_ELEM = 5e-2           # bf16 backward: 5e-2 + 5e-2·|ref| per element
 SOURCES = (ta.SOURCE, *tab.SOURCES)
 # each source's Hopper instances (kernel, head dim), by the head dims each
-# kernel's bf16 path takes (kernel_path): all three at hd 64, 128 and 192
+# kernel's bf16 path takes (kernel_path): all three at hd 64, 128 and 192,
+# dq and dk/dv at hd 96 too
 HOPPER_INSTANCES = {src: [(kern, hd) for hd in ta.HOPPER_PATH_HEAD_DIMS[kern]]
                     for src, kern in zip(SOURCES, ("fwd", "dq", "dkv"))}
 KERNELS = {"tree_attention_fwd": ta.tree_attention,
@@ -3815,9 +3822,14 @@ def prefix_kv_last(kv_last: np.ndarray, F: int) -> np.ndarray:
 def mm_kernel_cases(kl_v, kl_s2):
     """The three kernels at the two new layouts on their first train
     step's real kv_last: V, Phi-3-vision's rows (its 576-patch prefix and
-    the text, H 32/Kh 32, hd 96: the simple kernels in bf16 and f32), and
-    S2, SeamlessM4T's decoder rows (H 16/Kh 16, hd 64: the Hopper paths in
-    bf16, the simple kernels in f32)."""
+    the text, H 32/Kh 32, hd 96: in bf16 dq and dk/dv Hopper behind the
+    simple forward, in f32 the simple kernels), and S2, SeamlessM4T's
+    decoder rows (H 16/Kh 16, hd 64: the Hopper paths in bf16, the simple
+    kernels in f32).  Then bf16 at hd 96 beyond Phi-3's MHA, on rows of
+    Phi-3's 576-row prefix before packed trees: a GQA group of 4 (H 32/Kh
+    8), MQA (H 32/Kh 1), padding keys (a row whose last 700 keys no query
+    sees), gateway ancestors (A 37, two rows front-padded) with a window
+    of 24, and a ragged S (1000 = 15·64 + 40)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     add = case_adder(np.random.default_rng(80), cases)
@@ -3829,6 +3841,24 @@ def mm_kernel_cases(kl_v, kl_s2):
             add(f"{tag}: {layout_tag(H, Kh, hd)} ({arch}; bf16 paths: "
                 f"{bf16_paths(hd)}) train rows (B={B}, S={S}) {dt}", dt, B,
                 S, H, Kh, hd, kl)
+    Fv = get_config(VLM_ARCH).frontend_len
+    tag = f"hd 96 ({bf16_paths(96)})"
+    kl, pos = tree_rows(81, 2, 1024)
+    pre = prefix_kv_last(kl, Fv)
+    S = pre.shape[1]
+    add(f"{tag}: GQA 32/8, prefix {Fv} + 1024 bf16", bf16, 2, S, 32, 8, 96,
+        pre)
+    add(f"{tag}: MQA 32/1, prefix {Fv} + 1024 bf16", bf16, 2, S, 32, 1, 96,
+        pre)
+    pad = pre.copy()
+    pad[0, S - 700:] = -1
+    add(f"{tag}: padding keys, MHA 32/32 bf16", bf16, 2, S, 32, 32, 96, pad)
+    g, pq, pk = gateway(kl, pos, 37, (5, 0))
+    add(f"{tag}: gateway A=37 window 24, GQA 32/8 bf16", bf16, 2, 1024, 32,
+        8, 96, g, q_off=37, window=24, pq=pq, pk=pk)
+    rag = prefix_kv_last(tree_rows(82, 2, 1000 - Fv)[0], Fv)
+    add(f"{tag}: ragged S=1000 behind the prefix, MHA 32/32 bf16", bf16, 2,
+        1000, 32, 32, 96, rag)
     return cases
 
 

@@ -2,24 +2,31 @@
 // tensor-core paths (tree_attention_fwd.cu, tree_attention_bwd_dq.cu,
 // tree_attention_bwd_dkv.cu): mbarriers, named barriers, TMA tile loads,
 // wgmma descriptors and the wgmma instructions themselves (N = 32 and 64
-// from shared memory; N = 64, 128 and 192 with A from registers), written
+// from shared memory; N = 64, 96, 128 and 192 with A from registers), written
 // as inline PTX so that the build needs no CUTLASS; and the key-tile
 // producer warp that the forward and dq share (produce_key_tiles).
 //
 // Tile layout.  Every bf16 tile is 64 rows of a [B, rows, heads, hd] tensor
-// for one head, brought in by TMA as hd/64 boxes of 64 rows × 64 columns
-// (128 bytes a row) with the 128-byte swizzle.  A box is one 8 KB "atom"
-// column block; box a holds columns [64a, 64a + 64).  Rows past the
-// tensor's end read as zero.  wgmma reads such a tile two ways:
+// for one head, brought in by TMA as round_up(hd, 64)/64 boxes of 64 rows
+// × 64 columns (128 bytes a row) with the 128-byte swizzle, columns past
+// hd read as zero.  A box is one 8 KB "atom" column block; box a holds
+// columns [64a, 64a + 64).  The tensor map keeps the tensor's real width
+// (hd 96: 192-byte rows), so box 1 of an hd 96 tile gets columns 64-95
+// and TMA's out-of-bounds zeros for 96-127, as rows past the tensor's end
+// read as zero; a tile takes 16 KB there, as at hd 128 (pad_cols).  wgmma
+// reads such a tile two ways:
 //   - K-major (the hd columns are the product's depth): Q and K in Q·Kᵀ,
 //     dO and V in dO·Vᵀ, K and Q in K·Qᵀ.  A 16-column step moves the
 //     start address 32 bytes inside a box and 8 KB from one box to the
-//     next; 8-row groups are 1 KB apart (the stride byte offset).
+//     next; 8-row groups are 1 KB apart (the stride byte offset).  The
+//     depth is hd/16 steps (6 at hd 96: steps 4-5 read box 1's columns
+//     64-95), so no product runs over the zero columns.
 //   - MN-major (the rows are the depth, hd is the output width): V in P·V,
 //     K in dS·K, dO and Q in Pᵀ·dO and dSᵀ·Q, through the descriptor's
 //     transpose bit.  A 16-row step moves the start 2 KB; the next 64
 //     output columns are the next box, 8 KB on (the leading byte offset);
-//     8-row groups are 1 KB apart.
+//     8-row groups are 1 KB apart.  At hd 96 the output width is 96
+//     (m64n96k16): box 0 and the first half of box 1.
 //   Inside a box the 16-byte chunk c of row r sits at r·128 + 16·(c ^ r%8)
 //   (the swizzle), which is how a thread reads one element group back.
 #pragma once
@@ -34,6 +41,11 @@
 namespace hop {
 
 constexpr int ATOM = 64 * 128;        // one 64-row × 128-byte swizzled box
+
+// The columns a tile of head dim HD takes in shared memory: whole 64-column
+// boxes, the ones past HD zero.
+template <int HD>
+__host__ __device__ constexpr int pad_cols() { return (HD + 63) / 64 * 64; }
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -222,6 +234,29 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64×96] += A·B, A from registers (bf16 pairs), B from shared memory
+// MN-major: columns 0-63 from the first box, 64-95 from the first half of
+// the second, at the descriptor's leading byte offset.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64×128] += A·B, A from registers (bf16 pairs), B from shared memory
 // MN-major (the descriptor's transpose bit), 128-byte swizzle.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -280,12 +315,14 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)[4],
+// D[64×N] += A·B at N = hd (64, 96, 128 or 192)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(HD == 64 || HD == 128 || HD == 192, "wgmma path: hd 64, 128 or 192");
-  if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (HD == 128) wgmma_rs_n128(d, a, db);
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192, "wgmma path: N 64, 96, 128 or 192");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n192(d, a, db);
 }
 
@@ -318,7 +355,7 @@ constexpr int MAX_BLOCK_SMEM = 232448;
 // KeyTileLayout below picks the stage count.
 template <int HD, int NRES, int STAGES_>
 struct KeyTileRingLayout {
-  static constexpr int TILE = KT * HD * 2;       // one 64-row bf16 tile
+  static constexpr int TILE = KT * pad_cols<HD>() * 2;   // one 64-row bf16 tile
   static constexpr int STAGES = STAGES_;
   static constexpr int RES = 0;
   static constexpr int KV = RES + NRES * TILE;   // stage s: K at KV + 2·s·TILE, V after it
@@ -361,14 +398,16 @@ struct KeyTileRingLayout {
 };
 
 // hd 128 runs two blocks an SM (2 stages: 80 KB for the forward, 96 KB
-// for dq).  The others take 3 stages where they fit one block: hd 64, and
+// for dq), and so does dq at hd 96, whose tiles take hd 128's 16 KB.  The
+// others take 3 stages where they fit one block: hd 64, and
 // the forward at hd 192 (two 24 KB Q tiles and 48 KB a stage: 199,288
 // bytes).  dq at hd 192 holds four resident tiles (Q and dO of two 64-row
 // halves, 96 KB), so 3 stages (248,440 bytes) would pass MAX_BLOCK_SMEM
 // and it takes 2 (198,760 bytes).
 template <int HD, int NRES>
 using KeyTileLayout = KeyTileRingLayout<
-    HD, NRES, (HD == 128 || KeyTileRingLayout<HD, NRES, 3>::ALLOC > MAX_BLOCK_SMEM) ? 2 : 3>;
+    HD, NRES,
+    (pad_cols<HD>() == 128 || KeyTileRingLayout<HD, NRES, 3>::ALLOC > MAX_BLOCK_SMEM) ? 2 : 3>;
 
 // The producer warp of one (query tile q0..q0+nrows−1, head h, batch b):
 //  1. brings the NRES resident 64-row tiles res[i] (rows q0 + res_row[i]..,
@@ -391,8 +430,8 @@ __device__ __forceinline__ void produce_key_tiles(
     const int* __restrict__ kv_last, const int* __restrict__ pos_q,
     const int* __restrict__ pos_k, int b, int h, int kh, int S, int Skv, int q0, int nrows,
     int q_off, int window, const int (&res_row)[NRES]) {
-  constexpr int TILE = KT * HD * 2;
-  constexpr int NA = HD / 64;
+  constexpr int TILE = KT * pad_cols<HD>() * 2;   // the boxes' bytes, zeros included
+  constexpr int NA = pad_cols<HD>() / 64;
   const int q_start = q_off + q0, q_end = q_start + nrows - 1;
   const bool windowed = pos_q != nullptr;
   if (lane == 0) {
@@ -503,10 +542,19 @@ inline EncodeTiled encode_tiled() {
 
 // The map of a contiguous bf16 tensor [B][R][NH][HD] whose box is 64
 // columns × 1 head × 64 rows × 1 batch row, 128-byte swizzle; rows past R
-// read as zero.
+// and columns past HD (box 1 at hd 96) read as zero, and count in the
+// transaction bytes as if loaded.
 inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int B, int R, int NH, int HD) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  // cuTensorMapEncodeTiled fails on a thread with no current context, and a
+  // thread whose first CUDA work is this launch has none yet (autograd's
+  // backward worker, a Python thread): setting the thread's own device
+  // makes its primary context current there, and changes nothing else.
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(NH), cuuint64_t(R), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(NH) * HD * 2,
                                  cuuint64_t(R) * NH * HD * 2};

@@ -6,8 +6,8 @@
 // _bwd_dkv (kernel body :185-243, pallas_call :278).  Same function: with
 // p_ij = exp(scale·q_i·k_j − lse_i) on visible pairs (0 elsewhere),
 // Δ_i = Σ_d do_id·o_id (handed over by the dq launch before it, whose
-// kernel computes it on the bf16 hd 64/128 path; a torch reduction in the
-// wrapper computes it elsewhere, hd 192 included) and
+// kernel computes it on its bf16 Hopper path, hd 64/96/128/192; a torch
+// reduction in the wrapper computes it elsewhere) and
 // ds_ij = p_ij · (do_i·v_j − Δ_i) · scale,
 //   dv_j = Σ_{h in j's GQA group} Σ_i p_ij · do_i,
 //   dk_j = Σ_{h in j's GQA group} Σ_i ds_ij · q_i,
@@ -17,7 +17,7 @@
 // Two paths compute the same function, with no atomics on dk, dv or their
 // partials: two launches give bit-identical dk and dv.
 //
-// Hopper path (bf16 at hd 64, 128 and 192, the models' head dims), in
+// Hopper path (bf16 at hd 64, 96, 128 and 192, the models' head dims), in
 // FlashAttention-3's backward orientation: the key tile is wgmma's M.  One
 // CUDA block of 160 threads owns one (64-key tile, kv head, batch row, part
 // of the GQA group): a consumer warpgroup (warps 0-3) and a producer warp
@@ -27,7 +27,7 @@
 // (without a window the contiguous run from the first tile that reaches
 // the key tile to the one that holds its max kv_last; with one, each tile
 // is also tested against its min pos_q), it brings Q and dO in by TMA and
-// lse, Δ (and pos_q) by cp.async into a 3-stage mbarrier ring.  The
+// lse, Δ (and pos_q) by cp.async into a 3-stage (hd 96: 2) mbarrier ring.  The
 // consumers compute Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma m64n32k16 over each
 // half of the query tile, form Pᵀ = exp(s·scale − lse) on visible pairs and
 // dSᵀ = Pᵀ∘(dPᵀ − Δ)·scale in the accumulators' registers, round both to
@@ -36,8 +36,14 @@
 // dV stay in fp32 registers across the whole loop over heads and query
 // tiles and are written once.  The two accumulators take 128 registers a
 // thread at hd 128, so that instance runs one block per SM (see
-// dkv_hopper_kernel).  A one-block pass first orders the key tiles
-// heaviest first (dkv_schedule_kernel), and the GQA group is split into
+// dkv_hopper_kernel).  hd 96 (Phi-3-vision) runs this kernel on tiles of
+// two 64-column boxes (16 KB, as at hd 128; box 1's columns 96-127 are
+// TMA's out-of-bounds zeros, hopper.cuh): Sᵀ and dPᵀ take 6 k16 steps, dV
+// and dK are m64n96k16 (48 + 48 accumulator registers), and dk/dv (or
+// their fp32 partials) are stored as 96 columns;
+// two blocks an SM, as at hd 64, with a 2-stage ring (see
+// dkv_hopper_kernel).  A one-block pass first orders the key
+// tiles heaviest first (dkv_schedule_kernel), and the GQA group is split into
 // `parts` parts across blocks to shorten the heaviest block; each part
 // writes fp32 partials that a last pass (sum_parts) adds in a fixed order.
 // Ragged S and Skv read as zero from TMA and are masked; keys no query
@@ -59,7 +65,7 @@
 // producer, the schedule pass, the GQA parts and their fixed-order sum are
 // the hd 64/128 path's.
 //
-// Simple path (fp32 inputs and bf16 at hd 16, 24, 32 and 96).  One
+// Simple path (fp32 inputs and bf16 at hd 16, 24, 32).  One
 // block of 256 threads owns one (key tile, kv head, batch row) and keeps
 // that tile's K and V in shared memory.  It loops over the G query heads of
 // the group and, inside, over the 64-query tiles, accumulating dK and dV in
@@ -301,8 +307,8 @@ constexpr int HBK = 64;                       // keys per block (wgmma's M)
 // these named barriers (0 is __syncthreads)
 constexpr int BAR_P_FULL = 1, BAR_P_FREE = 2;
 
-// Consumer warpgroups a block: 1 at hd 64/128, 2 at hd 192 (one forms Pᵀ
-// and owns dV, the other dSᵀ and dK: see the header).
+// Consumer warpgroups a block: 1 at hd 64/96/128, 2 at hd 192 (one forms
+// Pᵀ and owns dV, the other dSᵀ and dK: see the header).
 template <int HD>
 __host__ __device__ constexpr int dkv_wgs() { return HD == 192 ? 2 : 1; }
 template <int HD>  // + the producer warp
@@ -314,8 +320,10 @@ struct DkvMaps {
 
 template <int HD>
 struct HopLayout {
-  static constexpr int TILE = 64 * HD * 2;       // one 64-row bf16 tile
-  static constexpr int STAGES = 3;
+  static constexpr int TILE = 64 * hop::pad_cols<HD>() * 2;   // one 64-row bf16 tile
+  // hd 96 runs two blocks an SM, which fit (2 × 101,480 bytes) with 2
+  // stages only; the others 3
+  static constexpr int STAGES = HD == 96 ? 2 : 3;
   static constexpr int K = 0;
   static constexpr int V = K + TILE;
   static constexpr int QD = V + TILE;            // stage s: Q at QD + 2·s·TILE, dO after it
@@ -411,12 +419,17 @@ cudaError_t launch_schedule(const void* kv_last, void* sched, int B, int S, int 
 // At hd 128 the two register accumulators (128 fp32 a thread) and the
 // 64×32 Sᵀ/dPᵀ tiles need ~200 registers: two blocks of five warps on an
 // SM cap a thread at 168 (three warps share a 16K-register quarter), which
-// spills and serialises the wgmmas, so hd 128 runs one block per SM.  At
+// spills and serialises the wgmmas, so hd 128 runs one block per SM.  hd
+// 96's accumulators take 96 registers a thread (m64n96k16), and ptxas fits
+// it in the 168 that two blocks leave, with no spill; two blocks an SM
+// with a 2-stage ring took 0.77 device ms at Phi-3-vision's rows where one
+// block with 3 stages (171 registers) took 1.34 (tools/hd96_width.py,
+// PERF.md), so hd 96 runs two, as hd 64 does.  At
 // hd 192 the two accumulators alone would be 192 registers a thread, so
 // two consumer warpgroups split them (one block per SM, nine warps: 224
 // registers a thread at most).
 template <int HD>
-__global__ void __launch_bounds__(dkv_threads<HD>(), HD <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(dkv_threads<HD>(), HD <= 96 ? 2 : 1)
 dkv_hopper_kernel(const __grid_constant__ DkvMaps maps, const int* __restrict__ kv_last,
                   const int* __restrict__ pos_q, const int* __restrict__ pos_k,
                   const float* __restrict__ lse, const float* __restrict__ delta,
@@ -424,7 +437,7 @@ dkv_hopper_kernel(const __grid_constant__ DkvMaps maps, const int* __restrict__ 
                   __nv_bfloat16* __restrict__ dv, float* __restrict__ partial, int B, int S,
                   int Skv, int H, int Kh, int parts, float scale, int q_off, int window) {
   using L = HopLayout<HD>;
-  constexpr int NA = HD / 64;
+  constexpr int NA = hop::pad_cols<HD>() / 64;       // TMA boxes a tile
   constexpr int NWG = dkv_wgs<HD>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -873,7 +886,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, dk,
                                     dv, B, S, Skv, H, Kh, scale, q_off, window, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD == 64 || HD == 128 || HD == 192)
+  if constexpr (HD == 64 || HD == 96 || HD == 128 || HD == 192)
     return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, sched, dk, dv,
                              partial, parts, B, S, Skv, H, Kh, scale, q_off, window, stream);
   else
@@ -887,7 +900,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  pos_q/pos_k null ⇒ no window.  The
-// bf16 Hopper path (hd 64, 128, 192) also takes `sched`, int32 scratch of
+// bf16 Hopper path (hd 64, 96, 128, 192) also takes `sched`, int32 scratch of
 // B·nk elements (nk = ceil(Skv/64)) where it first writes the key tiles'
 // order, and splits each GQA group into `parts` parts (a divisor of H/Kh);
 // with parts > 1, `partial` is fp32 scratch of 2·parts·B·Skv·Kh·hd elements.

@@ -12,17 +12,17 @@
 // Two paths compute the same function.  No atomics on either: two
 // launches give bit-identical dq (and Δ).
 //
-// Hopper path (bf16 at hd 64, 128 and 192, the models' head dims).  At hd
-// 64 and 128 one CUDA block of 160 threads owns one (64-query tile, head,
-// batch row), latest (heaviest) query tiles first: a consumer warpgroup
-// (warps 0-3) and a producer warp (warp 4).  At hd 192 see below.  The
-// producer is the forward's (hopper.cuh::produce_key_tiles), so the two
-// skip the same key tiles: it loads the Q and dO tiles once by TMA, walks
-// the causal key tiles with the reference's block_live rule (16 tiles per
-// pass, one warp reduction each; window and q_off included) and brings
-// only live K/V tiles by TMA into an mbarrier ring of 2 (hd 128 and 192)
-// or 3 (hd 64) stages, with each tile's kv_last/pos_k staged by cp.async.
-// The consumers first compute Δ of their own rows: each thread owns two
+// Hopper path (bf16 at hd 64, 96, 128 and 192, the models' head dims).  At
+// hd 64, 96 and 128 one CUDA block of 160 threads owns one (64-query tile,
+// head, batch row), latest (heaviest) query tiles first: a consumer
+// warpgroup (warps 0-3) and a producer warp (warp 4).  At hd 192 see
+// below.  The producer is the forward's (hopper.cuh::produce_key_tiles), so
+// the two skip the same key tiles: it loads the Q and dO tiles once by TMA,
+// walks the causal key tiles with the reference's block_live rule (16
+// tiles per pass, one warp reduction each; window and q_off included) and
+// brings only live K/V tiles by TMA into an mbarrier ring of 2 (hd 96, 128
+// and 192) or 3 (hd 64) stages, with each tile's kv_last/pos_k staged by
+// cp.async.  The consumers first compute Δ of their own rows: each thread owns two
 // rows (wgmma's accumulator layout), reads a quarter of each row's O from
 // global memory and of its dO from the resident swizzled tile, sums the
 // bf16 products in fp32 and closes the sum over the row's four threads by
@@ -40,6 +40,15 @@
 // so two blocks fit on an SM (the ptxas line in chip_smoke.py's build
 // phase says how many registers it took).  Ragged S and Skv tails read as
 // zero from TMA and are masked.
+//
+// hd 96 (Phi-3-vision) runs the hd 128 kernel on 96 real columns: each
+// tile is two 64-column boxes (16 KB), box 1's columns 96-127 TMA's
+// out-of-bounds zeros (hopper.cuh), so the ring and the two blocks an SM
+// are hd 128's.  S and dP take 6 k16 steps (hd/16), none over the zeros;
+// dQ += dS·K is m64n96k16 (48 accumulator registers), K read MN-major
+// from box 0 and the first half of box 1; Δ reads 3 uint4 of O a
+// row-thread (chunks c ≡ lane mod 4 of 12) and dO's chunks from boxes 0-1,
+// and dq is stored as 96 columns.
 //
 // hd 192 (Nemotron-4 340B): a block owns 128 query rows, split by rows as
 // the forward at hd 192 is.  Two consumer warpgroups (warps 0-7, rows 0-63
@@ -71,7 +80,7 @@
 // stages.
 //
 // Simple path (fp32 inputs, the accuracy path, and bf16 at the other head
-// dims 16, 24, 32, 96; Δ computed by the wrapper).  One block of 256
+// dims 16, 24, 32; Δ computed by the wrapper).  One block of 256
 // threads per (64-query tile, head, batch row) walks the key tiles, tests
 // each with block_live before any load, and runs S = Q·Kᵀ, dP = dO·Vᵀ and
 // dQ += dS·K on WMMA (bf16 with hd a multiple of 16; dS rounded to bf16
@@ -261,7 +270,7 @@ tree_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 128 and 192)
+// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 96, 128, 192)
 // --------------------------------------------------------------------------
 
 constexpr int WG_THREADS = 128;               // one consumer warpgroup
@@ -270,8 +279,8 @@ struct DqMaps {
   CUtensorMap q, dout, k, v;
 };
 
-// Consumer warpgroups a block: 1 at hd 64/128 (64 query rows, two blocks
-// an SM), 2 at hd 192 (128 rows, one block an SM: see the header).
+// Consumer warpgroups a block: 1 at hd 64/96/128 (64 query rows, two
+// blocks an SM), 2 at hd 192 (128 rows, one block an SM: see the header).
 template <int HD>
 __host__ __device__ constexpr int dq_wgs() { return HD == 192 ? 2 : 1; }
 template <int HD>  // + the producer warp
@@ -560,7 +569,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, dq,
                                     B, S, Skv, H, Kh, scale, q_off, window, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD == 64 || HD == 128 || HD == 192)
+  if constexpr (HD == 64 || HD == 96 || HD == 128 || HD == 192)
     return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, lse, delta, dout, dq, o, B, S,
                              Skv, H, Kh, scale, q_off, window, stream);
   else
@@ -574,7 +583,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  pos_q/pos_k null ⇒ no window.  The
-// bf16 hd 64/128/192 path computes Δ [B,H,S] f32 from `o` and `dout` and
+// bf16 hd 64/96/128/192 path computes Δ [B,H,S] f32 from `o` and `dout` and
 // writes it to `delta`; the other instances read Δ from `delta` and ignore
 // `o`.  Returns cudaGetLastError() after the launch (0 = ok).
 int tree_attention_bwd_dq(const void* q, const void* k, const void* v, const void* kv_last,

@@ -9,21 +9,24 @@ recomputation: the forward saved only ``lse`` [B,H,S]; with
 tile under the forward's mask and block-skip rule:
 
   - ``bwd_dq``: one CUDA block per (query tile, head, batch) loops over
-    the key tiles and writes dq once.  bf16 at hd 64, 128 and 192
+    the key tiles and writes dq once.  bf16 at hd 64, 96, 128 and 192
     (``HOPPER_PATH_HEAD_DIMS["dq"]``) runs a
     warp-specialised wgmma kernel whose producer warp is the forward's
     (``csrc/hopper.cuh::produce_key_tiles``: Q and dO resident, live K/V
     tiles through a TMA ring), S and dP taken 32 keys at a time, dQ in
-    registers (one consumer warpgroup on 64 query rows at hd 64/128, two
-    on 128 rows at hd 192); it also computes Δ of its own rows from o and
-    do and writes it for the dk/dv launch that follows on the same stream,
-    so the reference's Δ pre-pass (:331) runs in no torch op there.  fp32
+    registers (one consumer warpgroup on 64 query rows at hd 64/96/128,
+    two on 128 rows at hd 192; hd 96 on tiles of two 64-column boxes whose
+    columns past 96 read as zero); it also computes Δ of its own rows from
+    o and do and writes it for the dk/dv launch that follows on the same
+    stream, so the reference's Δ pre-pass (:331) runs in no torch op there
+    (at hd 96 it reads the simple forward's lse, as every Hopper dq reads
+    the natural-log lse both forward paths write).  fp32
     and the other head dims keep the simple kernel (WMMA or FMA through
     shared memory), with Δ from ``delta`` (a torch reduction, its plain
     version);
   - ``bwd_dkv``: dk and dv over the full Skv (ancestor rows [0, q_off)
-    included), the GQA reduction with no atomics.  bf16 at hd 64, 128 and
-    192 (``HOPPER_PATH_HEAD_DIMS["dkv"]``) runs a warp-specialised wgmma
+    included), the GQA reduction with no atomics.  bf16 at hd 64, 96, 128
+    and 192 (``HOPPER_PATH_HEAD_DIMS["dkv"]``) runs a warp-specialised wgmma
     kernel in FlashAttention-3's orientation (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dK
     and dV in registers across the loop; at hd 192 two consumer warpgroups,
     one forming Pᵀ and owning dV, the other dSᵀ and dK): one
@@ -146,7 +149,7 @@ def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def fuses_delta(q: torch.Tensor) -> bool:
     """Whether the dq kernel computes Δ itself for inputs like ``q``: on
-    its Hopper path (bf16 at hd 64, 128 and 192); elsewhere ``bwd_dq``
+    its Hopper path (bf16 at hd 64, 96, 128 and 192); elsewhere ``bwd_dq``
     computes ``delta`` before its launch."""
     return kernel_path("dq", q.dtype, q.shape[-1]) == "hopper"
 
@@ -240,9 +243,9 @@ def bwd_dkv(q, k, v, kv_last, lse, dl, do, scale: float, *, q_off: int = 0,
             window: Optional[int] = None, pos_q=None, pos_k=None,
             parts: Optional[int] = None):
     """Launch the dk/dv kernel (inputs already checked, ``dl`` = Δ).  Its
-    Hopper path (bf16 at hd 64, 128 and 192) orders the key tiles heaviest
-    first (a schedule pass in the same launch, whose plain version is
-    ``dkv_schedule``) and splits each GQA group into ``parts`` (default
+    Hopper path (bf16 at hd 64, 96, 128 and 192) orders the key tiles
+    heaviest first (a schedule pass in the same launch, whose plain version
+    is ``dkv_schedule``) and splits each GQA group into ``parts`` (default
     ``head_parts``), summing fp32 partials in a fixed order."""
     B, S, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
@@ -281,7 +284,7 @@ def tree_attention_bwd(q, k, v, kv_last, o, lse, do, scale: float, *,
     inputs' dtype; dk/dv cover the full Skv, ancestor rows included.
 
     The dq launch comes first and hands Δ to the dk/dv launch; where
-    ``fuses_delta`` holds (bf16 at hd 64/128/192) the dq kernel writes that
+    ``fuses_delta`` holds (bf16 at hd 64/96/128/192) the dq kernel writes that
     Δ, so the two launches must stay in this order on one stream."""
     _check(q, k, v, kv_last, o, lse, do, q_off, window, pos_q, pos_k)
     kw = dict(q_off=q_off, window=window, pos_q=pos_q, pos_k=pos_k)

@@ -19,6 +19,8 @@ and closes the four sums by shuffles, at most (hd/4 + 1)·2^-24 ≈ 2.9e-6 of
 the sum of magnitudes at hd 192; one order over all hd products at once
 would be hd·2^-24 ≈ 1.1e-5, in the worst case).
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -123,10 +125,20 @@ def _case(name):
         # a causal chain of 6 key tiles, the last ragged (357 = 5·64 + 37)
         # and live: it lands in the last stage of the forward's key-tile
         # ring at each head dim (2 stages at hd 128, 3 at hd 64 and 192;
-        # at hd 192 the last 128-row query tile holds 101 rows)
+        # at hd 192 the last 128-row query tile holds 101 rows), and of dq's
+        # (2 stages at hd 96, as at hd 128)
         hd = int(name.rsplit("hd", 1)[1])
         return (2, 357, 12, 2, hd, np.full((2, 357), 356), 0, None, None,
                 None)
+    if name == "vlm_prefix_hd96":
+        # Phi-3-vision's rows at small size: a prefix of 40 rows that the
+        # whole row sees (chip_smoke.prefix_kv_last) before packed trees,
+        # MHA 32/32 at hd 96, S 340 = 5·64 + 20
+        F, T = 40, 300
+        kl, _ = _tree_meta(31, 2, T)
+        kl = np.concatenate([np.full((2, F), F + T - 1),
+                             np.where(kl >= 0, kl + F, -1)], 1)
+        return 2, F + T, 32, 32, 96, kl, 0, None, None, None
     if name == "ragged_gateway":
         # S not a multiple of 64, q_off > 0, gateway ancestors (two rows
         # front-padded differently)
@@ -134,7 +146,8 @@ def _case(name):
         return 2, 200, 12, 2, 128, kl, 37, None, None, None
     if name.startswith("heads"):
         # heads{H}_{Kh}_hd{hd}: GQA 12/2 and MHA at the models' head dims,
-        # and Nemotron-4 340B's 96/8 (a group of 12) at hd 192
+        # Nemotron-4 340B's 96/8 (a group of 12) at hd 192, and
+        # Phi-3-vision's MHA 32/32 and a GQA 32/8 at hd 96
         H, rest = name[5:].split("_", 1)
         Kh, hd = rest.split("_hd")
         kl, _ = _tree_meta(23, 2, 256)
@@ -147,7 +160,8 @@ CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20", "window",
          "ring_tail_hd128", "ragged_gateway", "heads12_2_hd64",
          "heads12_2_hd128", "heads4_4_hd64", "heads4_4_hd128",
          "packed_gqa32_4_hd128", "heads32_4_hd128", "ring_tail_hd192",
-         "heads96_8_hd192", "short_tail_gateway_hd192"]
+         "heads96_8_hd192", "short_tail_gateway_hd192", "ring_tail_hd96",
+         "heads32_32_hd96", "heads32_8_hd96", "vlm_prefix_hd96"]
 
 
 def _inputs(name, dtype, dev, hd=None):
@@ -296,8 +310,8 @@ def _delta_close(got, o, do):
 @pytest.mark.parametrize("hd", ta.HOPPER_PATH_HEAD_DIMS["dq"])
 @pytest.mark.parametrize("name", CASES)
 def test_cuda_dq_hopper_matches_plain(dev, name, hd):
-    """The dq kernel's Hopper path (bf16 at hd 64, 128 and 192) on every
-    case (at hd 192 those of S ≤ 64 leave its second warpgroup no rows):
+    """The dq kernel's Hopper path (bf16 at hd 64, 96, 128 and 192) on
+    every case (at hd 192 those of S ≤ 64 leave its second warpgroup no rows):
     dq against the plain backward at the bf16 limits, its Δ against
     ``delta``, dq and Δ bit-identical over two launches, dq exactly 0 on
     rows that see no key, one launch counted per call."""
@@ -374,6 +388,96 @@ def test_cuda_hd192_hopper_fwd_and_dkv_match_plain(dev, name):
     _hold_bwd(got, want, bf16)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+    Skv = k.shape[1]
+    first = torch.arange(Skv, device=dev).clamp(min=kw["q_off"])
+    dead = kl < first                 # no query i ≥ max(j, q_off) sees key j
+    assert not bool(got[1][dead].any()) and not bool(got[2][dead].any())
+    if name == "padding":
+        assert bool(dead[0, 16:].all())
+
+
+@pytest.mark.parametrize("hd", [96, 128])
+def test_cuda_hopper_kernels_launch_from_a_fresh_thread(dev, hd):
+    """The Hopper paths encode their TMA tensor maps on the host at each
+    launch, which needs a current CUDA context on the calling thread.  A
+    thread whose first CUDA work is such a launch (a fresh Python thread
+    here; autograd's backward worker in a training step) runs the three
+    kernels and gets the main thread's outputs bit for bit (at hd 128
+    the forward's is that thread's first launch)."""
+    q, k, v, kl, kw, do = _inputs("gateway20", torch.bfloat16, dev, hd=hd)
+    sc = hd ** -0.5
+
+    def run():
+        with torch.inference_mode():
+            o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
+                                       **kw)
+            return (o, lse, *tab.tree_attention_bwd(q, k, v, kl, o, lse, do,
+                                                    sc, **kw))
+
+    out = {}
+    th = threading.Thread(target=lambda: out.update(got=run()))
+    th.start()
+    th.join()
+    want = run()
+    torch.cuda.synchronize()
+    assert "got" in out, "the kernels failed on a fresh thread"
+    for a, b in zip(out["got"], want):
+        assert torch.equal(a, b)
+
+
+# the reference's parity cases at Phi-3-vision's head dim 96: MHA, GQA,
+# MQA, padding keys, gateway ancestors, window × branching, gateway ×
+# window, ragged tails, dead tiles between live ones, a ragged last key
+# tile in dq's last ring stage, Phi-3's MHA 32/32 and a GQA 32/8, and its
+# prefix rows
+HD96_CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20",
+              "window", "gateway_window", "ragged_gateway", "dead_tiles",
+              "ring_tail_hd96", "heads32_32_hd96", "heads32_8_hd96",
+              "vlm_prefix_hd96"]
+
+
+@pytest.mark.parametrize("name", HD96_CASES)
+def test_cuda_hd96_hopper_bwd_matches_plain(dev, name):
+    """bf16 at hd 96 chains the simple forward (o and its natural-log lse)
+    into the Hopper dq, whose kernel writes Δ, and the Hopper dk/dv fed
+    that Δ, as training does; and the same through ``ops.tree_attention``'s
+    autograd node.  o and lse against the plain version in f32 at the
+    forward's bf16 limits, the dq kernel's Δ against ``delta``, dq/dk/dv
+    against the plain backward at the bf16 limits, every output
+    bit-identical over two launches and equal to the op's grads, dk/dv
+    exactly 0 on keys no query sees."""
+    q, k, v, kl, kw, do = _inputs(name, torch.bfloat16, dev, hd=96)
+    sc = 96 ** -0.5
+    bf16 = torch.bfloat16
+    assert [ta.kernel_path(kern, bf16, 96) for kern in ("fwd", "dq", "dkv")
+            ] == ["simple", "hopper", "hopper"]
+    assert tab.fuses_delta(q)
+    with torch.inference_mode():
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True, **kw)
+        ro, rl = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                        sc, return_lse=True, **kw)
+        dq, dl = tab.bwd_dq(q, k, v, kl, o, lse, do, sc, **kw)
+        dk, dv = tab.bwd_dkv(q, k, v, kl, lse, dl, do, sc, **kw)
+        got = (dq, dk, dv)
+        again = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
+        want = tree_attention_bwd_ref(q.float(), k.float(), v.float(), kl,
+                                      o.float(), lse, do.float(), sc, **kw)
+    counts = (ta.tree_attention.launches, tab.bwd_dq.launches,
+              tab.bwd_dkv.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    op = torch.autograd.grad(ops.tree_attention(*leaves, kl, sc, **kw),
+                             leaves, do)
+    torch.cuda.synchronize()
+    assert (ta.tree_attention.launches, tab.bwd_dq.launches,
+            tab.bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
+    err = (o.float() - ro).abs()
+    rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
+    _delta_close(dl, o, do)
+    _hold_bwd(got, want, bf16)
+    for a, b, c in zip(got, again, op):
+        assert torch.equal(a, b) and torch.equal(a, c)
     Skv = k.shape[1]
     first = torch.arange(Skv, device=dev).clamp(min=kw["q_off"])
     dead = kl < first                 # no query i ≥ max(j, q_off) sees key j

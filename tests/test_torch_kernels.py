@@ -257,10 +257,12 @@ def test_dkv_head_split_partials_sum_to_jax(parts):
 # --------------------------------------------------------------------------
 
 # (kernel, dtype, hd) → path on the card: bf16 at hd 64, 128 and 192 takes
-# every kernel's Hopper path; fp32 and the other head dims take the simple
-# kernels
-_HOPPER = {("fwd", 64), ("fwd", 128), ("fwd", 192), ("dq", 64), ("dq", 128),
-           ("dq", 192), ("dkv", 64), ("dkv", 128), ("dkv", 192)}
+# every kernel's Hopper path, and at hd 96 (Phi-3-vision) dq's and dk/dv's
+# while its forward stays simple; fp32 and the other head dims take the
+# simple kernels
+_HOPPER = {("fwd", 64), ("fwd", 128), ("fwd", 192), ("dq", 64), ("dq", 96),
+           ("dq", 128), ("dq", 192), ("dkv", 64), ("dkv", 96), ("dkv", 128),
+           ("dkv", 192)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -274,7 +276,8 @@ def test_kernel_path_table(kernel, dtype):
     q = torch.zeros(1, 1, 1, 192, dtype=dt)
     assert tab.fuses_delta(q) is (dtype == "bfloat16")
     assert tab.fuses_delta(q[..., :128]) is (dtype == "bfloat16")
-    assert tab.fuses_delta(q[..., :96]) is False
+    assert tab.fuses_delta(q[..., :96]) is (dtype == "bfloat16")
+    assert tab.fuses_delta(q[..., :32]) is False
 
 
 @pytest.mark.parametrize("q_off", [0, 20])

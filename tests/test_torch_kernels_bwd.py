@@ -210,12 +210,13 @@ def test_delta_matches_reference_expression(dtype):
 
 @pytest.mark.parametrize("dtype,hd,fused", [
     ("bfloat16", 64, True), ("bfloat16", 128, True), ("bfloat16", 32, False),
-    ("bfloat16", 192, True), ("float32", 64, False), ("float32", 128, False),
+    ("bfloat16", 192, True), ("bfloat16", 96, True), ("float32", 64, False),
+    ("float32", 128, False),
 ])
 def test_bwd_dq_computes_delta_only_off_the_hopper_path(monkeypatch, dtype,
                                                         hd, fused):
     """``bwd_dq`` hands the dq kernel a fresh f32 [B,H,S] buffer to write Δ
-    into where ``fuses_delta`` holds (bf16 at hd 64/128/192), and runs
+    into where ``fuses_delta`` holds (bf16 at hd 64/96/128/192), and runs
     ``delta`` before the launch elsewhere; it counts one launch per call.
     The launch itself is replaced here (the kernel needs the card)."""
     B, S, H, Kh = 1, 70, 4, 2
@@ -343,3 +344,31 @@ def test_op_hd192_gqa12_grads_match_jax(dtype, tol):
     _close(got, want, tol)
     assert not got[1][0, :3].any() and not got[2][0, :3].any()   # padded
     assert np.abs(got[1][:, 3:A]).max() > 1e-3     # real ancestor cotangents
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_op_hd96_prefix_grads_match_jax(dtype, tol):
+    """The plain forward and backward at Phi-3-vision's head dim 96 (MHA,
+    H 4/Kh 4) on packed trees behind a multimodal prefix of 16 rows that
+    the whole row sees (``chip_smoke.prefix_kv_last``'s kv_last: the
+    prefix visible to every token, the text's indices shifted by 16),
+    against ``jax.vjp`` through the reference's Pallas kernels in
+    interpret mode, at the reference's tolerances (1e-4 in f32, 5e-2 in
+    bf16).  bf16 at hd 96 is the layout whose dq and dk/dv take the
+    Hopper path on the card behind the simple forward."""
+    rng = np.random.default_rng(96)
+    B, F, T, H, Kh, hd = 2, 16, 112, 4, 4, 96
+    text = np.asarray(_tree_kv_last(9, B, T))
+    kl = np.concatenate([np.full((B, F), F + T - 1),
+                         np.where(text >= 0, text + F, -1)], 1)
+    S = F + T
+    q, do = _np(rng, B, S, H, hd), _np(rng, B, S, H, hd)
+    k, v = _np(rng, B, S, Kh, hd), _np(rng, B, S, Kh, hd)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _jax_grads(q, k, v, kl, do, hd ** -0.5, 32, 32, dtype=jdt)
+    got, raw = _port_grads(q, k, v, kl, do, hd ** -0.5, dtype=tdt)
+    assert all(g.dtype == tdt for g in raw)
+    assert tab.fuses_delta(raw[0]) is (dtype == "bfloat16")
+    _close(got, want, tol)
+    # the prefix keys are seen by every later row: real cotangents
+    assert np.abs(got[1][:, :F]).max() > 1e-3
