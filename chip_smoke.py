@@ -241,8 +241,8 @@ at full width, once the SSM archs' tensors are freed:
  33. mm kernel, mm bwd kernel — phases 2-3 at the two new layouts on their
                   first train step's real kv_last: V, Phi-3's rows (B 2,
                   576 patches + 4096 text tokens, H 32/Kh 32, hd 96: in
-                  bf16 dq and dk/dv Hopper, the forward simple, chained as
-                  training chains them) and S2, Seamless's decoder rows (B
+                  bf16 the three Hopper kernels, chained as training
+                  chains them) and S2, Seamless's decoder rows (B
                   2, S 4096, H 16/Kh 16, hd 64: the Hopper paths in bf16),
                   bf16 and f32; and hd 96 bf16 beyond Phi-3's MHA: GQA
                   32/8, MQA 32/1, padding keys, gateway ancestors with a
@@ -360,8 +360,8 @@ TOL_BWD_L2 = 1e-2             # bf16 backward: relative L2 per output
 TOL_BWD_ELEM = 5e-2           # bf16 backward: 5e-2 + 5e-2·|ref| per element
 SOURCES = (ta.SOURCE, *tab.SOURCES)
 # each source's Hopper instances (kernel, head dim), by the head dims each
-# kernel's bf16 path takes (kernel_path): all three at hd 64, 128 and 192,
-# dq and dk/dv at hd 96 too
+# kernel's bf16 path takes (kernel_path): all three at hd 64, 96, 128 and
+# 192
 HOPPER_INSTANCES = {src: [(kern, hd) for hd in ta.HOPPER_PATH_HEAD_DIMS[kern]]
                     for src, kern in zip(SOURCES, ("fwd", "dq", "dkv"))}
 KERNELS = {"tree_attention_fwd": ta.tree_attention,
@@ -3087,6 +3087,12 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def dev_pct(bound_ms: float, dev_ms) -> str:
+    """", at N% of its bound" for a measured device time."""
+    return "" if dev_ms is None else f", at {100 * bound_ms / dev_ms:.1f}% " \
+        "of its bound"
+
+
 def dense_mask(kl, S: int, q_off: int) -> torch.Tensor:
     """[B, 1, S, Skv] bool: the tree mask, for the library yardstick and
     for counting visible pairs."""
@@ -3258,7 +3264,7 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
             f"{flops / ms[key] / 1e9:.1f} TFLOP/s; plain {what} "
             f"{plain_ms:.4f} ms; sdpa {what} (dense bool mask, K/V expanded) "
             f"{lib_ms:.4f} ms; device time: kernel {fmt_ms(dev[key])} (CUDA "
-            f"graph), sdpa {fmt_ms(lib_dev)} ("
+            f"graph{dev_pct(bnd, dev[key])}), sdpa {fmt_ms(lib_dev)} ("
             + ("CUDA graph" if key == "fwd" else
                "CUDA graph of forward + backward less the forward") + ")")
     d_txt = ("Δ computed inside the dq kernel, no torch reduction" if fused
@@ -3822,8 +3828,8 @@ def prefix_kv_last(kv_last: np.ndarray, F: int) -> np.ndarray:
 def mm_kernel_cases(kl_v, kl_s2):
     """The three kernels at the two new layouts on their first train
     step's real kv_last: V, Phi-3-vision's rows (its 576-patch prefix and
-    the text, H 32/Kh 32, hd 96: in bf16 dq and dk/dv Hopper behind the
-    simple forward, in f32 the simple kernels), and S2, SeamlessM4T's
+    the text, H 32/Kh 32, hd 96: in bf16 the Hopper kernels, in f32 the
+    simple kernels), and S2, SeamlessM4T's
     decoder rows (H 16/Kh 16, hd 64: the Hopper paths in bf16, the simple
     kernels in f32).  Then bf16 at hd 96 beyond Phi-3's MHA, on rows of
     Phi-3's 576-row prefix before packed trees: a GQA group of 4 (H 32/Kh
@@ -4155,6 +4161,26 @@ def phase_mm_train_parity(cfg_full):
     del params, gk, gb
 
 
+def vlm_train_cut():
+    """Phi-3-vision's training cut: the deepest whose bf16 weights, fp32
+    grads and AdamW state and ``act_bytes`` a layer (TRAIN_ROWS rows of its
+    prefix + TRAIN_SEQ tokens) fit TRAIN_LIMIT.  (cfg, bytes a layer)."""
+    full = get_config(VLM_ARCH)
+    per_layer = act_bytes(full, TRAIN_ROWS * (TRAIN_SEQ + full.frontend_len))
+    return full.replace(n_layers=fit_depth(full, TRAIN_LIMIT, scale=7,
+                                           per_layer=per_layer)), per_layer
+
+
+def mm_train_plans(cfg, sft_steps: int = MM_SFT_STEPS,
+                   rl_steps: int = MM_RL_STEPS):
+    """An enc-dec or VLM arch's train plans: ``sft_steps`` sep_avg steps on
+    agentic trees, then ``rl_steps`` rl steps on GRPO trees, both of
+    MM_TRAIN_GEN trees, MM_TRAIN_TREES a batch."""
+    kw = dict(gen=MM_TRAIN_GEN, trees=MM_TRAIN_TREES)
+    return (train_plans(cfg, "agentic", "sep_avg", sft_steps, **kw),
+            train_plans(cfg, "grpo", "rl", rl_steps, **kw))
+
+
 def run_mm(timed) -> dict:
     """The enc-dec and VLM archs: the three kernels at their layouts (V,
     S2) against the plain versions; each arch served at full depth
@@ -4166,20 +4192,14 @@ def run_mm(timed) -> dict:
     the timings."""
     ecfg, vfull = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
     Fv = vfull.frontend_len
-    per_layer = act_bytes(vfull, TRAIN_ROWS * (TRAIN_SEQ + Fv))
-    vcfg = vfull.replace(n_layers=fit_depth(vfull, TRAIN_LIMIT, scale=7,
-                                            per_layer=per_layer))
+    vcfg, per_layer = vlm_train_cut()
     log(f"{VLM_ARCH} train: the deepest cut whose bf16 weights, fp32 grads "
         f"and AdamW state (14 bytes a parameter) and {per_layer / 1e9:.2f} GB "
         f"of activations a layer ({TRAIN_ROWS} rows of {Fv} + {TRAIN_SEQ} "
         f"tokens) fit {TRAIN_LIMIT / 1e9:.0f} GB: {vcfg.n_layers} of "
         f"{vfull.n_layers} layers (reduced)")
-    plans_of = {}
-    for arch, cfg in ((ENCDEC_ARCH, ecfg), (VLM_ARCH, vcfg)):
-        kw = dict(gen=MM_TRAIN_GEN, trees=MM_TRAIN_TREES)
-        plans_of[arch] = (
-            train_plans(cfg, "agentic", "sep_avg", MM_SFT_STEPS, **kw),
-            train_plans(cfg, "grpo", "rl", MM_RL_STEPS, **kw))
+    plans_of = {ENCDEC_ARCH: mm_train_plans(ecfg),
+                VLM_ARCH: mm_train_plans(vcfg)}
     kl_s2 = np.asarray(plans_of[ENCDEC_ARCH][0][0].packed.inputs["kv_last"])
     kl_v = prefix_kv_last(np.asarray(
         plans_of[VLM_ARCH][0][0].packed.inputs["kv_last"]), Fv)

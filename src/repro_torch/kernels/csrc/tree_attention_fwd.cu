@@ -11,18 +11,18 @@
 //
 // Two paths compute the same function.
 //
-// Hopper path (bf16 at hd 64, 128 and 192, the models' head dims).  At hd
-// 64 and 128 one CUDA block of 160 threads owns one (64-query tile, head,
-// batch row): a consumer warpgroup (warps 0-3, wgmma's native 64 rows) and
-// a producer warp (warp 4).  At hd 192 see below.  The producer loads the
-// Q tile by TMA, then walks the
+// Hopper path (bf16 at hd 64, 96, 128 and 192, the models' head dims).  At
+// hd 64, 96 and 128 one CUDA block of 160 threads owns one (64-query tile,
+// head, batch row): a consumer warpgroup (warps 0-3, wgmma's native 64
+// rows) and a producer warp (warp 4).  At hd 192 see below.  The producer
+// loads the Q tile by TMA, then walks the
 // causal key tiles.  It decides each tile's liveness from the tile's max
 // kv_last (and, windowed, its max pos_k against the query tile's min
 // pos_q) with the reference's block_live predicate (src/repro/kernels/
 // tree_attention.py:75), reading kv_last 16 tiles at a time with one
 // warp-wide reduction per tile, and hands the consumers live tiles only:
 // for each it stages the tile's kv_last/pos_k by cp.async and brings K and
-// V in by TMA into a ring of 2 (hd 128) or 3 (hd 64) stages guarded by
+// V in by TMA into a ring of 2 (hd 96, 128) or 3 (hd 64) stages guarded by
 // mbarriers, so it never waits on a load itself.  A dead tile costs no
 // load and no barrier.  The producer is hopper.cuh's produce_key_tiles,
 // which the dq kernel runs too: the two skip the same tiles.  Tree
@@ -39,6 +39,27 @@
 // logits are −inf and the running max starts at the finite −1e30, so no
 // exp2f ever sees a NaN).
 //
+// hd 96 (Phi-3-vision) runs the hd 128 block on 96 real columns, as dq and
+// dk/dv do: a tile is two 64-column boxes (16 KB), box 1's columns 96-127
+// TMA's out-of-bounds zeros (hopper.cuh::pad_cols), so Q (16 KB) and the
+// 2-stage ring (32 KB a stage) fit two blocks an SM.  S = Q·Kᵀ takes 6 k16
+// steps, none over the zeros; O += P·V is m64n96k16 (48 accumulator
+// registers a thread), V read MN-major from box 0 and the first half of
+// box 1, and o is stored as 96 columns.  Two other forms of this block
+// compute the same sums in the same order and give the same values; both
+// were slower at Phi-3-vision's training rows on the H100, so neither is
+// in this source (tools/hd96_width.py builds each from a copy of csrc/
+// with its edits and times it beside this one; PERF.md keeps the times):
+//   - 128 query rows on two warpgroups that share the ring (hd 192's
+//     layout, fwd_wgs): at two blocks an SM ptxas holds a thread to 96
+//     registers and spills; at one block an SM (3 stages) it is slower
+//     than two 64-row blocks;
+//   - S of the next live tile issued before P·V of this one, the softmax
+//     run while both are in flight (FlashAttention-3's intra-warpgroup
+//     pipelining): it holds both stages of the 2-stage ring until that
+//     P·V retires, and it lost both at two blocks an SM and at one block
+//     with a 3-stage ring.
+//
 // hd 192 (Nemotron-4 340B).  A Q tile is 24 KB and a K/V stage 48 KB, so
 // one 64-row block (24 KB + 2 stages, ~121 KB) fits once on an SM (228
 // KB) and would leave a single warpgroup to hide every wgmma and softmax
@@ -54,7 +75,7 @@
 // of ≤ 64 rows leaves the second warpgroup idle: it only releases stages.
 //
 // Simple path (fp32 inputs, the accuracy path, and bf16 at the other head
-// dims 16, 24, 32, 96).  One block of 256 threads per (64-query
+// dims 16, 24, 32).  One block of 256 threads per (64-query
 // tile, head, batch row) walks the key tiles, tests block_live before any
 // load, and runs the products on WMMA (bf16 with hd a multiple of 16) or
 // fp32 FMA through shared memory.  Every accumulator is fp32 on both paths.
@@ -345,7 +366,7 @@ tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 128 and 192)
+// Hopper path: warp-specialised wgmma kernel (bf16, hd 64, 96, 128 and 192)
 // --------------------------------------------------------------------------
 
 constexpr int WG_THREADS = 128;               // one consumer warpgroup
@@ -354,8 +375,8 @@ struct FwdMaps {
   CUtensorMap q, k, v;
 };
 
-// Consumer warpgroups a block: 1 at hd 64/128 (64 query rows, two blocks
-// an SM), 2 at hd 192 (128 rows, one block an SM: see the header).
+// Consumer warpgroups a block: 1 at hd 64/96/128 (64 query rows, two
+// blocks an SM), 2 at hd 192 (128 rows, one block an SM: see the header).
 template <int HD>
 __host__ __device__ constexpr int fwd_wgs() { return HD == 192 ? 2 : 1; }
 template <int HD>  // + the producer warp
@@ -406,8 +427,9 @@ fwd_hopper_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ 
   // ---------------- consumer warpgroup wg: rows 64·wg.. of the block ----------------
   const int wg = tid / WG_THREADS;
   if (BQ * wg >= nrows) {
-    // hd 192's second warpgroup on a last tile of ≤ 64 rows: no rows to
-    // compute (its Q tile was not loaded), but each stage awaits its release
+    // the second warpgroup of a 128-row block on a last tile of ≤ 64 rows:
+    // no rows to compute (its Q tile was not loaded), but each stage
+    // awaits its release
     uint32_t ph = 0;
     for (int st = 0;;) {
       hop::mbar_wait(&full[st], ph);
@@ -601,7 +623,7 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
     return launch<float, HD, false>(q, k, v, kv_last, pos_q, pos_k, o, lse, B, S, Skv, H,
                                     Kh, scale, q_off, window, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD == 64 || HD == 128 || HD == 192)
+  if constexpr (HD == 64 || HD == 96 || HD == 128 || HD == 192)
     return launch_hopper<HD>(q, k, v, kv_last, pos_q, pos_k, o, lse, B, S, Skv, H, Kh, scale,
                              q_off, window, stream);
   else

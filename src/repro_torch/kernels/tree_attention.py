@@ -8,17 +8,18 @@ tiles that ``block_live`` keeps; a dead tile is skipped before its loads.
 Ragged S and Skv are masked in-kernel, ``q_off`` is a runtime int, and GQA
 maps head h to kv head h // (H/Kh).
 
-Two paths (``csrc/tree_attention_fwd.cu``): bf16 at hd 64, 128 and 192
-(``HOPPER_PATH_HEAD_DIMS["fwd"]``) runs a warp-specialised kernel, a TMA
-producer warp that hands live key tiles through an mbarrier ring to wgmma
-consumer warpgroups with their accumulators in registers (one warpgroup
-and 64 query rows a block at hd 64/128, two and 128 rows at hd 192); fp32
-(the accuracy path) and bf16 at the other head dims, Phi-3-vision's hd 96
-included, run the simple kernel (WMMA or FMA through shared memory).
-``kernel_path`` says which path each of the three kernels takes; the
-backward's dq and dk/dv kernels take theirs at the same head dims and at
-hd 96 too, so a bf16 hd 96 layer chains this simple forward (o and a
-natural-log lse) into the Hopper dq and dk/dv.
+Two paths (``csrc/tree_attention_fwd.cu``): bf16 at hd 64, 96, 128 and
+192 (``HOPPER_PATH_HEAD_DIMS["fwd"]``) runs a warp-specialised kernel, a
+TMA producer warp that hands live key tiles through an mbarrier ring to
+wgmma consumer warpgroups with their accumulators in registers (one
+warpgroup and 64 query rows a block at hd 64/96/128, two and 128 rows at
+hd 192; hd 96, Phi-3-vision's, on hd 128's 16 KB tiles with columns
+96-127 TMA's zeros and O += P·V at m64n96k16); fp32 (the accuracy path)
+and bf16 at hd 16, 24 and 32 run the simple kernel (WMMA or FMA through
+shared memory).  ``kernel_path`` says which path each of the three
+kernels takes; the backward's dq and dk/dv kernels take theirs at the
+same head dims, so a bf16 hd 96 layer chains this Hopper forward (o and
+a natural-log lse) into the Hopper dq and dk/dv.
 
 Bound on the H100: at the serving path's shapes (hd 128) the forward does
 about 4·hd FLOPs per visible pair for 2·hd·2 bytes per key read, so the
@@ -44,7 +45,7 @@ BLOCK_Q = BLOCK_K = 64        # the kernel's tile (BQ, BK in the .cu source)
 HEAD_DIMS = (16, 24, 32, 64, 96, 128, 192)
 # bf16 at these head dims takes each kernel's warp-specialised wgmma/TMA
 # path; fp32, and bf16 at the other head dims, its simple kernel
-HOPPER_PATH_HEAD_DIMS = {"fwd": (64, 128, 192), "dq": (64, 96, 128, 192),
+HOPPER_PATH_HEAD_DIMS = {"fwd": (64, 96, 128, 192), "dq": (64, 96, 128, 192),
                          "dkv": (64, 96, 128, 192)}
 SOURCE = "tree_attention_fwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -19,8 +19,7 @@ tile under the forward's mask and block-skip rule:
     columns past 96 read as zero); it also computes Δ of its own rows from
     o and do and writes it for the dk/dv launch that follows on the same
     stream, so the reference's Δ pre-pass (:331) runs in no torch op there
-    (at hd 96 it reads the simple forward's lse, as every Hopper dq reads
-    the natural-log lse both forward paths write).  fp32
+    (it reads the natural-log lse that both forward paths write).  fp32
     and the other head dims keep the simple kernel (WMMA or FMA through
     shared memory), with Δ from ``delta`` (a torch reduction, its plain
     version);

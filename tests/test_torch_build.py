@@ -91,16 +91,34 @@ def test_concurrent_first_load_configures_once(tmp_path, monkeypatch):
     assert all(lib is libs[0] and lib.ready for lib in libs)
 
 
-def _breakdown_tool():
-    """``tools/kernel_breakdown.py`` as a module (it is a script, not part
-    of the package)."""
+def _tool(name):
+    """``tools/<name>.py`` as a module (a script, not part of the
+    package)."""
     import importlib.util
     from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "tools" / "kernel_breakdown.py"
-    spec = importlib.util.spec_from_file_location("kernel_breakdown", path)
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+_HD96 = _tool("hd96_width")
+
+
+@pytest.mark.parametrize("variant", sorted(_HD96.EDITS))
+def test_hd96_variant_edits_apply_to_the_sources(variant):
+    """Each of ``tools/hd96_width.py``'s variants is the kernels' source
+    with its edits: every text an edit replaces is in the current source
+    (where one is not, the tool fails at its build on the card), and every
+    edit changes it."""
+    for src, pairs in _HD96.EDITS[variant].items():
+        text = (build.CSRC / src).read_text()
+        for old, new in pairs:
+            assert old in text, (variant, src, old)
+            edited = text.replace(old, new)
+            assert edited != text, (variant, src, old)
+            text = edited
 
 
 def test_breakdown_variants_reach_the_loaders(monkeypatch):
@@ -110,7 +128,7 @@ def test_breakdown_variants_reach_the_loaders(monkeypatch):
     from types import SimpleNamespace
 
     from repro_torch.kernels import tree_attention_bwd as tab
-    tool = _breakdown_tool()
+    tool = _tool("kernel_breakdown")
 
     def lib(*names):
         return SimpleNamespace(**{n: SimpleNamespace(argtypes=None,

@@ -437,8 +437,40 @@ HD96_CASES = ["mha", "gqa", "mqa", "padding", "gateway32", "gateway20",
 
 
 @pytest.mark.parametrize("name", HD96_CASES)
+def test_cuda_hd96_hopper_fwd_matches_plain(dev, name):
+    """The forward's Hopper path at hd 96 (bf16): o and lse against the
+    plain version in f32 from the same bf16 inputs at the forward's bf16
+    limits (o within 2^-7·|ref| + 2e-2 of its row's rms, lse at 1e-4),
+    two launches bit-identical, one launch counted per call, and a row
+    that sees no key at o = 0 and lse = −1e30 exactly."""
+    q, k, v, kl, kw, _ = _inputs(name, torch.bfloat16, dev, hd=96)
+    sc = 96 ** -0.5
+    assert ta.kernel_path("fwd", torch.bfloat16, 96) == "hopper"
+    n = ta.tree_attention.launches
+    with torch.inference_mode():
+        o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True, **kw)
+        o2, lse2 = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
+                                     **kw)
+        ro, rl = tree_attention_ref_ext(q.float(), k.float(), v.float(), kl,
+                                        sc, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ta.tree_attention.launches == n + 2
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
+    err = (o.float() - ro).abs()
+    rms = ro.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool((err <= 2 ** -7 * ro.abs() + 2e-2 * rms).all())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    blind = rl <= -1e29                             # [B,H,S]: sees no key
+    assert bool((lse[blind] == -1e30).all())
+    assert not bool(o[blind.transpose(1, 2)].any())
+    if name == "padding":                           # queries 16.. see nothing
+        assert bool(blind[0, :, 16:].all())
+
+
+@pytest.mark.parametrize("name", HD96_CASES)
 def test_cuda_hd96_hopper_bwd_matches_plain(dev, name):
-    """bf16 at hd 96 chains the simple forward (o and its natural-log lse)
+    """bf16 at hd 96 chains the Hopper forward (o and its natural-log lse)
     into the Hopper dq, whose kernel writes Δ, and the Hopper dk/dv fed
     that Δ, as training does; and the same through ``ops.tree_attention``'s
     autograd node.  o and lse against the plain version in f32 at the
@@ -450,7 +482,7 @@ def test_cuda_hd96_hopper_bwd_matches_plain(dev, name):
     sc = 96 ** -0.5
     bf16 = torch.bfloat16
     assert [ta.kernel_path(kern, bf16, 96) for kern in ("fwd", "dq", "dkv")
-            ] == ["simple", "hopper", "hopper"]
+            ] == ["hopper", "hopper", "hopper"]
     assert tab.fuses_delta(q)
     with torch.inference_mode():
         o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True, **kw)

@@ -256,13 +256,12 @@ def test_dkv_head_split_partials_sum_to_jax(parts):
 # dim 192 with a GQA group of 12 against the reference's Pallas kernel
 # --------------------------------------------------------------------------
 
-# (kernel, dtype, hd) → path on the card: bf16 at hd 64, 128 and 192 takes
-# every kernel's Hopper path, and at hd 96 (Phi-3-vision) dq's and dk/dv's
-# while its forward stays simple; fp32 and the other head dims take the
-# simple kernels
-_HOPPER = {("fwd", 64), ("fwd", 128), ("fwd", 192), ("dq", 64), ("dq", 96),
-           ("dq", 128), ("dq", 192), ("dkv", 64), ("dkv", 96), ("dkv", 128),
-           ("dkv", 192)}
+# (kernel, dtype, hd) → path on the card: bf16 at hd 64, 96 (Phi-3-vision),
+# 128 and 192 takes every kernel's Hopper path; fp32 and the other head
+# dims take the simple kernels
+_HOPPER = {("fwd", 64), ("fwd", 96), ("fwd", 128), ("fwd", 192), ("dq", 64),
+           ("dq", 96), ("dq", 128), ("dq", 192), ("dkv", 64), ("dkv", 96),
+           ("dkv", 128), ("dkv", 192)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -354,8 +354,8 @@ def test_op_hd96_prefix_grads_match_jax(dtype, tol):
     prefix visible to every token, the text's indices shifted by 16),
     against ``jax.vjp`` through the reference's Pallas kernels in
     interpret mode, at the reference's tolerances (1e-4 in f32, 5e-2 in
-    bf16).  bf16 at hd 96 is the layout whose dq and dk/dv take the
-    Hopper path on the card behind the simple forward."""
+    bf16).  bf16 at hd 96 is the layout whose forward, dq and dk/dv take
+    the Hopper path on the card."""
     rng = np.random.default_rng(96)
     B, F, T, H, Kh, hd = 2, 16, 112, 4, 4, 96
     text = np.asarray(_tree_kv_last(9, B, T))

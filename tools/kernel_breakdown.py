@@ -37,8 +37,11 @@ beside each (``*_device``) the device time of one call in a CUDA-graph
 replay, which leaves out the host's launch overhead.  ``fwd_sha256`` holds
 a digest of the forward's o and lse bytes at each shape (the inputs come
 from a fixed seed), so two checkouts' runs show whether their forwards
-agree bit for bit.  Writes every number to ``--out`` as JSON and prints
-it.
+agree bit for bit; the forward's other Hopper head dims get the same
+digest and times (full kernel only) at A, B and T, hd 64 at H 16/Kh 16
+(SeamlessM4T's decoder heads) and hd 192 at H 96/Kh 8 (Nemotron-4's),
+keyed ``A_hd64`` and so on.  Writes every number to ``--out`` as JSON and
+prints it.
 """
 from __future__ import annotations
 
@@ -344,6 +347,20 @@ def main() -> int:
                     timed(ms, f"dkv_parts{parts}", lambda: tab.bwd_dkv(
                         q, k, v, kl, lse, dl, do, sc, parts=parts))
             bwd_variants(ms, "dkv", tab.SOURCES[1], dkv)
+        # the forward at hd 64 and 192, full kernel only
+        for hd, h, kh in ((64, 16, 16), (192, 96, 8)):
+            for tag, (B, S, q_off, kl) in shapes.items():
+                key, Skv = f"{tag}_hd{hd}", kl.shape[1]
+                q, k, v = mk(B, S, h, hd), mk(B, Skv, kh, hd), mk(B, Skv, kh, hd)
+                fwd = lambda: ta.tree_attention(q, k, v, kl, hd ** -0.5,
+                                                q_off=q_off,
+                                                save_residuals=True)
+                timed(res["ms"].setdefault(key, {}), "fwd", fwd)
+                o, lse = fwd()
+                res["fwd_sha256"][key] = hashlib.sha256(
+                    o.view(torch.int16).cpu().numpy().tobytes()
+                    + lse.cpu().numpy().tobytes()).hexdigest()
+                del q, k, v, o, lse
     with torch.enable_grad():
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
         ot = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
