@@ -31,6 +31,15 @@ Phases, each of which ends the run non-zero if it fails:
                   plain ``delta`` at 1e-5 of Σ|do·o| per row, dq and Δ must be
                   bit-identical over two launches and dq exactly 0 on rows
                   that see no key.
+ 3a. mask soundness — the kernels' copies of the skip predicate against
+                  ``block_live_mask``, on every path (bf16 at hd 64, 96,
+                  128, 192; f32 at hd 64, 128): padding tails, a gateway
+                  wave with padded ancestor slots, and a window x q_off
+                  case.  Phases 2-3's checks on them, then NaN in K and V
+                  of exactly the key tiles dead for every query tile (128
+                  query rows for the Hopper forward and dq at hd 192, 64
+                  elsewhere): o, lse, dq, dk, dv torch.equal to the clean
+                  run and finite.
   4. serve      — Qwen2-1.5B at full width, random bf16 weights: 4 rollout
                   groups (prompt 1024, K=8, 64 new tokens) and one
                   multi-turn agentic session (prefill → fork(8) → 32 steps →
@@ -56,7 +65,9 @@ Phases, each of which ends the run non-zero if it fails:
                   Counts are reset just before and read just after.
   7. determinism — two ``accumulate`` calls on the same parameters and
                   plan give bit-identical gradients on every leaf: a
-                  packed plan and a partition-wave plan, all 28 layers.
+                  packed plan and a partition-wave plan, all 28 layers;
+                  a third under ``remat="full"`` (each layer recomputed in
+                  the backward) gives the same bits.
   8. waves      — 4 generator batches of agentic trees of 6k-16k unique
                   tokens (nearly all larger than a row) through ``plans``:
                   auto partition, auto capacity, lookahead 2, grafting on,
@@ -269,14 +280,19 @@ at full width, once the SSM archs' tensors are freed:
  36. <arch> train, <arch> determinism — phase 6 (no baseline timing) on
                   MM_TRAIN_GEN trees: 2 SFT + 1 RL steps, 2 rows of 4096,
                   frontend rows drawn by the planner; Seamless at full
-                  depth, Phi-3 at the deepest cut ``fit_depth`` gives
-                  under TRAIN_LIMIT with ``act_bytes`` a layer (printed);
-                  each kernel once a decoder layer a step, 0 trees
-                  dropped; then phase 7's check on a packed plan.
+                  depth, Phi-3 with ``remat="full"`` at the deepest cut
+                  ``fit_depth`` gives under TRAIN_LIMIT, reckoning each
+                  layer's saved input and one recomputed layer's
+                  ``act_bytes`` (printed; all 32 layers), its peak within
+                  PEAK_LIMIT; each kernel once a decoder layer a step (the
+                  forward twice under remat), 0 trees dropped; then phase
+                  7's check on a packed plan.
  37. <arch> train parity — 4 layers f32 (Seamless: 4 + 4) on one row of
                   2048 behind frontend rows: (a) kernel vs plain, loss and
                   grads max-rel 1e-4; (b) tree vs per-branch baseline,
-                  loss 5e-6, grads 1e-4.
+                  loss 5e-6, grads 1e-4; (c) (a) again under
+                  ``remat="full"``: loss and every gradient leaf
+                  torch.equal.
  38. timing V, timing S2 — phase 11's training-shape timing at V and S2.
 
 The line before the last names the card and its power limit; the one before
@@ -313,6 +329,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import mask_check  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.gateway import (  # noqa: E402
     packed_partitioned_value_and_grad)
@@ -1043,6 +1060,107 @@ def phase_bwd_kernel(cases) -> dict:
     return worst
 
 
+def mask_cases():
+    """Cases with whole key tiles that no query tile of their row sees, at
+    H 4/Kh 2, for each kernel path: bf16 at the Hopper head dims and f32
+    (the simple kernels) at hd 64 and 128.  Padding tails (trees fill 55%
+    of rows of 1024, the rest kv_last −1); a gateway wave whose first 192
+    and 81 ancestor slots are padding (q_off 256); and 1024 ancestors
+    under a window of 128 (q_off 1024: the old ancestor tiles lie out of
+    every query's window)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    add = case_adder(np.random.default_rng(50), cases)
+    pad, _ = tree_rows(51, 2, 1024, fill=0.55)
+    g, _, _ = gateway(*tree_rows(52, 2, 512), 256, (192, 81))
+    w, wq, wk = gateway(*tree_rows(53, 2, 512), 1024, ())
+    paths = [(hd, bf16) for hd in ta.HOPPER_PATH_HEAD_DIMS["fwd"]] + [
+        (64, f32), (128, f32)]
+    for hd, dt in paths:
+        tag = f"hd {hd} {dt} ({bf16_paths(hd) if dt == bf16 else 'simple'})"
+        add(f"padding tails, {tag}", dt, 2, 1024, 4, 2, hd, pad)
+        add(f"gateway A=256, ancestors 192/81 padded, {tag}", dt, 2, 512, 4,
+            2, hd, g, q_off=256)
+        add(f"window 128 x q_off 1024, {tag}", dt, 2, 512, 4, 2, hd, w,
+            q_off=1024, window=128, pq=wq, pk=wk)
+    return cases
+
+
+def dead_keys(kl, S: int, q_off: int, window, pq, pk,
+              block_q: int) -> torch.Tensor:
+    """[B, Skv] bool: the keys of every key tile that ``block_live_mask``
+    marks dead for every query tile of its row, at ``block_q`` query rows
+    a tile (a key tile dead for every tile of 2·64 rows is dead for every
+    tile of 64)."""
+    kl, pq, pk = (None if t is None else t.cpu().numpy() for t in (kl, pq, pk))
+    Skv = kl.shape[1]
+    rows = []
+    for b in range(kl.shape[0]):
+        m = ta.block_live_mask(kl[b], S, block_q, ta.BLOCK_K, q_off=q_off,
+                               window=window,
+                               pos_q=None if pq is None else pq[b],
+                               pos_k=None if pk is None else pk[b])
+        rows.append(np.repeat(~m.any(0), ta.BLOCK_K)[:Skv])
+    return torch.as_tensor(np.stack(rows), device=DEV)
+
+
+def phase_mask_soundness() -> dict:
+    """The kernels' copies of the skip predicate against
+    ``block_live_mask``: on ``mask_cases`` the forward, dq and dk/dv are
+    first held against their plain versions (phases 2-3's checks), then
+    run again with NaN written into K and V of exactly the key tiles that
+    ``block_live_mask`` marks dead for every query tile (at the query
+    rows a block of that path covers: 128 for the Hopper forward and dq at
+    hd 192, 64 elsewhere).  o, lse, dq, dk and dv must be ``torch.equal``
+    to the clean run's and finite: a kernel that loads a dead tile spreads
+    its NaN, one that skips a live tile misses the plain version.
+    Returns the cases and the poisoned key tiles."""
+    cases = mask_cases()
+    phase_kernel(cases, False)
+    phase_bwd_kernel(cases)
+    rng = np.random.default_rng(56)
+    tiles = mask_check.kernel_tiles()
+    poisoned = 0
+    with torch.inference_mode():
+        for name, dt, q, k, v, kl, q_off, window, pq, pk in cases:
+            B, S, _, hd = q.shape
+            kw = dict(q_off=q_off, window=window, pos_q=pq, pos_k=pk)
+            sc = hd ** -0.5
+            wide = ta.kernel_path("fwd", dt, hd) == "hopper" and hd == 192
+            bq = tiles["hopper fwd/dq hd 192" if wide else "simple fwd"][0]
+            dead = dead_keys(kl, S, q_off, window, pq, pk, bq)
+            n_dead = int(dead.sum()) // ta.BLOCK_K
+            check(n_dead > 0, f"mask soundness {name}: no key tile is dead "
+                              f"for every query tile")
+            do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
+
+            def run(k_, v_):
+                o, lse = ta.tree_attention(q, k_, v_, kl, sc,
+                                           save_residuals=True, **kw)
+                return (o, lse, *tab.tree_attention_bwd(q, k_, v_, kl, o,
+                                                        lse, do, sc, **kw))
+
+            clean = run(k, v)
+            kn, vn = k.clone(), v.clone()
+            kn[dead] = float("nan")
+            vn[dead] = float("nan")
+            nan = run(kn, vn)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(clean, nan)]
+            finite = [bool(torch.isfinite(t).all()) for t in nan]
+            outs = ("o", "lse", "dq", "dk", "dv")
+            log(f"mask soundness {name}: {n_dead} key tiles of 64 dead for "
+                f"every {bq}-row query tile, NaN in their K and V: "
+                + ", ".join(f"{o} {'equal' if e else 'DIFFERS'}"
+                            f"{'' if f else ' (NOT FINITE)'}"
+                            for o, e, f in zip(outs, same, finite)))
+            check(all(same) and all(finite), f"mask soundness {name}: a "
+                  f"kernel read a key tile its predicate should skip")
+            poisoned += n_dead
+            del clean, nan, kn, vn
+    return dict(cases=len(cases), poisoned_key_tiles=poisoned)
+
+
 def multiturn(cfg, params, impl: str, gen=None, record=None,
               tail_steps: int = 32, cross=None):
     """prefill 1024 → fork(8) → 32 steps → prefill 200 "tool output"
@@ -1312,9 +1430,14 @@ def phase_train(cfg, sft, rl, tag: str = "train", baseline: bool = True):
     torch.cuda.synchronize()
     log(f"{tag}: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} heads "
         f"{cfg.attn.n_heads}/{cfg.attn.n_kv_heads} hd {cfg.attn.head_dim} "
-        f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f} B params + fp32 AdamW "
-        f"state: {torch.cuda.memory_allocated() / 1e9:.2f} GB in "
+        f"{cfg.dtype}, remat {cfg.remat}, {cfg.param_count() / 1e9:.3f} B "
+        f"params + fp32 AdamW state: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in "
         f"{time.perf_counter() - t0:.2f} s")
+    # each kernel once a layer a step; under remat the forward twice (the
+    # backward recomputes each layer)
+    want = {name: cfg.n_layers for name in KERNELS}
+    want["tree_attention_fwd"] *= 2 if cfg.remat == "full" else 1
     reset_launches()
     times, per_tok, dropped, unique = [], [], 0, 0
     for i, (mode, plan) in enumerate([("sep_avg", p) for p in sft]
@@ -1342,8 +1465,8 @@ def phase_train(cfg, sft, rl, tag: str = "train", baseline: bool = True):
             f"launches this step {delta}; host syncs {engine.host_syncs}")
         check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
               f"train step {i}: non-finite loss or grad norm")
-        check(all(d == cfg.n_layers for d in delta.values()),
-              f"train step {i}: launches {delta}, want {cfg.n_layers} each")
+        check(delta == want, f"train step {i}: launches {delta}, want "
+                             f"{want}")
         check(engine.host_syncs == i + 1,
               f"train step {i}: {engine.host_syncs} host syncs")
     counts = launch_counts()
@@ -1655,29 +1778,53 @@ def phase_train_parity(cfg, params):
 # determinism and Tree Packing over partitions
 # --------------------------------------------------------------------------
 
-def phase_determinism(cfg, params, cases, tag: str = "determinism"):
+def differing(ga, gb) -> list:
+    """(leaf, max |a − b|) of the leaves of two gradient trees that are not
+    ``torch.equal``."""
+    return [("/".join(map(str, pa)), float((a - b).abs().max()))
+            for (pa, a), (_, b) in zip(flatten_tree(ga), flatten_tree(gb))
+            if not torch.equal(a, b)]
+
+
+def phase_determinism(cfg, params, cases, tag: str = "determinism",
+                      remat: bool = False):
     """Each (name, plan): ``engine.accumulate`` twice on the same
     parameters and plan; every gradient leaf and the scalars must be
-    bit-identical (``torch.equal``)."""
+    bit-identical (``torch.equal``).  With ``remat`` (``cfg`` at
+    ``remat="none"``) a third call under ``remat="full"`` must give the
+    same bits too: the backward's recompute of each layer is exact."""
     engine = TreeTrainEngine(cfg)
     for name, plan in cases:
         g1, s1 = engine.accumulate(params, plan)
         g2, s2 = engine.accumulate(params, plan)
-        leaves = list(zip(flatten_tree(g1), flatten_tree(g2)))
-        differ = [("/".join(map(str, pa)), float((a - b).abs().max()))
-                  for (pa, a), (_, b) in leaves if not torch.equal(a, b)]
+        n = len(flatten_tree(g1))
+        differ = differing(g1, g2)
         same_scal = torch.equal(s1, s2)
+        del g2
         waves = len(plan.partition.waves) if plan.has_waves else 0
         log(f"{tag} ({name}): {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
-            f"{plan.num_trees} trees, {plan.unique_tokens} unique tokens, "
+            f"remat {cfg.remat}, {plan.num_trees} trees, "
+            f"{plan.unique_tokens} unique tokens, "
             f"{'packed rows' if plan.packed is not None else 'no packed rows'}"
-            f" + {waves} waves; two accumulate calls: {len(leaves) - len(differ)}"
-            f" of {len(leaves)} gradient leaves bit-identical, scalars "
+            f" + {waves} waves; two accumulate calls: {n - len(differ)}"
+            f" of {n} gradient leaves bit-identical, scalars "
             f"{'identical' if same_scal else 'differ'}"
             + (f"; differing: {differ[:6]}" if differ else ""))
-        del leaves, g1, g2
         check(not differ and same_scal, f"{tag} ({name}): gradients differ "
               f"between two runs")
+        if remat:
+            rcfg = cfg.replace(remat="full")
+            gr, sr = TreeTrainEngine(rcfg).accumulate(params, plan)
+            differ = differing(g1, gr)
+            same_scal = torch.equal(s1, sr)
+            del gr
+            log(f"{tag} ({name}, remat full vs none): {n - len(differ)} of "
+                f"{n} gradient leaves bit-identical, scalars "
+                f"{'identical' if same_scal else 'differ'}"
+                + (f"; differing: {differ[:6]}" if differ else ""))
+            check(not differ and same_scal, f"{tag} ({name}): remat full "
+                  f"changes the gradients")
+        del g1
     torch.cuda.empty_cache()
 
 
@@ -4121,7 +4268,8 @@ def phase_mm_train_parity(cfg_full):
     within 1e-4 max-rel (tests/test_equivalence.py:62); (b) tree vs the
     per-branch baseline, every path row behind the same frontend rows,
     through the kernels: loss rtol 5e-6 (tests/test_equivalence.py:65-80),
-    grads max-rel 1e-4."""
+    grads max-rel 1e-4; (c) (a)'s kernel run again under ``remat="full"``:
+    loss and every gradient leaf ``torch.equal``."""
     tag = f"{cfg_full.name} train parity"
     cfg = cfg_full.replace(n_layers=PARITY_LAYERS, dtype="float32")
     if cfg.encdec is not None:
@@ -4156,19 +4304,38 @@ def phase_mm_train_parity(cfg_full):
         f"frontend rows): loss {float(lk):.6f} vs {float(lbl):.6f}, "
         f"relative error {e_loss_b:.3e} (limit 5e-6); grads max-rel "
         f"{e_g_b:.3e} at {leaf_b} (limit 1e-4), relative L2 {l2_b:.3e}")
+    del gb
+    lkr, _, gkr = value_and_grad(cfg.replace(remat="full"), params, bt,
+                                 "kernel")
+    differ = differing(gk, gkr)
+    same_loss = torch.equal(lk, lkr)
+    log(f"{tag} (c): {PARITY_LAYERS} layers f32 through the kernels, the "
+        f"tree row of (a) with remat full vs none: loss "
+        f"{'identical' if same_loss else 'differs'}, "
+        f"{len(flatten_tree(gk)) - len(differ)} of {len(flatten_tree(gk))} "
+        f"gradient leaves bit-identical"
+        + (f"; differing: {differ[:6]}" if differ else ""))
     check(e_loss <= 1e-4 and e_g <= 1e-4, f"{tag} (a)")
     check(e_loss_b <= 5e-6 and e_g_b <= 1e-4, f"{tag} (b)")
-    del params, gk, gb
+    check(same_loss and not differ, f"{tag} (c): remat full changes the "
+                                    f"loss or the gradients")
+    del params, gk, gkr
 
 
 def vlm_train_cut():
-    """Phi-3-vision's training cut: the deepest whose bf16 weights, fp32
-    grads and AdamW state and ``act_bytes`` a layer (TRAIN_ROWS rows of its
-    prefix + TRAIN_SEQ tokens) fit TRAIN_LIMIT.  (cfg, bytes a layer)."""
+    """Phi-3-vision's training cut, with ``remat="full"``: the deepest
+    whose bf16 weights, fp32 grads and AdamW state, each layer's saved
+    input (TRAIN_ROWS rows of its prefix + TRAIN_SEQ tokens, bf16) and one
+    layer's ``act_bytes`` (the layer the backward recomputes) fit
+    TRAIN_LIMIT.  (cfg, saved bytes a layer, the recomputed layer's
+    bytes)."""
     full = get_config(VLM_ARCH)
-    per_layer = act_bytes(full, TRAIN_ROWS * (TRAIN_SEQ + full.frontend_len))
-    return full.replace(n_layers=fit_depth(full, TRAIN_LIMIT, scale=7,
-                                           per_layer=per_layer)), per_layer
+    tokens = TRAIN_ROWS * (TRAIN_SEQ + full.frontend_len)
+    per_layer = tokens * full.d_model * 2
+    once = act_bytes(full, tokens)
+    return full.replace(remat="full", n_layers=fit_depth(
+        full, TRAIN_LIMIT - once, scale=7, per_layer=per_layer)), \
+        per_layer, once
 
 
 def mm_train_plans(cfg, sft_steps: int = MM_SFT_STEPS,
@@ -4192,12 +4359,15 @@ def run_mm(timed) -> dict:
     the timings."""
     ecfg, vfull = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
     Fv = vfull.frontend_len
-    vcfg, per_layer = vlm_train_cut()
-    log(f"{VLM_ARCH} train: the deepest cut whose bf16 weights, fp32 grads "
-        f"and AdamW state (14 bytes a parameter) and {per_layer / 1e9:.2f} GB "
-        f"of activations a layer ({TRAIN_ROWS} rows of {Fv} + {TRAIN_SEQ} "
-        f"tokens) fit {TRAIN_LIMIT / 1e9:.0f} GB: {vcfg.n_layers} of "
-        f"{vfull.n_layers} layers (reduced)")
+    vcfg, per_layer, once = vlm_train_cut()
+    log(f"{VLM_ARCH} train: remat full, the deepest cut whose bf16 "
+        f"weights, fp32 grads and AdamW state (14 bytes a parameter), "
+        f"{per_layer / 1e9:.3f} GB of saved layer input a layer "
+        f"({TRAIN_ROWS} rows of {Fv} + {TRAIN_SEQ} tokens) and one "
+        f"recomputed layer's {once / 1e9:.2f} GB fit "
+        f"{TRAIN_LIMIT / 1e9:.0f} GB: {vcfg.n_layers} of {vfull.n_layers} "
+        f"layers" + (" (reduced)" if vcfg.n_layers < vfull.n_layers
+                     else ""))
     plans_of = {ENCDEC_ARCH: mm_train_plans(ecfg),
                 VLM_ARCH: mm_train_plans(vcfg)}
     kl_s2 = np.asarray(plans_of[ENCDEC_ARCH][0][0].packed.inputs["kv_last"])
@@ -4219,7 +4389,10 @@ def run_mm(timed) -> dict:
         params, counts, step_s = timed(f"{arch} train", phase_train, tcfg,
                                        sft, rl, f"{arch} train", False)
         dropped = sum(p.dropped for p in (*sft, *rl))
+        peak = peak_gb()
         check(dropped == 0, f"{arch} train: {dropped} trees dropped")
+        check(peak <= PEAK_LIMIT / 1e9, f"{arch} train: peak {peak:.2f} GB "
+              f"over {PEAK_LIMIT / 1e9:.0f} GB")
         timed(f"{arch} determinism", phase_determinism, tcfg, params,
               [("packed", sft[0])], f"{arch} determinism")
         del params
@@ -4227,7 +4400,8 @@ def run_mm(timed) -> dict:
         timed(f"{arch} train parity", phase_mm_train_parity, cfg)
         torch.cuda.empty_cache()
         runs[arch] = dict(counts=counts, step_s=step_s, layers=tcfg.n_layers,
-                          serve_counts=serve_counts)
+                          serve_counts=serve_counts, remat=tcfg.remat,
+                          peak_gb=peak)
     timing = {}
     for key, arch, kl, n in (("V", VLM_ARCH, kl_v, vcfg.n_layers),
                              ("S2", ENCDEC_ARCH, kl_s2, ecfg.n_layers)):
@@ -4270,6 +4444,7 @@ def main() -> int:
     timed("build", phase_build)
     worst_fwd = timed("kernel", phase_kernel, kernel_cases())
     worst_bwd = timed("bwd kernel", phase_bwd_kernel, kernel_cases(kl_t))
+    mask = timed("mask soundness", phase_mask_soundness)
 
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
@@ -4288,7 +4463,8 @@ def main() -> int:
 
     params, counts, step_s = timed("train", phase_train, cfg, sft, rl_plans)
     timed("determinism", phase_determinism, cfg, params,
-          [("packed", sft[0]), ("waves", first_wave_plan(cfg))])
+          [("packed", sft[0]), ("waves", first_wave_plan(cfg))],
+          "determinism", True)
     params, wave_w, wave_launches, wave_n, wave_pad, _, _ = timed(
         "waves", phase_waves, cfg, params)
     timed("train parity", phase_train_parity, cfg, params)
@@ -4361,6 +4537,7 @@ def main() -> int:
                  replaces=replaces, launches=counts[name], max_abs_err=err,
                  **timing[key], instances=INSTANCES.get(file, {}))
         e["shape"] = "T: the first train step's rows, bf16, hd 128"
+        e["mask_soundness"] = mask
         e["wave"] = dict(
             shape=f"W: a gateway wave of the waves phase, "
                   f"{wave_w.batch['tokens'].shape[0]} rows of {TRAIN_SEQ}, "
@@ -4430,6 +4607,10 @@ def main() -> int:
                             for a in (ENCDEC_ARCH, VLM_ARCH)},
             train_layers={a: mm["runs"][a]["layers"]
                           for a in (ENCDEC_ARCH, VLM_ARCH)},
+            train_remat={a: mm["runs"][a]["remat"]
+                         for a in (ENCDEC_ARCH, VLM_ARCH)},
+            train_peak_gb={a: mm["runs"][a]["peak_gb"]
+                           for a in (ENCDEC_ARCH, VLM_ARCH)},
             V=dict(shape=f"V: the {mm['runs'][VLM_ARCH]['layers']}-layer "
                          f"{VLM_ARCH} step's rows, B {mm['shapes']['V'][0]}, "
                          f"S {mm['shapes']['V'][1]} (576 patches + "

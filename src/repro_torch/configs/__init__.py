@@ -5,7 +5,7 @@ in the reference's order.  Each module exposes
 variant for CPU tests).  ``long_context_variant`` is the reference's
 sliding-window variant.  The reference's ``supports_long_decode`` /
 ``supports_shape`` and ``INPUT_SHAPES`` serve its dry-run tooling, which
-is not ported yet (ROADMAP.md Queue A item 7)."""
+is not ported yet (ROADMAP.md Queue A item 7f)."""
 from __future__ import annotations
 
 import dataclasses

@@ -31,14 +31,16 @@ verifies the online plan path reproduces the offline ``loss_mode="rl"``
 gradients to ≤1e-6 max-rel.  ``--ckpt-every``/``--resume`` give the
 long-running service a mid-stream restart point.  It runs on ``cuda``
 unless ``--device`` names another device; ``--impl kernel`` (the default)
-runs the hand-written CUDA kernels there.
+runs the hand-written CUDA kernels there, ``--impl chunked`` the
+online-softmax scan over key chunks and ``--impl ref`` the
+materialized-mask attention (both plain torch ops).
 
 Before the store and the generation thread start, ``main`` builds every
 kernel, runs one probe rollout group and two ``engine.warmup`` passes on
 copies of the parameters and optimizer state, and reports the seconds;
 on the card it then empties the allocator's cache, and after the loop it
 reports the reserved and free device memory and the cache flushes.
-Not ported (ROADMAP.md Queue A item 7): the reference's AOT executable
+Not ported (ROADMAP.md Queue A item 7c): the reference's AOT executable
 warm-up and ``--compile-cache-dir``.
 
 ``main`` returns the run's record (per-step metrics and the loop's
@@ -171,16 +173,19 @@ def main(argv=None) -> dict:
                          "ahead of the weights it samples (the staleness "
                          "bound)")
     ap.add_argument("--temperature", type=float, default=1.0)
-    ap.add_argument("--impl", default="kernel", choices=["ref", "kernel"],
+    ap.add_argument("--impl", default="kernel",
+                    choices=["ref", "chunked", "kernel"],
                     help="kernel (default): the hand-written CUDA kernels, "
-                         "their plain versions on a CPU device; ref: the "
-                         "dense-mask attention, kept as the comparator")
+                         "their plain versions on a CPU device; chunked: "
+                         "the online-softmax scan over key chunks (plain "
+                         "torch); ref: the dense-mask attention, kept as "
+                         "the comparator")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-grads", action="store_true",
                     help="verify online vs offline RL gradients at exit")
     ap.add_argument("--compile-cache-dir", default=None,
-                    help="not ported (ROADMAP.md Queue A item 7): refused")
+                    help="not ported (ROADMAP.md Queue A item 7c): refused")
     ap.add_argument("--save", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None)
     ap.add_argument("--resume", default=None)
@@ -190,7 +195,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.compile_cache_dir is not None:
         ap.error("--compile-cache-dir: the persistent compilation cache is "
-                 "not ported (ROADMAP.md Queue A item 7, tooling)")
+                 "not ported (ROADMAP.md Queue A item 7c, tooling)")
     if args.ckpt_every is not None and not args.save:
         ap.error("--ckpt-every needs --save (the checkpoint directory)")
 

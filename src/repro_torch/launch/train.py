@@ -12,9 +12,10 @@ Every step is an ``ExecutionPlan`` from the plan-ahead scheduler
 ``train/engine.TreeTrainEngine.step``; each step performs exactly one host
 sync (the logging transfer).  ``--impl kernel`` (the default) runs the
 hand-written CUDA kernels on the card (their plain versions on the CPU),
-``--impl ref`` the materialized-mask attention.  ``--loss-mode rl`` trains
-the RL model-update objective on GRPO trees.  It runs on ``cuda`` unless
-``--device`` names another device.
+``--impl chunked`` the online-softmax scan over key chunks and ``--impl
+ref`` the materialized-mask attention (both plain torch ops).
+``--loss-mode rl`` trains the RL model-update objective on GRPO trees.
+It runs on ``cuda`` unless ``--device`` names another device.
 
 ``--auto-partition`` routes trees larger than one row through
 Redundancy-Free Tree Partitioning (partition waves, ``--capacity`` token
@@ -28,7 +29,7 @@ ends with a ``partitioned: ... dropped`` line:
 prefix into one grafted forest (``core/forest``; pair with ``--kind
 template``).
 
-Not ported (ROADMAP.md Queue A item 7): ``--aot-warmup``,
+Not ported (ROADMAP.md Queue A items 7c and 7e): ``--aot-warmup``,
 ``--warmup-threads``, ``--compile-cache-dir`` and ``--mesh``.
 """
 from __future__ import annotations
@@ -69,10 +70,13 @@ def main(argv=None) -> None:
                     help="background plan-builder threads (double-"
                          "buffered against engine.step; 0 = synchronous)")
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--impl", default="kernel", choices=["ref", "kernel"],
+    ap.add_argument("--impl", default="kernel",
+                    choices=["ref", "chunked", "kernel"],
                     help="kernel (default): the hand-written CUDA kernels, "
-                         "their plain versions on a CPU device; ref: the "
-                         "dense-mask attention, kept as the comparator")
+                         "their plain versions on a CPU device; chunked: "
+                         "the online-softmax scan over key chunks (plain "
+                         "torch); ref: the dense-mask attention, kept as "
+                         "the comparator")
     ap.add_argument("--loss-mode", default="sep_avg",
                     choices=["sep_avg", "uniform", "rl"],
                     help="sep_avg: λ_t = g_t/K (SFT, Eq. 4); uniform: "

@@ -6,16 +6,19 @@ per-key bound ``kv_last``: visible(i, j) ⇔ j ≤ i ∧ kv_last[j] ≥ i, and w
 a window also pos_i − pos_j < window.
 
 Implementations of ``attention``:
-  - 'ref'    : materialized mask (the reference's oracle path);
-  - 'kernel' : ``kernels/ops.tree_attention`` — the hand-written CUDA kernel
-               for tensors on the card, its plain version on the CPU.  The
-               counterpart of the reference's 'pallas'.
+  - 'ref'     : materialized mask (the reference's oracle path);
+  - 'chunked' : an online softmax over key chunks in plain torch ops, the
+                reference's ``_attend_chunked`` (:104): memory O(S·chunk)
+                in the forward, no kernel;
+  - 'kernel'  : ``kernels/ops.tree_attention`` — the hand-written CUDA
+                kernel for tensors on the card, its plain version on the
+                CPU.  The counterpart of the reference's 'pallas'.
 The encoder's bidirectional attention (keys masked by ``valid`` only, no
-RoPE) and the cross-attention over pre-projected encoder K/V are the
-plain softmax under either impl, as the reference's 'pallas' path takes
-its oracle for them; in training their scores are recomputed in the
-backward (``ssm.common.checkpointed``).  The reference's 'chunked' XLA scan
-is not ported (ROADMAP.md Queue A item 7).
+RoPE) is the plain softmax under 'ref' and 'kernel', as the reference's
+'pallas' path takes its oracle for it, and the chunked scan under
+'chunked'; the cross-attention over pre-projected encoder K/V is the plain
+softmax under every impl.  In training the plain softmax's scores are
+recomputed in the backward (``ssm.common.checkpointed``).
 """
 from __future__ import annotations
 
@@ -98,6 +101,74 @@ def _attend_ref(q, k, v, bias, scale):
     return o.reshape(B, S, H, hd)
 
 
+def _chunk_len(Skv: int, kv_chunk: int) -> int:
+    """The reference's chunk choice: ``kv_chunk`` (at most Skv) if it
+    divides Skv; else the largest divisor of Skv within 4x below it (no
+    padding: 1032 → 516); else the power-of-two chunk ≥ kv_chunk/4 (at
+    least 8) that pads Skv least, the larger on a tie."""
+    kv_chunk = min(kv_chunk, Skv)
+    if Skv % kv_chunk == 0:
+        return kv_chunk
+    lo = max(kv_chunk // 4, 1)
+    div = next((d for d in range(kv_chunk, lo - 1, -1) if Skv % d == 0),
+               None)
+    if div is not None:
+        return div
+    cands = [c for c in (1 << i for i in range(3, kv_chunk.bit_length()))
+             if 4 * c >= kv_chunk] or [8]
+    return min(cands, key=lambda c: (-(-Skv // c) * c, -c))
+
+
+def _attend_chunked(q, k, v, i_idx, kv_last, pos_q, pos_k, window,
+                    bidirectional: bool, valid_k, scale, kv_chunk=1024):
+    """Online softmax over key chunks (``repro/models/attention.py:104``):
+    the running max, sum and f32 accumulator per query and head, rescaled
+    as each chunk arrives; a key past Skv (the chunk's padding) is
+    invisible.  i_idx [S] the queries' global indices; kv_last, pos_k,
+    valid_k [B, Skv]; pos_q [B, S].  ``bidirectional``: a key is visible
+    where ``valid_k`` holds, and nothing else is read.  A query that sees
+    no key at all gets the mean of the values, as the reference's does."""
+    B, S, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    C = _chunk_len(Skv, kv_chunk)
+    pad = -Skv % C
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_last = torch.nn.functional.pad(kv_last, (0, pad), value=-1)
+        pos_k = torch.nn.functional.pad(pos_k, (0, pad))
+        valid_k = torch.nn.functional.pad(valid_k, (0, pad), value=False)
+    qg = q.reshape(B, S, Kh, G, hd)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((B, Kh, G, S), NEG_INF, **f32)
+    l = torch.zeros((B, Kh, G, S), **f32)
+    acc = torch.zeros((B, Kh, G, S, hd), **f32)
+    for j0 in range(0, Skv + pad, C):
+        sl = slice(j0, j0 + C)
+        logits = torch.einsum("bikgd,bjkd->bkgij", qg,
+                              k[:, sl]).float() * scale
+        if bidirectional:
+            vis = valid_k[:, None, sl]
+        else:
+            jj = j0 + torch.arange(C, device=q.device)
+            vis = (jj[None, None, :] <= i_idx[None, :, None]) & \
+                  (kv_last[:, None, sl] >= i_idx[None, :, None])
+            if window is not None:
+                vis = vis & ((pos_q[:, :, None] - pos_k[:, None, sl])
+                             < window)
+        logits = logits + torch.where(vis, 0.0, NEG_INF)[:, None, None]
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgij,bjkd->bkgid", p.to(v.dtype), v[:, sl]).float()
+        m = m_new
+    o = acc / torch.clamp(l[..., None], min=1e-37)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
 def cross_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
@@ -137,8 +208,13 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
         return cross_attention(params, cfg, x, *cross_kv, cross_valid)
     q, k, v = _project_qkv(params, cfg, x)
     if bidirectional:
-        o = checkpointed(_attend_ref, q, k, v, _valid_bias(valid),
-                         _scale(cfg))
+        if impl == "chunked":
+            o = _attend_chunked(q, k, v, torch.arange(S, device=x.device),
+                                kv_last, pos_ids, pos_ids, None, True, valid,
+                                _scale(cfg))
+        else:
+            o = checkpointed(_attend_ref, q, k, v, _valid_bias(valid),
+                             _scale(cfg))
         return o.reshape(B, S, -1) @ params["wo"]
     q = rope(q, pos_ids, cfg.rope_theta)
     k = rope(k, pos_ids, cfg.rope_theta)
@@ -170,12 +246,28 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
         i_idx = q_off + torch.arange(S, device=x.device)
         bias = _tree_bias(i_idx, kl_all, pos_ids, pos_k, cfg.window)
         o = _attend_ref(q, k_all, v_all, bias, _scale(cfg))
+    elif impl == "chunked":
+        # the reference's keys (:246-253): its ancestors' validity (all
+        # valid without one) ahead of the row's own
+        valid_k = (torch.ones((B, S), dtype=torch.bool, device=x.device)
+                   if valid is None else valid.bool())
+        if extra_kv is not None:
+            anc_ok = extra_kv.get("valid")
+            if anc_ok is None:
+                anc_ok = torch.ones((B, q_off), dtype=torch.bool,
+                                    device=x.device)
+            valid_k = torch.cat([anc_ok.bool(), valid_k], dim=1)
+        o = _attend_chunked(q, k_all, v_all,
+                            q_off + torch.arange(S, device=x.device), kl_all,
+                            pos_ids, pos_k, cfg.window, False, valid_k,
+                            _scale(cfg))
     elif impl == "kernel":
         from repro_torch.kernels.ops import tree_attention
         o = tree_attention(q, k_all, v_all, kl_all, _scale(cfg), q_off=q_off,
                            window=cfg.window, pos_q=pos_ids, pos_k=pos_k)
     else:
-        raise ValueError(f"attention impl {impl!r}: 'ref' or 'kernel'")
+        raise ValueError(f"attention impl {impl!r}: 'ref', 'chunked' or "
+                         f"'kernel'")
     y = o.reshape(B, S, -1) @ params["wo"]
     if capture_idx is not None:
         return y, caps

@@ -113,10 +113,13 @@ def checkpointed(fn, *args):
     stashed).  The SSM layers' chunk terms hold [L, L] tensors per chunk
     and head, the plain encoder and cross-attention (``models/attention``)
     fp32 scores per query and key: kept for all layers of a full-width row
-    pair they would pass the card's memory.  Where no argument requires
-    grad (a decode step) nothing would be kept, and ``fn`` runs as it is."""
+    pair they would pass the card's memory; ``models/transformer`` wraps a
+    whole layer in one under ``remat="full"``.  Where no argument (nor any
+    tensor in a dict, list or tuple argument) requires grad (a decode
+    step) nothing would be kept, and ``fn`` runs as it is."""
     if not (torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in tree_leaves(args))):
         return fn(*args)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
                                              preserve_rng_state=False)

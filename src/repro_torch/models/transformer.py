@@ -17,10 +17,12 @@ instead of one zero-filled whole stack per layer.  The SSM layers
 ``prev_pows``, and in a partition their gateway state and conv or shift
 context.  An enc-dec model also holds ``encoder`` (one stacked group of
 bidirectional layers) and ``enc_norm``; each decoder layer also ``ln_x``
-and the cross block ``xattn``.  ``remat="full"`` raises (ROADMAP.md
-Queue A item 7).  The reference's ``shard_activation`` and
-``shard_logits`` are the identity without a device mesh, and the one-card
-port has none.
+and the cross block ``xattn``.  ``remat="full"`` recomputes each layer
+in the backward (the reference's ``jax.checkpoint`` on its scan body,
+:282-286): every layer that the reference scans, one at a time, but not
+the hybrid's shared block, which the reference applies outside its scan.
+The reference's ``shard_activation`` and ``shard_logits`` are the
+identity without a device mesh, and the one-card port has none.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.models.layers import (_dense_init, embed, init_embedding,
                                        init_lm_head, init_mlp, init_rmsnorm,
                                        mlp, rmsnorm, take_rows, token_nll)
 from repro_torch.models.moe import init_moe, moe
+from repro_torch.models.ssm.common import checkpointed
 from repro_torch.models.ssm.gdn import gdn, init_gdn
 from repro_torch.models.ssm.mamba2 import init_mamba2, mamba2
 from repro_torch.models.ssm.rwkv6 import (init_rwkv6_channelmix,
@@ -237,6 +240,19 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
     return x + m, aux, caps
 
 
+def _layer(cfg: ModelConfig, *args):
+    """``_apply_layer(cfg, *args)``, with ``remat="full"`` under a
+    non-reentrant checkpoint of its own (``ssm.common.checkpointed``): the
+    backward recomputes the layer from its input instead of keeping its
+    internals.  Where nothing it reads requires grad (a decode step, a
+    prefill, a forward sweep under ``no_grad``) the layer runs as it is."""
+    if cfg.remat == "full":
+        return checkpointed(_apply_layer, cfg, *args)
+    if cfg.remat != "none":
+        raise ValueError(f"remat={cfg.remat!r}: 'none' or 'full'")
+    return _apply_layer(cfg, *args)
+
+
 def _unstack(tree, n: int) -> list:
     """All ``n`` layers of a stacked group, one ``torch.unbind`` per leaf:
     views, so a decode step's in-place cache writes land in the stack.
@@ -292,8 +308,7 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
         gws = [None] * n if gw is None else _unstack(gw, n)
         caps = []
         for lp, gl in zip(_unstack(stacked, n), gws):
-            x, a, c = _apply_layer(cfg, lp, kind, x, meta, impl, gl,
-                                   capspecs)
+            x, a, c = _layer(cfg, lp, kind, x, meta, impl, gl, capspecs)
             if a is not None:
                 aux = aux + a
             caps.append(c)
@@ -344,7 +359,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
                 valid=valid)
     x = frames.to(_dtype(cfg))
     for lp in _unstack(params["encoder"], cfg.encdec.enc_layers):
-        x, _, _ = _apply_layer(cfg, lp, "encoder", x, meta, impl)
+        x, _, _ = _layer(cfg, lp, "encoder", x, meta, impl)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps), valid
 
 
@@ -356,10 +371,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     batch's ``extra_embeds`` [B, F, D] are a prefix of every row, sliced
     off the hidden states again; an audio batch's are the encoder's
     frames (``extra_valid`` [B, F] masks them, all valid by default)."""
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet; see ROADMAP.md Queue A "
-            f"item 7")
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
                                   "chunk_parent", "prev_pows") if k in batch}
     x = embed(params["embed"], batch["tokens"])
@@ -379,7 +390,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
         for stacked, (kind, n) in zip(params["layer_stacks"],
                                       layer_groups(cfg)):
             for lp in _unstack(stacked, n):
-                x, a, _ = _apply_layer(cfg, lp, kind, x, meta, impl)
+                x, a, _ = _layer(cfg, lp, kind, x, meta, impl)
                 if a is not None:
                     aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -407,8 +418,8 @@ def _hybrid_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
     for si, i in enumerate(range(0, n, cfg.hybrid.attn_every)):
         j = i + cfg.hybrid.attn_every
         for lp, gl in zip(layers[i:j], gws[i:j]):
-            x, _, c = _apply_layer(cfg, lp, "mamba2", x, meta, impl, gl,
-                                   capspecs)
+            x, _, c = _layer(cfg, lp, "mamba2", x, meta, impl, gl,
+                             capspecs)
             caps.append(c)
         h_in = (torch.cat([x, emb0], dim=-1) @ params["shared_in"]
                 if cfg.hybrid.concat_embed else x)

@@ -205,7 +205,7 @@ class DecodeSession:
         ``tokens``: 1-D [P] (the same prefix for every branch).  May be
         called again on a session that holds context (e.g. after fork):
         the new tokens extend the chain, attending to the cached slots.
-        ``impl``: 'kernel' (the tree-attention op) or 'ref'."""
+        ``impl``: 'kernel' (the tree-attention op), 'chunked' or 'ref'."""
         toks = np.asarray(tokens, np.int32).reshape(-1)
         P = toks.shape[0]
         if P == 0:

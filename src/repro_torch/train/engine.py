@@ -17,7 +17,7 @@ engine audits each plan's off-policy lag and publishes the updated weights
 after every step: a device copy, no host sync.
 
 Not ported: the AOT executable cache and signature universe
-(``exec_lookup``; ROADMAP.md Queue A item 7).
+(``exec_lookup``; ROADMAP.md Queue A item 7c).
 """
 from __future__ import annotations
 

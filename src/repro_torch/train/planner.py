@@ -43,7 +43,7 @@ stub frontend embeddings drawn as the reference's planner draws them,
 ``np.random.default_rng([seed, 7919, step index])``.
 
 Not ported: the AOT warmup hook (``plans(..., warmup=)``: ROADMAP.md Queue A
-item 7).
+item 7c).
 """
 from __future__ import annotations
 

@@ -76,7 +76,7 @@ def nemotron(cs, tag: str, steps: int) -> None:
 
 def phi3_train(cs, tag: str, steps: int) -> None:
     if hasattr(cs, "vlm_train_cut"):
-        cfg, _ = cs.vlm_train_cut()
+        cfg = cs.vlm_train_cut()[0]
         sft, rl = cs.mm_train_plans(cfg, steps, 2)
     else:
         full = cs.get_config(cs.VLM_ARCH)

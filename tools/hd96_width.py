@@ -253,7 +253,7 @@ def main() -> int:
                 st.callback(ta.HOPPER_PATH_HEAD_DIMS.update, saved)
             yield
 
-    vcfg, _ = cs.vlm_train_cut()
+    vcfg = cs.vlm_train_cut()[0]
     plan = cs.train_plans(vcfg, "agentic", "sep_avg", 1, gen=cs.MM_TRAIN_GEN,
                           trees=cs.MM_TRAIN_TREES)[0]
     kl_v = cs.prefix_kv_last(np.asarray(plan.packed.inputs["kv_last"]),
