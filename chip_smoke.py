@@ -12,6 +12,11 @@ Phases, each of which ends the run non-zero if it fails:
                   counts; each Hopper instance (bf16: the three kernels
                   at hd 64, 128 and 192) must be there, show both and
                   spill nothing.
+ 1a. warm restart — ``python -m repro_torch.train.warmup --persist-probe``
+                  over the build directory phase 1 filled, in a fresh
+                  process: 0 new files there (nothing rebuilt), a tiny
+                  plan stream prewarmed, one engine step with 0 retraces;
+                  its first step's ms and its wall printed.
   2. kernel     — hold the forward kernel against its plain PyTorch version
                   on the card, computed in f32 from the same inputs (o and
                   lse at 1e-4; a bf16 o within its rounding: 2^-7 of it plus
@@ -77,6 +82,10 @@ Phases, each of which ends the run non-zero if it fails:
                   and remat), one host sync (audited in 'warn' and in
                   'error' mode), trees packed, partitioned and dropped
                   (0); Σ unique tokens equals the generated trees'.
+                  The last step's plan once more through an engine with
+                  the executable cache, prewarmed as ``plans(...,
+                  warmup=)`` prewarms it: grads and scalars torch.equal to
+                  the uncached engine's, 0 retraces.
   9. train parity — (a) 4 layers f32, kernel vs plain attention: loss 1e-5
                   relative, grads max-rel 1e-4; (b) the same through the
                   kernels, tree vs per-branch baseline (Eq. 5), same limits;
@@ -101,7 +110,8 @@ Phases, each of which ends the run non-zero if it fails:
                   1024, K 8, 2 rows of 4096, lookahead 1, --check-grads;
                   --groups and --max-new chosen so that a train step takes
                   at least 1.2x a step's generation, reckoned from phases 4
-                  and 6 (both printed).  At --max-ahead 1 for 6 steps (steps
+                  and 6 (both printed; a group's fixed cost is its prefill,
+                  its decode graphs being captured before the loop).  At --max-ahead 1 for 6 steps (steps
                   3-4 profiled with both threads live: device-busy share,
                   kernel time by family and by stream, the longest idle
                   gaps), then on-policy at --max-ahead 0 for 3 steps; the
@@ -114,14 +124,20 @@ Phases, each of which ends the run non-zero if it fails:
                   launches 28 forwards a group prefill and no backward.
                   0 dropped, lag within max_ahead + lookahead - 1, the
                   launcher's overlap check, and no step's peak more than
-                  one weight snapshot above step 1's.  After each group the
-                  CUDA-graph pools (the allocator's segments outside its
-                  default pool) hold the bytes they held after the first:
-                  a group's graph memory goes with its session.  The
-                  allocator never flushed its cache in the loop (while a
-                  decode graph captures it cannot, and would raise out of
-                  memory instead); reserved and free device memory after
-                  the loop are printed.
+                  one weight snapshot above step 1's.  The launcher's
+                  warm-up (its seconds printed) captures the decode graphs
+                  of the loop's shape through the generator's GraphPool and
+                  parameter buffer and prewarms the probe window's
+                  executables: in the loop 0 decode-graph captures (every
+                  group leases the graphs) and 0 engine retraces; the
+                  captures before the loop and the generation seconds a
+                  group are printed.  After each group the CUDA-graph pools
+                  (the allocator's segments outside its default pool) hold
+                  the bytes they held after the first.  The allocator never
+                  flushed its cache in the loop (while a decode graph
+                  captures it cannot, and would raise out of memory
+                  instead); reserved and free device memory after the loop
+                  are printed.
  11b. rl parity — (a) a frozen rollout group's online plan-path grads vs the
                   offline RL grads: full depth bf16 (11a's --check-grads) and
                   4 layers f32, each ≤ 1e-6 max-rel; (b) a sampled group
@@ -137,7 +153,10 @@ Phases, each of which ends the run non-zero if it fails:
                   was still queued after the two steps; the same with
                   ``record_stream`` disabled is printed as a control; (c)
                   after every publish the snapshot equals the trainer's
-                  params.
+                  params.  The five groups share one GraphPool and
+                  parameter buffer: (b)'s concurrent group captures the
+                  decode graph (1 capture), the other four replay it (4
+                  leases).
 Then the MoE model, Qwen3-30B-A3B (H 32, Kh 4, 128 experts top-8), once
 the dense model's tensors are freed:
  12. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
@@ -239,7 +258,9 @@ each at full width and depth, once the other archs' tensors are freed:
  30a. zamba2 rl loop — phase 11a at Zamba2-1.2B's full width and depth
                   (prompt 512, K 8, 32 new tokens, 1 group, 3 steps,
                   --max-ahead 1): no kernel launch in generation (its
-                  sessions step the prompt), 7 of each kernel a train step.
+                  sessions step the prompt: the warm-up captures a batch-1
+                  and a batch-K decode graph, the loop none), 7 of each
+                  kernel a train step.
  31. timing H 32/Kh 32 hd 64 — phase 11's timing at the prefill and at
                   the chunk-padded train rows, with the attention share of
                   a Zamba2 step.
@@ -315,6 +336,7 @@ import dataclasses
 import gzip
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -367,6 +389,7 @@ from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          init_opt_state)
 from repro_torch.train.planner import PlannerConfig, plans  # noqa: E402
 from repro_torch.train.train_step import update, value_and_grad  # noqa: E402
+from repro_torch.train.warmup import AOTWarmupService  # noqa: E402
 
 BIG = 1 << 30
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
@@ -955,6 +978,36 @@ def phase_build() -> float:
     log(f"build: {len(SOURCES)} sources, one nvcc {' '.join(build.NVCC_FLAGS)}"
         f" each, all started together: {total:.2f} s in all")
     return total
+
+
+def phase_warm_restart() -> dict:
+    """A fresh process over the build directory ``phase_build`` filled
+    (``python -m repro_torch.train.warmup --persist-probe``): it must build
+    nothing (0 new files there), prewarm a tiny plan stream and run one
+    engine step with 0 retraces.  Returns the probe's record."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.train.warmup",
+                        "--persist-probe", str(build.BUILD_DIR)], env=env,
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"warm restart: the probe failed "
+                             f"({r.returncode}): {r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"warm restart: a fresh process over {out['cache_dir']}: "
+        f"{out['new_cache_files']} new files, {out['aot_executables']} "
+        f"executables made in {out['compile_s']} s (prewarm "
+        f"{out['prewarm_s']} s), {out['retraces']} retraces, first engine "
+        f"step {out['step1_ms']} ms, loss {out['loss']:.4f}; the probe "
+        f"{out['wall_s']} s, the process {wall:.2f} s with its start and "
+        f"imports")
+    check(out["new_cache_files"] == 0,
+          f"warm restart: {out['new_cache_files']} new files in the build "
+          f"directory")
+    check(out["retraces"] == 0, f"warm restart: {out['retraces']} retraces")
+    check(math.isfinite(out["loss"]), "warm restart: non-finite loss")
+    return out
 
 
 def phase_kernel(cases, with_prefill_attention: bool = True) -> float:
@@ -1937,7 +1990,8 @@ def wave_pads(plan) -> tuple[int, int]:
 
 
 def phase_waves(cfg, params, tag: str = "waves",
-                batches: int = WAVE_BATCHES, profile: bool = True):
+                batches: int = WAVE_BATCHES, profile: bool = True,
+                cached: bool = False):
     """``cfg`` (Qwen2-1.5B; an SSM arch at full depth) trained through
     ``plans`` on trees larger than a row:
     auto partition, auto capacity, lookahead 2, grafting on, the plans
@@ -1948,7 +2002,10 @@ def phase_waves(cfg, params, tag: str = "waves",
     one a layer or one a use of the hybrid's shared block: forward 2 a
     wave, sweep and remat), host syncs (one; step 1 audited in 'warn' mode,
     step 2 in 'error' mode), trees packed, partitioned and dropped (0).
-    Token conservation over the stream.  Returns (params, the gateway
+    Token conservation over the stream.  With ``cached``, the last step's
+    plan once more through an engine with the executable cache, the plan
+    prewarmed (``AOTWarmupService.prewarm``): its grads and scalars
+    ``torch.equal`` to the uncached engine's, 0 retraces.  Returns (params, the gateway
     wave with the largest A_max (of those, the most padded ancestor
     slots), the kernel launches of its step, the step's wave count, the
     gateway wave with the most padded ancestor slots, the launches of
@@ -2041,6 +2098,8 @@ def phase_waves(cfg, params, tag: str = "waves",
         f"{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}; step 2 "
         f"under set_sync_debug_mode('error') outside _sync: passed")
     check(not hidden, "a wave step synchronized outside _sync")
+    if cached:
+        phase_cached_step(cfg, lc, pc, params, ps, engine, tag)
     pad_txt = f"chunk padding {share(pads_all, cells_all)} of the cells; " \
         if chunked else ""
     log(f"{tag}: {engine.steps_done} steps, {trees} trees ({oversized} "
@@ -2072,6 +2131,35 @@ def phase_waves(cfg, params, tag: str = "waves",
     torch.cuda.empty_cache()
     return (params, best[1], best[2], best[3], padded[1], deltas,
             statistics.median(times))
+
+
+def phase_cached_step(cfg, lc, pc, params, ps, engine, tag: str) -> None:
+    """``ps``'s plan through an engine with the executable cache, the plan
+    prewarmed as ``plans(..., warmup=)`` prewarms it, and through the
+    uncached ``engine``: grads and scalars ``torch.equal``, 0 retraces."""
+    plan = ps.execution_plan()
+    t0 = time.perf_counter()
+    svc = AOTWarmupService(cfg, lc, pc, params=params,
+                           opt_cfg=engine.opt_cfg)
+    new = svc.prewarm(step=ps)
+    prewarm_s = time.perf_counter() - t0
+    eng = TreeTrainEngine(cfg, engine.opt_cfg, exec_cache=svc.cache,
+                          universe=svc.universe)
+    g_c, s_c = eng.accumulate(params, plan)
+    g_u, s_u = engine.accumulate(params, plan)
+    diff = differing(g_c, g_u)
+    same_s = torch.equal(s_c, s_u)
+    n = len(flatten_tree(g_u))
+    del g_c, g_u
+    log(f"{tag}: the last step's plan ({plan.num_executions} executions) "
+        f"through an engine with the executable cache, prewarmed ({new} "
+        f"executables in {prewarm_s:.3f} s): {eng.retraces} retraces, "
+        f"{n - len(diff)} of {n} grad leaves and the scalars "
+        f"{'' if same_s else 'not '}torch.equal to the uncached engine's")
+    check(not diff and same_s, f"{tag}: the cached engine's grads differ: "
+                               f"{diff[:4]}")
+    check(eng.retraces == 0 and not svc.errors,
+          f"{tag}: {eng.retraces} retraces after prewarm, {svc.errors[:2]}")
 
 
 def parity_tree(cfg):
@@ -2334,44 +2422,49 @@ def graph_pool_bytes() -> tuple[int, int]:
 
 def rl_shape(tm: dict, step_s: float) -> tuple:
     """(groups, max_new, predicted generation seconds a step, a group's
-    fixed s, a new token's s): the most generation a step whose groups take
-    at most 1/RL_TRAIN_OVER_GEN of a train step, reckoned from this run's
-    serve phase and train phase (the median step).  A group costs its
-    prefill (the session's 1024-token prefill) and the extra time of its
-    first decode step, which captures the session's graph (the session's
-    first step less its mean replayed step), then a new token's time, from
-    the median of the serve phase's groups of 64 new tokens.  Where no
-    shape meets the rule (a slow host), the smallest runs and the reading
-    is printed."""
+    fixed s, a new token's s, a capture's s): the most generation a step
+    whose groups take at most 1/RL_TRAIN_OVER_GEN of a train step,
+    reckoned from this run's serve phase and train phase (the median
+    step).  In the loop a group costs its prefill (the session's
+    1024-token prefill) and then a new token's time: its decode graphs
+    were captured before the loop (``rl_loop._warm``), and its lease's one
+    copy of the cache is left in the token time.  A new token's time is
+    the median of the serve phase's groups of 64 new tokens less their
+    prefill and their capture (a serve session captures its own graph:
+    its first step less its mean replayed step).  Where no shape meets the
+    rule (a slow host), the smallest runs and the reading is printed."""
     prefill_s = tm["first_prefill_s"] * RL_PROMPT / 1024
     n = tm["decode_tok"] // RL_K
     capture_s = tm["first_decode_s"] - (
         tm["decode_s"] - tm["first_decode_s"]) / (n - 1)
-    fixed_s = prefill_s + capture_s
-    tok_s = max(tm["group_s"] - fixed_s, 0.0) / 63
+    fixed_s = prefill_s
+    tok_s = max(tm["group_s"] - prefill_s - capture_s, 0.0) / 63
     for groups in (2, 1):
         for max_new in RL_MAX_NEW:
             gen_s = groups * (fixed_s + (max_new - 1) * tok_s)
             if (RL_TRAIN_OVER_GEN * gen_s <= step_s
                     and RL_PROMPT + RL_K * max_new <= TRAIN_SEQ):
-                return groups, max_new, gen_s, fixed_s, tok_s
-    return 1, RL_MAX_NEW[-1], gen_s, fixed_s, tok_s
+                return groups, max_new, gen_s, fixed_s, tok_s, capture_s
+    return 1, RL_MAX_NEW[-1], gen_s, fixed_s, tok_s, capture_s
 
 
 def run_rl(cfg, argv: list, tag: str, profile=None) -> tuple:
     """``rl_loop.main(argv)`` with the kernels' launches counted per
     thread, the synchronizing calls counted per thread and each step
     audited (``StepAudit``), and the graph pools' bytes read after each
-    rollout group in the generator's thread.  Prints a line a step and the
-    generator's totals; returns (main's record, the step rows, the
-    generator's launches, the audit)."""
+    rollout group in the generator's thread.  Prints a line a step, the
+    generator's totals and the warm-up's (seconds, decode graphs captured
+    before the loop, generation seconds a group); requires 0 decode-graph
+    captures and 0 engine retraces in the loop and 0 cache flushes.
+    Returns (main's record, the step rows, the generator's launches, the
+    audit)."""
     counters = {name: ThreadCount() for name in KERNELS}
     for name, fn in KERNELS.items():
         fn.launches = counters[name]
     group, pools = service.rollout_group, []
 
     def pooled(*args, **kw):
-        out = group(*args, **kw)        # its sessions are gone on return
+        out = group(*args, **kw)        # its sessions are closed on return
         pools.append(graph_pool_bytes())
         return out
 
@@ -2408,6 +2501,14 @@ def run_rl(cfg, argv: list, tag: str, profile=None) -> tuple:
         f"tokens, {res['plans_built']} plans built "
         f"({res['plan_build_s'] * 1e3:.1f} ms), warm-up "
         f"{res['warmup_s']:.2f} s")
+    log(f"{tag}: warm-up {res['warmup_s']:.3f} s, {res['captures_before']} "
+        f"decode graphs captured before the loop, {res['captures_in_loop']} "
+        f"in it, {res['reuses']} leases; engine retraces "
+        f"{res['retraces']}, exposed compile wait "
+        f"{res['compile_wait_s'] * 1e3:.1f} ms, {res['prewarmed']} "
+        f"executables prewarmed; generation {st.gen_busy_s * 1e3:.1f} ms "
+        f"over {st.trees_generated} groups: "
+        f"{st.gen_busy_s / max(st.trees_generated, 1):.4f} s a group")
     mem = res["memory"]
     log(f"{tag}: graph pools after each of {len(pools)} groups (MB in use, "
         f"reserved): {[(u / 1e6, h / 1e6) for u, h in pools]}; device "
@@ -2421,6 +2522,9 @@ def run_rl(cfg, argv: list, tag: str, profile=None) -> tuple:
     check(mem["cache_flushes"] == 0,
           f"{tag}: the allocator flushed its cache {mem['cache_flushes']} "
           f"times in the loop")
+    check(res["captures_in_loop"] == 0 and res["retraces"] == 0,
+          f"{tag}: {res['captures_in_loop']} decode-graph captures and "
+          f"{res['retraces']} retraces in the loop")
     for m, row in zip(res["history"], audit.rows):
         check(row["syncs"] == 1 and row["host_syncs"] == 1,
               f"{tag} step {m['step']}: {row['syncs']} synchronizing calls "
@@ -2445,11 +2549,12 @@ def phase_rl_loop(cfg, tm: dict, step_s: float) -> dict:
     ``rl_loop.main``: at --max-ahead 1 (RL_LOOP_STEPS steps, the gradient
     check, a profiled window of two steps in the middle) and on-policy at
     --max-ahead 0 (RL_LOOP_STEPS_A0 steps)."""
-    groups, max_new, gen_s, fixed_s, tok_s = rl_shape(tm, step_s)
+    groups, max_new, gen_s, fixed_s, tok_s, capture_s = rl_shape(tm, step_s)
     log(f"rl loop: this run's serve phase: a group (prompt {RL_PROMPT}, k "
         f"{RL_K}, 64 new tokens) {tm['group_s']:.3f} s, of which the "
-        f"prefill and the graph capture {fixed_s:.4f} s, a new token "
-        f"{tok_s * 1e3:.2f} ms; train phase: "
+        f"prefill {fixed_s:.4f} s (a group's fixed cost in the loop, whose "
+        f"decode graphs are captured before it) and the graph capture "
+        f"{capture_s:.4f} s, a new token {tok_s * 1e3:.2f} ms; train phase: "
         f"step {step_s:.3f} s; chosen {groups} groups x {max_new} new "
         f"tokens: generation {gen_s:.3f} s a step, train/generation "
         f"{step_s / gen_s:.2f} (want >= {RL_TRAIN_OVER_GEN}"
@@ -2504,16 +2609,19 @@ def phase_rl_loop(cfg, tm: dict, step_s: float) -> dict:
                 rows0=rows0, gen0=gen0, wall=(w1, w0))
 
 
-def sampled_group(cfg, store, prompt, seed: int, out: dict, got,
-                  greedy: bool = False, early=None) -> None:
+def sampled_group(cfg, store, prompt, seed: int, out: dict, got, pool,
+                  buf, greedy: bool = False, early=None) -> None:
     """One group of RL_K branches and RL_PARITY_NEW tokens (sampled at
     temperature 1 by a generator seeded ``seed``, or ``greedy``) from
     ``store``'s snapshot, read on a stream of its own as the service's
-    generator reads it; sets ``got`` once it holds the snapshot.  The
-    thread drops its references to the snapshot before it reads the
-    results back.  With ``early`` (two events), the stream sleeps
-    RL_HOLD_CYCLES after the prefill, so that every decode step's reads
-    are still queued when the thread drops the snapshot; it then sets
+    generator reads it: the snapshot is copied into the parameter buffer
+    ``buf``, and the sessions lease their decode graphs from ``pool``
+    (``GraphPool``: the first group captures them, every later one
+    replays them); sets ``got`` once it holds the snapshot.  The thread
+    drops its references to the snapshot before it reads the results
+    back.  With ``early`` (two events), the stream sleeps RL_HOLD_CYCLES
+    before the copy, so that the snapshot's read (and every step after
+    it) is still queued when the thread drops the snapshot; it then sets
     ``early[0]``, waits for ``early[1]`` and records in ``out["queued"]``
     whether its work is still queued.  Puts the snapshot's version, every
     prefill and decode logit and the tokens into ``out`` (or the error)."""
@@ -2523,15 +2631,16 @@ def sampled_group(cfg, store, prompt, seed: int, out: dict, got,
         with torch.cuda.stream(stream), torch.inference_mode():
             params, out["version"] = store.get()
             got.set()
+            if early is not None:
+                torch.cuda._sleep(RL_HOLD_CYCLES)
+            service.copy_into(buf, params)
             gen = torch.Generator(DEV).manual_seed(seed)
-            sess = DecodeSession.create(cfg, params,
+            sess = DecodeSession.create(cfg, buf,
                                         buf_len=RL_PROMPT + RL_PARITY_NEW,
-                                        graph_pool=GraphPool())
+                                        graph_pool=pool)
             lg = sess.prefill(prompt)
             logits = [lg]
             br = sess.fork(RL_K)
-            if early is not None:
-                torch.cuda._sleep(RL_HOLD_CYCLES)
             tok = sample_tokens(lg.expand(RL_K, -1), cfg.vocab_size, gen,
                                 temp)
             toks = [tok]
@@ -2541,6 +2650,8 @@ def sampled_group(cfg, store, prompt, seed: int, out: dict, got,
                 tok = sample_tokens(lg, cfg.vocab_size, gen, temp)
                 toks.append(tok)
             tokens = torch.stack(toks, 1)
+            sess.close()
+            br.close()
             del params, sess, br
             if early is not None:
                 early[0].set()
@@ -2556,11 +2667,12 @@ def sampled_group(cfg, store, prompt, seed: int, out: dict, got,
             early[0].set()
 
 
-def group_thread(cfg, store, prompt, seed: int, out: dict, **kw):
+def group_thread(cfg, store, prompt, seed: int, out: dict, pool, buf,
+                 **kw):
     got = threading.Event()
     t = threading.Thread(target=sampled_group, name=RL_GEN_THREAD,
-                         args=(cfg, store, prompt, seed, out, got),
-                         kwargs=kw)
+                         args=(cfg, store, prompt, seed, out, got, pool,
+                               buf), kwargs=kw)
     t.start()
     got.wait(120)
     return t
@@ -2596,7 +2708,10 @@ def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
     reads are queued and the trainer publishes twice, against the greedy
     group alone, and the same under ``NoRecordStream`` as a control; (c)
     after every publish the store's snapshot equals the trainer's
-    parameters (``torch.equal`` on every leaf)."""
+    parameters (``torch.equal`` on every leaf).  The groups run one after
+    another through one ``GraphPool`` and parameter buffer, as the loop's
+    generator does: (b)'s concurrent group captures the decode graph and
+    the four later groups replay it."""
     log(f"rl parity (a): full depth bf16, frozen rollout group at the rl "
         f"loop's final weights: max-rel {grad_err:.3e} (bar 1e-6)")
     cfg4 = cfg.replace(n_layers=PARITY_LAYERS, dtype="float32")
@@ -2627,6 +2742,8 @@ def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
         weight_store=store)
     prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, RL_PROMPT)
     same = []
+    with torch.inference_mode():
+        pool, buf = GraphPool(), map_tree(torch.empty_like, params)
 
     def stepped():
         nonlocal params, opt_state
@@ -2639,7 +2756,7 @@ def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
     stepped()               # publishes v1; its copy may still be queued
     side = {}
     t0 = time.perf_counter()
-    thread = group_thread(cfg, store, prompt, 7, side)
+    thread = group_thread(cfg, store, prompt, 7, side, pool, buf)
     keep = map_tree(torch.clone, store.get()[0])
     t1 = time.perf_counter()
     for _ in range(RL_PARITY_STEPS):
@@ -2656,7 +2773,7 @@ def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
         ev = (threading.Event(), threading.Event())
         with fault() if fault else contextlib.nullcontext():
             thread = group_thread(cfg, engine.weight_store, prompt, 7, out,
-                                  greedy=True, early=ev)
+                                  pool, buf, greedy=True, early=ev)
             ev[0].wait(120)             # its last reference is gone
             for _ in range(2):          # the store drops v1; allocations
                 stepped()
@@ -2667,9 +2784,10 @@ def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
     del params, opt_state, engine, store
     torch.cuda.empty_cache()
     alone, greedy = {}, {}
-    group_thread(cfg, WeightStore(keep), prompt, 7, alone).join(300)
+    group_thread(cfg, WeightStore(keep), prompt, 7, alone, pool,
+                 buf).join(300)
     check("error" not in alone, f"rl parity (b): {alone.get('error')}")
-    group_thread(cfg, WeightStore(keep), prompt, 7, greedy,
+    group_thread(cfg, WeightStore(keep), prompt, 7, greedy, pool, buf,
                  greedy=True).join(300)
     check("error" not in greedy, f"rl parity (b'): {greedy.get('error')}")
     n = len(side["logits"])
@@ -2704,6 +2822,11 @@ def phase_rl_parity(cfg, plan, grad_err: float) -> dict:
     check(torch.equal(b2["tokens"], greedy["tokens"]) and not bad,
           f"rl parity (b'): calls {bad[:8]} differ")
     check(all(same), "rl parity (c)")
+    log(f"rl parity: the five groups' decode graphs: {pool.captures} "
+        f"captured (by (b)'s concurrent group), {pool.reuses} leases")
+    check(pool.captures == 1 and pool.reuses == 4,
+          f"rl parity: {pool.captures} captures, {pool.reuses} leases "
+          f"(want 1 and 4)")
     return dict(err_bf16=grad_err, err_f32=err4, calls=n,
                 control_diffs=len(late["control"]))
 
@@ -4442,6 +4565,7 @@ def main() -> int:
     rl_plans = train_plans(cfg, "grpo", "rl", RL_STEPS)
     kl_t = np.asarray(sft[0].packed.inputs["kv_last"])
     timed("build", phase_build)
+    timed("warm restart", phase_warm_restart)
     worst_fwd = timed("kernel", phase_kernel, kernel_cases())
     worst_bwd = timed("bwd kernel", phase_bwd_kernel, kernel_cases(kl_t))
     mask = timed("mask soundness", phase_mask_soundness)
@@ -4466,7 +4590,7 @@ def main() -> int:
           [("packed", sft[0]), ("waves", first_wave_plan(cfg))],
           "determinism", True)
     params, wave_w, wave_launches, wave_n, wave_pad, _, _ = timed(
-        "waves", phase_waves, cfg, params)
+        "waves", phase_waves, cfg, params, "waves", WAVE_BATCHES, True, True)
     timed("train parity", phase_train_parity, cfg, params)
     timed("wave parity", phase_wave_parity, cfg, params)
     del params

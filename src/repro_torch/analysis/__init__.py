@@ -6,11 +6,14 @@ passes that read no jaxpr:
   mask soundness  the block-skip predicate ``kernels/tree_attention.
                   block_live`` never skips a tile that holds a visible
                   (query, key) pair, on a boundary sweep over the port
-                  kernels' tile shapes and on packed rows (``mask_check``).
+                  kernels' tile shapes and on packed rows (``mask_check``);
+  signatures      each planned step's shape signatures and the enumerable
+                  universe they stay in (``signatures``), which the
+                  compile warm-up (``train/warmup``) makes ready.
 
 The CUDA kernels carry their own copies of the predicate, which no Python
 check can hold by identity; ``chip_smoke.py``'s ``mask soundness`` phase
 holds them on the card instead (NaN in every tile the predicate skips
-must leave every output unchanged).  The reference's jaxpr, HLO and
-signature passes wait for ROADMAP.md Queue A item 7f.
+must leave every output unchanged).  The reference's jaxpr and HLO
+passes and its signature lint wait for ROADMAP.md Queue A item 7f.
 """

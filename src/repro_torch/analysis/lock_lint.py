@@ -2,7 +2,10 @@
 lock_lint.py``.
 
 The async layers (``train/planner.PlanPipeline``, ``serve/service``'s
-``WeightStore`` / ``AsyncTreeRLService``) are exactly the code a refactor
+``WeightStore`` / ``AsyncTreeRLService``, and the compile warm-up's
+``serve/session.GraphPool``, ``train/warmup.AOTWarmupService`` and
+``train/exec_cache.ExecutableCache``, whose rules the port adds) are
+exactly the code a refactor
 breaks silently: an unlocked write to shared queue state races the
 consumer and shows up as a once-a-week hang, not a test failure.  This
 pass pins the lock→fields discipline as data (:data:`LOCK_RULES`) and
@@ -69,6 +72,21 @@ LOCK_RULES: dict[str, dict[str, LockRule]] = {
                 "exposed_s": "same as schedule_s",
                 "built": "same as schedule_s",
             }),
+    },
+    "serve/session.py": {
+        "GraphPool": LockRule(
+            lock="_lock", fields=frozenset({"_graphs", "captures",
+                                            "reuses"})),
+    },
+    "train/warmup.py": {
+        "AOTWarmupService": LockRule(
+            lock="_lock", fields=frozenset({"errors", "prewarmed",
+                                            "background_s"})),
+    },
+    "train/exec_cache.py": {
+        "ExecutableCache": LockRule(
+            lock="_lock", fields=frozenset({"_store", "hits", "misses",
+                                            "inserts", "compile_s"})),
     },
     "serve/service.py": {
         "WeightStore": LockRule(

@@ -1,15 +1,19 @@
 """Build kernel sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` file exposes a plain C interface, so it compiles without
-PyTorch's headers.  The shared library lands in ``kernels/_build/`` (listed
-in ``.gitignore``) under a name that hashes the source, the headers beside
-it and the flags: an edited source builds anew on its next use, and an
-unchanged one is loaded as it is.  Nothing is built at import time, only on
-the first launch (or by ``build_all``), and a failed build raises with the
-compiler's output.  Builds are serialized by a process-wide lock, so
-threads that reach a first build of one source at once (the RL loop's
-trainer and generator) compile it once; a compile writes a temporary name
-that holds the process id, so processes that race write no shared file.
+PyTorch's headers.  The shared library lands in the build directory,
+``kernels/_build/`` (listed in ``.gitignore``) unless a run chose another
+with ``set_build_dir`` (``train/warmup.configure_compile_cache``, the
+launchers' ``--compile-cache-dir``), under a name that hashes the source,
+the headers beside it and the flags: an edited source builds anew on its
+next use, and an unchanged one is loaded as it is, by this process or a
+later one that builds into the same directory.  Nothing is built at
+import time, only on the first launch (or by ``build_all``), and a failed
+build raises with the compiler's output.  Builds are serialized by a
+process-wide lock, so threads that reach a first build of one source at
+once (the RL loop's trainer and generator) compile it once; a compile
+writes a temporary name that holds the process id, so processes that race
+write no shared file.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# where the libraries go: read by ``library_path`` and ``_build_all`` at
+# each call, set by ``set_build_dir``
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +47,19 @@ def nvcc_path() -> str:
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def set_build_dir(path) -> Path:
+    """Build into (and load from) ``path`` from now on, created if missing;
+    returns it, absolute.  Taken under ``BUILD_LOCK``, so a build running
+    on another thread finishes in the directory it started in.  A library
+    already loaded stays loaded."""
+    global BUILD_DIR
+    path = Path(path).expanduser().resolve()
+    with BUILD_LOCK:
+        path.mkdir(parents=True, exist_ok=True)
+        BUILD_DIR = path
+    return path
 
 
 def library_path(source: str, flags=NVCC_FLAGS) -> Path:

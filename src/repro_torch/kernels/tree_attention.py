@@ -127,6 +127,12 @@ def _library() -> ctypes.CDLL:
     return build.load(SOURCE, _configure)
 
 
+def load() -> None:
+    """Build the forward's library if needed and load it, as its first
+    launch would (``train/exec_cache.load_kernels``)."""
+    _library()
+
+
 def _check(q, k, v, kv_last, q_off, window, pos_q, pos_k):
     tensors = [q, k, v, kv_last] + ([pos_q, pos_k] if window is not None
                                     else [])

@@ -85,6 +85,13 @@ def _library(source: str, entry: str, n_out: int) -> ctypes.CDLL:
     return build.load(source, lambda lib: _configure(lib, entry, n_out))
 
 
+def load() -> None:
+    """Build the dq and dk/dv libraries if needed and load them, as their
+    first launches would (``train/exec_cache.load_kernels``)."""
+    _library(SOURCES[0], "tree_attention_bwd_dq", 1)
+    _library(SOURCES[1], "tree_attention_bwd_dkv", 2)
+
+
 def dkv_schedule(kv_last: torch.Tensor, S: int, q_off: int = 0):
     """The dk/dv kernel's key-tile order, heaviest first: the plain version
     of the schedule pass that its bf16 Hopper path runs on the card

@@ -35,13 +35,22 @@ runs the hand-written CUDA kernels there, ``--impl chunked`` the
 online-softmax scan over key chunks and ``--impl ref`` the
 materialized-mask attention (both plain torch ops).
 
-Before the store and the generation thread start, ``main`` builds every
-kernel, runs one probe rollout group and two ``engine.warmup`` passes on
-copies of the parameters and optimizer state, and reports the seconds;
-on the card it then empties the allocator's cache, and after the loop it
-reports the reserved and free device memory and the cache flushes.
-Not ported (ROADMAP.md Queue A item 7c): the reference's AOT executable
-warm-up and ``--compile-cache-dir``.
+Before the store and the generation thread start, ``main`` warms every
+executable outside the loop (``_warm``): the kernels are built (into
+``--compile-cache-dir`` when given, where a later run finds them), one
+probe rollout group runs through the generator's ``GraphPool`` and
+parameter buffer, which captures the decode graphs the loop's groups then
+replay (the batch-1 graph where the family prefills through the step
+loop, and the batch-K one), every step of the probe's window is
+prewarmed into the AOT warm-up service's executable cache
+(``train/warmup``), and two ``engine.warmup`` passes run through that
+cache on copies of the parameters and optimizer state.  In the loop the
+engine dispatches from the shared cache and the planner pre-warms each
+new step (``plans(..., warmup=)``); with ``--smoke``, or on the card, the
+run requires 0 retraces and 0 decode-graph captures inside the loop.  On
+the card the warm-up ends by emptying the allocator's cache, and after
+the loop the run reports the reserved and free device memory and the
+cache flushes (0 required).
 
 ``main`` returns the run's record (per-step metrics and the loop's
 totals), which ``chip_smoke.py`` reads.
@@ -50,27 +59,29 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.plan_cost import CompileCacheSim
 from repro_torch.data.loader import LoaderConfig
 from repro_torch.device import map_tree, resolve_device, tree_leaves
-from repro_torch.kernels import build
-from repro_torch.kernels import tree_attention as ta
-from repro_torch.kernels import tree_attention_bwd as tab
 from repro_torch.models.model import device_batch, init_params
 from repro_torch.serve.rollout import RolloutConfig, rollout_group
 from repro_torch.serve.service import (AsyncTreeRLService, ServiceConfig,
                                        WeightStore)
+from repro_torch.serve.session import GraphPool
 from repro_torch.train.checkpoint import (load_checkpoint, load_meta,
                                           save_checkpoint)
 from repro_torch.train.engine import TreeTrainEngine
+from repro_torch.train.exec_cache import load_kernels
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.planner import PlannerConfig, plan_window, plans
 from repro_torch.train.train_step import make_grad_fn
+from repro_torch.train.warmup import AOTWarmupService, configure_compile_cache
 
 
 def max_rel_err(a, b) -> float:
@@ -108,35 +119,51 @@ def _require(cond: bool, msg) -> None:
 
 
 def _warm(cfg, lc, pcfg, rc, opt_cfg, params, opt_state, impl, dev, seed):
-    """Every kernel built, one probe rollout group, and two warm-up passes
-    of its plan on copies of the parameters and optimizer state; returns
-    the seconds."""
+    """Everything the loop would otherwise do for the first time, done
+    before it: every kernel built and loaded; the generator's
+    ``GraphPool`` and parameter buffer made (under ``inference_mode``, as
+    the generator runs) and one probe rollout group run through them, which
+    captures the decode graphs of the loop's shape; the probe window's
+    steps prewarmed into the ``AOTWarmupService``'s cache; two warm-up
+    passes of its plan through that cache on copies of the parameters and
+    optimizer state.  Returns (seconds, the service, the pool, the
+    buffer)."""
     t0 = time.perf_counter()
-    if dev.type == "cuda" and impl == "kernel":
-        build.build_all([ta.SOURCE, *tab.SOURCES])
+    load_kernels("packed", impl, dev)
+    warm = AOTWarmupService(cfg, lc, pcfg, params=params, opt_cfg=opt_cfg,
+                            opt_state=opt_state, impl=impl,
+                            sim=CompileCacheSim())
+    pool = GraphPool(dev)
     with torch.inference_mode():
-        tree, _ = rollout_group(cfg, params,
+        gen_params = map_tree(torch.clone, params)
+        tree, _ = rollout_group(cfg, gen_params,
                                 np.zeros(rc.prompt_len, np.int32), rc,
                                 torch.Generator(dev).manual_seed(seed),
-                                device=dev)
+                                device=dev, graph_pool=pool)
     steps = [ps for ps in plan_window(cfg, lc, pcfg, [[tree]])
              if not ps.is_empty]
+    for ps in steps:
+        warm.prewarm(step=ps)
     if steps:
-        weng = TreeTrainEngine(cfg, opt_cfg, impl=impl)
+        # the window's plan through the SHARED cache, twice: the loop's
+        # engine must find every key the probe's plan dispatches
+        weng = TreeTrainEngine(cfg, opt_cfg, impl=impl,
+                               exec_cache=warm.cache, universe=warm.universe)
         p2 = map_tree(torch.clone, params)
         o2 = map_tree(torch.clone, opt_state)
         plan = steps[0].execution_plan()
         for _ in range(2):
             p2, o2 = weng.warmup(p2, o2, plan)
         _require(weng.host_syncs == 0, "warmup must not sync")
+        _require(weng.retraces == 0,
+                 "prewarmed executables must cover the warm window")
         del p2, o2
     if dev.type == "cuda":
-        # the generator captures its decode graphs beside the trainer, and
         # while a capture is open the allocator cannot free cached blocks
         # to retry a failed cudaMalloc: the loop starts with none cached
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, warm, pool, gen_params
 
 
 def _cache_flushes(dev) -> int:
@@ -185,7 +212,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--check-grads", action="store_true",
                     help="verify online vs offline RL gradients at exit")
     ap.add_argument("--compile-cache-dir", default=None,
-                    help="not ported (ROADMAP.md Queue A item 7c): refused")
+                    help="build the kernel libraries into this directory, "
+                         "where a restarted run finds them built")
     ap.add_argument("--save", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None)
     ap.add_argument("--resume", default=None)
@@ -193,9 +221,11 @@ def main(argv=None) -> dict:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.compile_cache_dir is not None:
-        ap.error("--compile-cache-dir: the persistent compilation cache is "
-                 "not ported (ROADMAP.md Queue A item 7c, tooling)")
+    if args.compile_cache_dir is not None and \
+            os.path.exists(args.compile_cache_dir) and \
+            not os.path.isdir(args.compile_cache_dir):
+        ap.error(f"--compile-cache-dir {args.compile_cache_dir}: not a "
+                 f"directory")
     if args.ckpt_every is not None and not args.save:
         ap.error("--ckpt-every needs --save (the checkpoint directory)")
 
@@ -228,6 +258,10 @@ def main(argv=None) -> dict:
                        max_ahead_steps=args.max_ahead, rollout=rc,
                        seed=args.seed)
 
+    if args.compile_cache_dir:
+        # before any kernel is built or loaded
+        d = configure_compile_cache(args.compile_cache_dir)
+        print(f"[rl] kernel build directory: {d}")
     params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                          device=dev)
     opt_state = init_opt_state(params)
@@ -237,17 +271,24 @@ def main(argv=None) -> dict:
         done = int(load_meta(args.resume).get("steps", 0))
         print(f"[rl] resumed {args.resume} @ step {done}")
 
-    warm_s = _warm(cfg, lc, pcfg, rc, opt_cfg, params, opt_state, args.impl,
-                   dev, args.seed)
+    warm_s, warm, pool, gen_params = _warm(
+        cfg, lc, pcfg, rc, opt_cfg, params, opt_state, args.impl, dev,
+        args.seed)
+    captures0 = pool.captures
     print(f"[rl] warm-up: {warm_s:.2f}s (kernels built, 1 probe rollout "
-          f"group, 2 engine.warmup passes on copies)", flush=True)
+          f"group capturing {captures0} decode graphs, "
+          f"{len(warm.cache)} executables over "
+          f"{len(warm.cache.signatures())} signatures, 2 engine.warmup "
+          f"passes on copies)", flush=True)
 
     store = WeightStore(params, version=done)
     engine = TreeTrainEngine(cfg, opt_cfg, impl=args.impl,
-                             weight_store=store)
+                             weight_store=store, exec_cache=warm.cache,
+                             universe=warm.universe)
     engine.steps_done = done
-    svc = AsyncTreeRLService(cfg, store, sc, num_steps=args.steps).start()
-    pipe = plans(cfg, lc, svc.tree_batches(), pcfg)
+    svc = AsyncTreeRLService(cfg, store, sc, num_steps=args.steps,
+                             graph_pool=pool, gen_params=gen_params).start()
+    pipe = plans(cfg, lc, svc.tree_batches(), pcfg, warmup=warm)
 
     dropped = 0
     history = []
@@ -305,6 +346,12 @@ def main(argv=None) -> dict:
           f"decode {st.decode_tokens} tok")
     print(f"[rl] plan-ahead: {pipe.built} plans, "
           f"{pipe.build_s * 1e3:.0f}ms built", flush=True)
+    captures = pool.captures - captures0
+    print(f"[rl] aot: {engine.retraces} mid-loop retraces, "
+          f"{engine.compile_wait_s * 1e3:.0f}ms exposed compile wait, "
+          f"{warm.prewarmed} executables prewarmed; decode graphs: "
+          f"{captures0} captured before the loop, {captures} in it, "
+          f"{pool.reuses} reuses", flush=True)
     memory = None
     if dev.type == "cuda":
         free, total = torch.cuda.mem_get_info(dev)
@@ -317,6 +364,13 @@ def main(argv=None) -> dict:
               f"{memory['cache_flushes']} cache flushes in the loop",
               flush=True)
     _require(dropped == 0, f"{dropped} trees dropped")
+    if args.smoke or dev.type == "cuda":
+        # the loop's whole signature stream was prewarmed on the pipeline's
+        # build threads and its groups' graphs captured before it
+        _require(engine.retraces == 0,
+                 f"{engine.retraces} mid-loop retraces (a cold executable)")
+        _require(captures == 0,
+                 f"{captures} decode graphs captured inside the loop")
     _require(engine.max_lag_seen <= lag_bound,
              (engine.max_lag_seen, lag_bound))
     _require(all(math.isfinite(x) for x in losses), losses)
@@ -351,7 +405,11 @@ def main(argv=None) -> dict:
                 max_lag_seen=engine.max_lag_seen, plans_built=pipe.built,
                 plan_build_s=pipe.build_s, warmup_s=warm_s,
                 grad_err=grad_err, host_syncs=engine.host_syncs,
-                steps_done=engine.steps_done, memory=memory)
+                steps_done=engine.steps_done, memory=memory,
+                retraces=engine.retraces,
+                compile_wait_s=engine.compile_wait_s,
+                prewarmed=warm.prewarmed, captures_before=captures0,
+                captures_in_loop=captures, reuses=pool.reuses)
 
 
 if __name__ == "__main__":

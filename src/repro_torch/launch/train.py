@@ -29,18 +29,27 @@ ends with a ``partitioned: ... dropped`` line:
 prefix into one grafted forest (``core/forest``; pair with ``--kind
 template``).
 
-Not ported (ROADMAP.md Queue A items 7c and 7e): ``--aot-warmup``,
-``--warmup-threads``, ``--compile-cache-dir`` and ``--mesh``.
+``--aot-warmup`` starts the compile warm-up (``train/warmup``): the
+reachable signature universe is made ready on ``--warmup-threads``
+background threads (the kernels' ``nvcc`` builds among it) and each step's
+executables are keyed from the planner's build threads, so the engine never
+stalls on a first use; the run ends with an ``aot-warmup:`` line (engine
+retraces: 0 on an in-universe stream).  ``--compile-cache-dir DIR`` builds
+the kernel libraries into DIR, where a restarted run finds them built.
+
+Not ported (ROADMAP.md Queue A item 7e): ``--mesh``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.plan_cost import CompileCacheSim
 from repro_torch.data.loader import LoaderConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
@@ -49,6 +58,7 @@ from repro_torch.train.checkpoint import (load_checkpoint, load_meta,
 from repro_torch.train.engine import TreeTrainEngine
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.planner import PlannerConfig, plans
+from repro_torch.train.warmup import AOTWarmupService, configure_compile_cache
 
 
 def main(argv=None) -> None:
@@ -105,6 +115,17 @@ def main(argv=None) -> None:
                     help="minimum shared-prefix tokens for a graft to be "
                          "considered (shorter matches never pay for the "
                          "merge)")
+    ap.add_argument("--aot-warmup", action="store_true",
+                    help="compile warm-up: make the reachable signature "
+                         "universe ready on background threads at startup "
+                         "(the kernel builds among it) and pre-warm each "
+                         "step's executables from the planner's build "
+                         "threads (train/warmup)")
+    ap.add_argument("--warmup-threads", type=int, default=1,
+                    help="background warm-up threads for --aot-warmup")
+    ap.add_argument("--compile-cache-dir", default=None,
+                    help="build the kernel libraries into this directory, "
+                         "where a restarted run finds them built")
     ap.add_argument("--turns", type=int, default=4,
                     help="turns per agentic/grpo tree")
     ap.add_argument("--turn-len", type=int, nargs=2, default=(8, 48),
@@ -125,6 +146,11 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.compile_cache_dir is not None and \
+            os.path.exists(args.compile_cache_dir) and \
+            not os.path.isdir(args.compile_cache_dir):
+        ap.error(f"--compile-cache-dir {args.compile_cache_dir}: not a "
+                 f"directory")
     if args.ckpt_every is not None and not args.save:
         ap.error("--ckpt-every needs --save (the checkpoint directory)")
 
@@ -179,6 +205,10 @@ def main(argv=None) -> None:
                       capacity=args.capacity, auto_capacity=auto_capacity,
                       gen_kwargs=gen_kwargs)
 
+    if args.compile_cache_dir:
+        # before any kernel is built or loaded
+        d = configure_compile_cache(args.compile_cache_dir)
+        print(f"[train] kernel build directory: {d}")
     params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                          device=dev)
     opt_state = init_opt_state(params)
@@ -188,12 +218,23 @@ def main(argv=None) -> None:
         done = int(load_meta(args.resume).get("steps", 0))
         print(f"[train] resumed {args.resume} @ step {done}")
 
-    engine = TreeTrainEngine(cfg, opt_cfg, impl=args.impl)
-    engine.steps_done = done
     pcfg = PlannerConfig(lookahead=args.lookahead,
                          plan_workers=args.plan_workers, max_rows=args.rows,
                          graft=args.graft, min_graft=args.min_graft)
-    pipe = plans(cfg, lc, args.steps, pcfg)
+    svc = None
+    if args.aot_warmup:
+        svc = AOTWarmupService(cfg, lc, pcfg, params=params, opt_cfg=opt_cfg,
+                               opt_state=opt_state, impl=args.impl,
+                               sim=CompileCacheSim())
+        svc.start(threads=args.warmup_threads)
+        print(f"[train] AOT warmup: {len(svc.signature_list())} universe "
+              f"signatures warming on {args.warmup_threads} background "
+              f"thread(s)")
+    engine = TreeTrainEngine(cfg, opt_cfg, impl=args.impl,
+                             exec_cache=svc.cache if svc else None,
+                             universe=svc.universe if svc else None)
+    engine.steps_done = done
+    pipe = plans(cfg, lc, args.steps, pcfg, warmup=svc)
     tokens_done = padded_total = dropped_total = executed = 0
     part_trees = part_tokens = 0
     history = []
@@ -248,6 +289,15 @@ def main(argv=None) -> None:
     if args.auto_partition:
         print(f"[train] partitioned: {part_trees} oversized trees, "
               f"{part_tokens} tokens, {dropped_total} dropped")
+    if svc is not None:
+        svc.stop()
+        st = svc.stats()
+        print(f"[train] aot-warmup: {st['size']} executables "
+              f"({st['compile_s']:.1f}s compile, "
+              f"{svc.prewarmed} prewarmed), engine retraces "
+              f"{engine.retraces}, exposed compile wait "
+              f"{engine.compile_wait_s * 1e3:.0f}ms"
+              + (f", {st['errors']} warmup errors" if st["errors"] else ""))
     if args.save:
         save_checkpoint(args.save, params, opt_state,
                         meta={"arch": cfg.name, "steps": engine.steps_done})

@@ -91,8 +91,10 @@ def rollout_group(cfg: ModelConfig, params: dict, prompt, rc: RolloutConfig,
     ``prompt``: 1-D int tokens; ``generator``: the sampling RNG (on the
     session's device; unused when greedy); ``device``: where the session
     runs (CUDA by default; ``params`` must live there); ``graph_pool``:
-    where its sessions' CUDA graphs capture (``session.GraphPool``).
-    Returns ``(tree, stats)``."""
+    where its sessions lease or capture their decode graphs
+    (``session.GraphPool``).  The sessions are closed before it returns,
+    so the next group of the same shape reuses their graphs.  Returns
+    ``(tree, stats)``."""
     prompt = np.asarray(prompt, np.int32).reshape(-1)
     P, K = len(prompt), rc.k
     session = DecodeSession.create(cfg, params, buf_len=rc.buf_len,
@@ -110,6 +112,9 @@ def rollout_group(cfg: ModelConfig, params: dict, prompt, rc: RolloutConfig,
                             rc.temperature)
         toks.append(tok)
     gen = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+    stats = session.stats
+    session.close()
+    branches.close()
 
     seqs, rewards = [], []
     for kk in range(K):
@@ -123,7 +128,6 @@ def rollout_group(cfg: ModelConfig, params: dict, prompt, rc: RolloutConfig,
         rewards.append(reward_fn(seq, P))
     tree = rollouts_to_tree(seqs, rewards, prompt_len=P)
     stats = GroupStats(k=K, prompt_len=P,
-                       prefill_tokens=session.stats.prefill_tokens,
-                       decode_tokens=session.stats.decode_tokens,
-                       rewards=rewards)
+                       prefill_tokens=stats.prefill_tokens,
+                       decode_tokens=stats.decode_tokens, rewards=rewards)
     return tree, stats

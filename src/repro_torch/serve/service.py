@@ -18,10 +18,13 @@ Two mechanisms bound the off-policy lag to ``max_ahead_steps`` (= A):
   waiting, so a stalled trainer also stalls generation.
 
 On the card both threads share one device.  The generator runs on a stream
-of its own (``torch.cuda.stream``), so its kernels overlap the trainer's;
-its decode sessions capture their CUDA graphs in ``thread_local`` mode into
-one pool of its own, so one group's graph memory is reused by the next
-(``serve/session.GraphPool``, ``DecodeSession._graph_step``).
+of its own (``torch.cuda.stream``), so its kernels overlap the trainer's.
+Its decode sessions lease their CUDA graphs from one ``GraphPool``
+(``serve/session``), by shape: the graphs are captured once, for the first
+group of a shape or before ``start`` (the launcher's warm-up hands its
+pool in), and every later group replays them.  The graphs read one
+parameter buffer of the generator's own (``gen_params``), into which each
+snapshot is copied on the generator's stream after ``get``.
 ``WeightStore.publish`` copies every leaf (the port's AdamW updates the
 parameters in place) on the trainer's stream and records an event after
 the copy; ``WeightStore.get`` makes the reader's stream wait for that event
@@ -46,6 +49,13 @@ from repro_torch.core.tree import TrajectoryTree
 from repro_torch.device import map_tree, tree_leaves
 from repro_torch.serve.rollout import GroupStats, RolloutConfig, rollout_group
 from repro_torch.serve.session import GraphPool
+
+
+def copy_into(dst: dict, src: dict) -> None:
+    """Copy every leaf of ``src`` into ``dst``'s (same layout) on the
+    caller's current stream."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
 
 
 def _snapshot(params: dict) -> tuple[dict, Optional[torch.cuda.Event]]:
@@ -151,9 +161,17 @@ class AsyncTreeRLService:
     on ``−A``."""
 
     def __init__(self, cfg: ModelConfig, store: WeightStore,
-                 sc: ServiceConfig, num_steps: int):
+                 sc: ServiceConfig, num_steps: int, *,
+                 graph_pool: Optional[GraphPool] = None,
+                 gen_params: Optional[dict] = None):
         self.cfg, self.store, self.sc = cfg, store, sc
         self.num_steps = num_steps
+        # where the generator's decode graphs live (made on the card when
+        # not given), and the parameter buffer they read (made at the
+        # first snapshot when not given; made under inference_mode, as the
+        # generator runs, or it could not write it)
+        self.graph_pool = graph_pool
+        self.gen_params = gen_params
         self.stats = ServiceStats()
         self._queue: Queue = Queue(maxsize=max(1, sc.max_ahead_steps))
         self._error: Optional[BaseException] = None
@@ -178,10 +196,11 @@ class AsyncTreeRLService:
         rng = np.random.default_rng(sc.seed)
         # the sampling RNG: this thread's alone
         gen = torch.Generator(dev).manual_seed(sc.seed)
-        stream = pool = None
+        stream, pool = None, self.graph_pool
         if dev.type == "cuda":
             stream = torch.cuda.Stream(dev)
-            pool = GraphPool(dev)
+            if pool is None:
+                pool = self.graph_pool = GraphPool(dev)
         first = self.store.version
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()), torch.inference_mode():
@@ -194,6 +213,13 @@ class AsyncTreeRLService:
                         f"{s - sc.max_ahead_steps} for "
                         f"{sc.gate_timeout_s}s (generation step {s})")
                 params, ver = self.store.get()
+                if pool is not None:
+                    # the graphs read the buffer: the copy is queued on
+                    # this stream, after the snapshot's copy (``get``)
+                    if self.gen_params is None:
+                        self.gen_params = map_tree(torch.empty_like, params)
+                    copy_into(self.gen_params, params)
+                    params = self.gen_params
                 t0 = time.perf_counter()
                 trees: list[TrajectoryTree] = []
                 for _ in range(sc.groups_per_step):

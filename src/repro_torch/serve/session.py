@@ -24,13 +24,16 @@ Port of ``repro/serve/session.py``.  One session owns a decode cache for
                 are copied, the prefix is not recomputed (the paper's
                 shared-prefix KV reuse).
   ``step``      one decode token per branch.  On the card a session
-                captures its step in a CUDA graph at its first step and
-                replays it afterwards: an eager step is thousands of
-                launches, whose host work bounds decode (and the SSM and
-                hybrid families' step-loop prefill).  The capture may run
+                steps through a CUDA graph from its first step on: an
+                eager step is thousands of launches, whose host work
+                bounds decode (and the SSM and hybrid families' step-loop
+                prefill).  A session made with a ``GraphPool`` leases a
+                graph of its shape captured for an earlier session, and
+                captures one only where none is free; the capture may run
                 while another thread trains on the same card (the RL
                 loop): see ``_graph_step``.
   ``snapshot``  capture the current state as an independent session.
+  ``close``     end the session, giving its leased graph back to the pool.
 
 The port writes caches in place where JAX made new arrays, so
 ``snapshot`` copies the cache (one eager copy; the reference's O(1)
@@ -45,8 +48,9 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from dataclasses import dataclass, field, replace
-from typing import ClassVar, Optional
+from typing import Callable, ClassVar, Hashable, Optional
 
 import numpy as np
 import torch
@@ -57,6 +61,7 @@ from repro_torch.device import (DeviceLike, map_tree, resolve_device,
 from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import layer_groups, partition_forward
 from repro_torch.serve.decode import _decode_step, _init_cache
+from repro_torch.train.exec_cache import exec_key
 
 # held while a session captures its decode step into a ``GraphPool``.  A
 # device-wide sync (``torch.cuda.synchronize``, a profiler's start or
@@ -72,27 +77,75 @@ class SessionStats:
     decode_tokens: int = 0    # single-token steps × branches
 
 
+@dataclass(eq=False)
+class DecodeGraph:
+    """One captured decode step: ``replay`` (a CUDA graph's, which keeps
+    the graph alive; on the CPU an eager step over the same static
+    tensors), the static inputs and logits it reads and writes, and the
+    cache it steps in place.  A ``GraphPool`` keeps it under ``key`` and
+    leases it to one session at a time."""
+    key: Hashable
+    replay: Callable[[], None]
+    static: tuple
+    out: torch.Tensor
+    cache: dict
+    leased: bool = True
+
+
 class GraphPool:
-    """A CUDA-graph memory pool and the one stream that every capture into
-    it runs on (the caching allocator reuses a block only on the stream
-    that allocated it), for sessions that decode while another thread uses
-    the card.  A dropped session's graph gives its blocks back to the pool
-    and the next session's capture reuses them, so a stream of rollout
-    groups holds one group's graph memory.  Sessions that share it capture
-    and replay their graphs in turn, from one thread (graphs that share a
-    pool must never replay concurrently): each generating thread makes its
-    own."""
+    """A CUDA-graph memory pool, the one stream that every capture into it
+    runs on (the caching allocator reuses a block only on the stream that
+    allocated it), and a store of captured decode steps keyed by shape, for
+    sessions that decode while another thread uses the card.
+
+    A session with a pool looks up a free ``DecodeGraph`` of its key at its
+    first step (``DecodeSession._graph_step``): it copies its cache into
+    the graph's own cache, steps there, and holds the lease until
+    ``DecodeSession.close()`` (a ``weakref.finalize`` is the backstop).
+    Only when none is free does it capture a new one (``captures``; a
+    lease of a kept one counts in ``reuses``).  So a stream of rollout
+    groups of one shape captures once per shape, and the graphs can be
+    captured before the stream starts (the RL loop's warm-up).  The key
+    holds the batch, ring and encoder lengths, the cache's leaf shapes and
+    dtypes, and the address of every parameter leaf the graph reads.
+
+    Sessions that share a pool step their graphs in turn, from one thread
+    at a time (graphs that share a pool must never replay concurrently).
+    On the CPU (no CUDA graph) a pool keeps eager stand-ins with the same
+    store and lease logic."""
 
     def __init__(self, device: DeviceLike = None):
         dev = resolve_device(device)
-        with torch.cuda.device(dev):
-            self.id = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream(dev)
-        # a pool lives while a graph captured into it does (a capture into
-        # a pool whose graphs all died fails an assert of the allocators):
-        # the newest graph is kept, and it is never replayed once its
-        # session is gone
-        self._anchor: Optional[torch.cuda.CUDAGraph] = None
+        self.device = dev
+        self.id = self.stream = None
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                self.id = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream(dev)
+        self._lock = threading.Lock()
+        self._graphs = {}             # key → [DecodeGraph]
+        self.captures = 0
+        self.reuses = 0
+
+    def lease(self, key: Hashable) -> Optional[DecodeGraph]:
+        """A free graph of ``key``, now leased; None if there is none."""
+        with self._lock:
+            for g in self._graphs.get(key, ()):
+                if not g.leased:
+                    g.leased = True
+                    self.reuses += 1
+                    return g
+            return None
+
+    def add(self, g: DecodeGraph) -> None:
+        """Keep a newly captured graph (leased by its capturer)."""
+        with self._lock:
+            self._graphs.setdefault(g.key, []).append(g)
+            self.captures += 1
+
+    def release(self, g: DecodeGraph) -> None:
+        with self._lock:
+            g.leased = False
 
     @contextlib.contextmanager
     def capture(self, graph: torch.cuda.CUDAGraph):
@@ -110,7 +163,9 @@ class GraphPool:
 
         No thread may draw from the default CUDA generator while the
         capture is open (the capture holds it; the port samples with
-        generators of its own)."""
+        generators of its own).  The pool keeps every graph captured into
+        it (a capture into a pool whose graphs all died fails an assert of
+        the allocators)."""
         with CAPTURE_LOCK:
             graph.capture_begin(pool=self.id,
                                 capture_error_mode="thread_local")
@@ -118,7 +173,6 @@ class GraphPool:
                 yield graph
             finally:
                 graph.capture_end()
-        self._anchor = graph
 
 
 @dataclass
@@ -131,12 +185,17 @@ class DecodeSession:
     t: int = 0                        # next absolute position
     enc_len: int = 0                  # encoder positions of the cross K/V
     stats: SessionStats = field(default_factory=SessionStats)
-    # the captured step (graph, static inputs, static logits) of a session
-    # on the card; a fork or snapshot captures its own
-    _graph: Optional[tuple] = field(default=None, init=False, repr=False,
-                                    compare=False)
-    # the pool the graphs capture into, shared by this session's forks and
-    # snapshots; None: a private pool (and side stream) per graph
+    # the session's decode step: its own captured graph, or one leased from
+    # ``graph_pool``; a fork or snapshot gets its own
+    _graph: Optional[DecodeGraph] = field(default=None, init=False,
+                                          repr=False, compare=False)
+    # gives a leased graph back to the pool if the session is dropped
+    # without ``close``
+    _release: Optional[weakref.finalize] = field(
+        default=None, init=False, repr=False, compare=False)
+    # the pool the graphs capture into and are leased from, shared by this
+    # session's forks and snapshots; None: a private pool (and side stream)
+    # per graph
     graph_pool: Optional["GraphPool"] = field(default=None, repr=False,
                                               compare=False)
     # False: every session steps eagerly, so Python hooked into the layers
@@ -292,7 +351,8 @@ class DecodeSession:
         widx = torch.full((1,), self.t % ring if ring else 0,
                           dtype=torch.long, device=dev)
         tokens = tokens.reshape(self.batch, 1)
-        if dev.type == "cuda" and DecodeSession.graph_steps:
+        if DecodeSession.graph_steps and (dev.type == "cuda"
+                                          or self.graph_pool is not None):
             logits = self._graph_step(tokens, pos, widx)
         else:
             logits = _decode_step(self.cfg, self.params, self.cache, tokens,
@@ -300,14 +360,32 @@ class DecodeSession:
         self.t += 1
         return logits
 
+    def _graph_key(self) -> Hashable:
+        return (exec_key("decode", (self.batch, self._ring or 0,
+                                    self.enc_len), (self.cache,)),
+                tuple(t.data_ptr() for t in tree_leaves(self.params)))
+
+    def _use(self, g: DecodeGraph) -> None:
+        self._graph = g
+        if self.graph_pool is not None:
+            self._release = weakref.finalize(self, self.graph_pool.release, g)
+
     def _graph_step(self, tokens, pos, widx) -> torch.Tensor:
-        """One step through the session's CUDA graph.  The first step runs
-        eagerly on a side stream (the warm-up) and then captures the step
-        on that stream with static inputs; later steps copy their inputs
-        into those and replay.  The graph writes the session's cache in
-        place, as the eager step does, and reads the parameters where they
-        live, so both must keep their storage (fork and snapshot make new
-        caches and capture their own graphs).
+        """One step through the session's decode graph: its inputs are
+        copied into the graph's static inputs, the graph replays, and the
+        logits are copied out.  The graph writes the cache in place, as
+        the eager step does, and reads the parameters where they live, so
+        both must keep their storage.
+
+        At the first step a session with a ``graph_pool`` leases a free
+        graph of its key from the pool, if there is one: its cache is
+        copied into the graph's cache, which it steps from then on (one
+        copy of the cache; a second ``prefill`` or ``load_cross`` writes
+        there too).  Otherwise the session captures its own: an eager step
+        on a copy of the cache warms up on a side stream (lazy
+        initialisation must not happen inside a capture), the step is
+        captured on that stream over the session's cache, and replayed —
+        so every step's logits, the first too, come from a graph replay.
 
         Without a ``graph_pool`` the session is alone on the card:
         ``torch.cuda.graph`` syncs the device and empties the allocator's
@@ -316,26 +394,61 @@ class DecodeSession:
         may train on the card meanwhile, and the pool captures as
         ``GraphPool.capture`` says: no device sync, no cache emptied, the
         trainer's host syncs and allocations allowed."""
-        if self._graph is not None:
-            graph, static, out = self._graph
-            for dst, src in zip(static, (tokens, pos, widx)):
-                dst.copy_(src)
-            graph.replay()
-            return out.clone()
+        gp = self.graph_pool
+        if self._graph is None and gp is not None:
+            key = self._graph_key()
+            g = gp.lease(key)
+            if g is not None:
+                for dst, src in zip(tree_leaves(g.cache),
+                                    tree_leaves(self.cache)):
+                    dst.copy_(src)
+                self.cache = g.cache
+                self._use(g)
+            else:
+                self._use(self._capture(tokens, pos, widx, key))
+                gp.add(self._graph)
+        elif self._graph is None:
+            self._use(self._capture(tokens, pos, widx, None))
+        g = self._graph
+        for dst, src in zip(g.static, (tokens, pos, widx)):
+            dst.copy_(src)
+        g.replay()
+        return g.out.clone()
+
+    def _capture(self, tokens, pos, widx, key) -> DecodeGraph:
+        cfg, params, cache = self.cfg, self.params, self.cache
+        static = tuple(t.clone() for t in (tokens, pos, widx))
+        if self.device.type != "cuda":
+            # the CPU stand-in (a pool's logic without CUDA): an eager step
+            # over the same static tensors; the first, on a copy of the
+            # cache, gives the logits' buffer
+            out = _decode_step(cfg, params, map_tree(torch.clone, cache),
+                               *static)
+
+            def replay():
+                out.copy_(_decode_step(cfg, params, cache, *static))
+
+            return DecodeGraph(key, replay, static, out, cache)
         gp = self.graph_pool
         side = torch.cuda.Stream() if gp is None else gp.stream
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            logits = _decode_step(self.cfg, self.params, self.cache, tokens,
-                                  pos, widx)
-            static = tuple(t.clone() for t in (tokens, pos, widx))
+            _decode_step(cfg, params, map_tree(torch.clone, cache), *static)
             graph = torch.cuda.CUDAGraph()
             with (torch.cuda.graph(graph, stream=side) if gp is None
                   else gp.capture(graph)):
-                out = _decode_step(self.cfg, self.params, self.cache, *static)
+                out = _decode_step(cfg, params, cache, *static)
         torch.cuda.current_stream().wait_stream(side)
-        self._graph = (graph, static, out)
-        return logits
+        return DecodeGraph(key, graph.replay, static, out, cache)
+
+    def close(self) -> None:
+        """End the session: a graph leased from a pool goes back to it for
+        the next session of its shape (which overwrites its cache), so the
+        session must not be used again."""
+        if self._release is not None:
+            self._release()
+        self._graph = self._release = None
+        self.cache = None
 
     def step(self, tokens) -> torch.Tensor:
         """Decode one token per branch.  ``tokens``: [batch] (or [batch,1])

@@ -16,13 +16,24 @@ SFT and the RL update.  With a ``weight_store`` (``serve/service``) the
 engine audits each plan's off-policy lag and publishes the updated weights
 after every step: a device copy, no host sync.
 
-Not ported: the AOT executable cache and signature universe
-(``exec_lookup``; ROADMAP.md Queue A item 7c).
+With an ``exec_cache`` (``train/exec_cache.ExecutableCache``, filled by
+``train/warmup.AOTWarmupService`` and the planner's pre-warm hook) every
+dispatch (``packed``, ``packed+acc``, ``wave.fwd``, ``wave.bwd``,
+``update``) first resolves its executable by (variant, signature,
+fingerprint): a hit runs it with nothing left to build; a miss makes it on
+the spot (the kernels' ``nvcc`` builds and loads), counted in ``retraces``
+with the stall in ``compile_wait_s``, and an out-of-universe signature is
+logged.  A wave's fingerprint is taken from its host-side columns and
+capture plans (``wave_key_args``), which determine the gateway and the
+device tensors built from them.
 """
 from __future__ import annotations
 
+import functools
+import logging
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -34,11 +45,15 @@ from repro_torch.core.gateway import (PartitionPlan, _cut_caps_view,
                                       _zeros_f32, acc_tree, assemble_child_gw,
                                       device_capspecs, grad_slots, map2,
                                       partition_vjp, route_child_cot)
+from repro_torch.core.plan_cost import packed_signature, wave_signature_of
 from repro_torch.device import map_tree, tree_leaves
 from repro_torch.models.model import device_batch
 from repro_torch.models.transformer import loss_and_metrics, partition_loss
+from repro_torch.train.exec_cache import ExecutableCache, exec_key, executable
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import update
+
+logger = logging.getLogger(__name__)
 
 # the on-device scalar accumulator: [loss, nll_sum, weight_sum]
 NUM_SCALARS = 3
@@ -124,13 +139,71 @@ def _packed_exec_fn(cfg: ModelConfig, impl: str):
     return f
 
 
+def _wave_fwd_fn(cfg: ModelConfig, impl: str):
+    """One wave's forward (run under ``no_grad``): its captures out, the
+    loss (scaled by ``loss_scale``), token-CE and weight sums added to
+    ``scal``."""
+    def fwd(params, batch, gw, capspecs, scal, loss_scale):
+        (loss, caps), metrics = partition_loss(cfg, params, batch, gw,
+                                               capspecs, impl)
+        return caps, scal + torch.stack([loss.float() * loss_scale,
+                                         metrics["nll_sum"].float(),
+                                         metrics["weight_sum"].float()])
+
+    return fwd
+
+
+def _wave_bwd_fn(cfg: ModelConfig, impl: str):
+    """One wave's backward: the forward recomputed with autograd and
+    backpropagated from the loss's and the captures' cotangents into
+    ``acc``; returns the gateway's gradient."""
+    def bwd(params, batch, gw, capspecs, cot_loss, cot_caps, acc):
+        return partition_vjp(cfg, params, batch, gw, capspecs, impl,
+                             cot_loss, cot_caps, acc)
+
+    return bwd
+
+
+def variant_fn(variant: str, cfg: ModelConfig, impl: str,
+               opt_cfg: Optional[OptimizerConfig] = None) -> Callable:
+    """The eager function behind one dispatch variant: what an
+    ``ExecutableCache`` key holds once its kernels are loaded."""
+    if variant in ("packed", "packed+acc"):
+        return _packed_exec_fn(cfg, impl)
+    if variant == "wave.fwd":
+        return _wave_fwd_fn(cfg, impl)
+    if variant == "wave.bwd":
+        return _wave_bwd_fn(cfg, impl)
+    if variant == "update":
+        return functools.partial(update, opt_cfg)
+    raise ValueError(f"unknown dispatch variant {variant!r}")
+
+
+def packed_key_args(params, plan: "ExecutionPlan") -> tuple:
+    """What the packed execution is keyed by: the parameters and the
+    plan's host columns with the step's ``num_trees``."""
+    batch = dict(plan.packed.inputs)
+    batch["num_trees"] = max(plan.num_trees, 1)
+    return (params, batch)
+
+
+def wave_key_args(params, wp) -> tuple:
+    """What a wave's executions are keyed by: the parameters and the
+    wave's host-side columns and capture plans.  The gateway it reads and
+    the device tensors built from them are functions of these, so the key
+    needs no tensor the forward sweep makes."""
+    return (params, wp.batch, wp.capspecs)
+
+
 # ---------------------------------------------------------------------------
 # Partition-plan executor (the runtime half of core/gateway's planner)
 # ---------------------------------------------------------------------------
 
 def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
                        acc: list, scal: torch.Tensor, *, impl: str = "kernel",
-                       loss_scale: float = 1.0) -> tuple[list, torch.Tensor]:
+                       loss_scale: float = 1.0,
+                       exec_lookup: Optional[Callable] = None
+                       ) -> tuple[list, torch.Tensor]:
     """Execute a PartitionPlan: a forward sweep in wave order without
     autograd (assembling each fragment's gateway from its parent's
     captures), then a backward sweep in reverse wave order that recomputes
@@ -147,9 +220,21 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
     nll/weight sums stay raw.  Returns ``(acc, scal)``; no host sync
     happens here: every index is a host-planned offset or a non-blocking
     copy of a host array, and an SSM wave's ``chunk_parent`` and cut
-    chunks stay on the host (``device_batch``, ``device_capspecs``)."""
+    chunks stay on the host (``device_batch``, ``device_capspecs``).
+
+    ``exec_lookup(variant, sig, fn, args, key_args)`` (the engine's
+    executable-cache resolver) runs each wave's forward and backward
+    through the cache; None calls them directly."""
     dev = scal.device
     st: list[dict] = []
+    fwd, bwd = _wave_fwd_fn(cfg, impl), _wave_bwd_fn(cfg, impl)
+
+    def resolve(variant, wp, fn, args):
+        if exec_lookup is None:
+            return fn(*args)
+        sig = wave_signature_of(wp, wp.batch["tokens"].shape[1])
+        return exec_lookup(variant, sig, fn, args,
+                           wave_key_args(params, wp))
 
     # ---- forward sweep, wave order ---------------------------------------
     with torch.no_grad():
@@ -172,11 +257,9 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
                 gw = _stack_gw_rows(rows_gw, wp.anc_A_max,
                                     batch["tokens"].shape[0],
                                     rows_idx=wp.slot_rows)
-            (loss, caps), metrics = partition_loss(cfg, params, batch, gw,
-                                                   capspecs, impl)
-            scal = scal + torch.stack([loss.float() * loss_scale,
-                                       metrics["nll_sum"].float(),
-                                       metrics["weight_sum"].float()])
+            caps, scal = resolve("wave.fwd", wp, fwd,
+                                 (params, batch, gw, capspecs, scal,
+                                  loss_scale))
             st.append(dict(batch=batch, capspecs=capspecs, gw=gw, caps=caps,
                            cot_gw=None, cot_cut={}))
 
@@ -189,8 +272,9 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
                 _embed_cut_cot(cot_caps, cot_view, cname, r)
         cot_loss = torch.full((), loss_scale, dtype=torch.float32,
                               device=dev)
-        g_gw = partition_vjp(cfg, params, s["batch"], s["gw"],
-                             s["capspecs"], impl, cot_loss, cot_caps, acc)
+        g_gw = resolve("wave.bwd", wp, bwd,
+                       (params, s["batch"], s["gw"], s["capspecs"], cot_loss,
+                        cot_caps, acc))
         del cot_caps
         with torch.no_grad():
             if wp.has_gw:
@@ -225,13 +309,23 @@ class TreeTrainEngine:
     every execution of the plan (packed rows first, then the partition
     waves), accumulates the gradients in fp32, applies AdamW in place, and
     performs exactly ONE host sync to materialize the logging metrics.
-    ``host_syncs`` counts every device→host transfer the engine issues."""
+    ``host_syncs`` counts every device→host transfer the engine issues.
+
+    With an ``exec_cache`` every dispatch first resolves its executable
+    by signature: a miss makes it synchronously, counted in ``retraces``
+    with the stall seconds in ``compile_wait_s``; with a ``universe``
+    (``analysis/signatures.SignatureUniverse``) attached, an
+    out-of-universe miss logs a warning naming why the planner escaped the
+    enumerable bucket set.  The cache's executables must have been made
+    for this engine's ``cfg``, ``impl`` and ``opt_cfg``."""
 
     METRIC_NAMES = ("loss", "nll_sum", "weight_sum", "grad_norm", "lr")
 
     def __init__(self, cfg: ModelConfig,
                  opt_cfg: Optional[OptimizerConfig] = None, *,
-                 impl: str = "kernel", weight_store=None):
+                 impl: str = "kernel", weight_store=None,
+                 exec_cache: Optional[ExecutableCache] = None,
+                 universe=None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.impl = impl
@@ -239,6 +333,47 @@ class TreeTrainEngine:
         self.steps_done = 0
         self.weight_store = weight_store
         self.max_lag_seen = 0
+        # retraces counts the stalls the warm-up failed to hide (0 on an
+        # in-universe stream after it: rl_loop and chip_smoke require it)
+        self.exec_cache = exec_cache
+        self.universe = universe
+        self.retraces = 0
+        self.compile_wait_s = 0.0
+
+    # -- executable resolution --------------------------------------------
+    def _exec_lookup(self, variant: str, sig, fn, args: tuple,
+                     key_args: tuple):
+        """Resolve one dispatch keyed by ``key_args``: a cache hit runs the
+        cached executable; a miss makes it synchronously (counted as a
+        retrace, its wall time as exposed compile wait), then caches it so
+        the bucket stalls at most once per run."""
+        key = exec_key(variant, sig, key_args)
+        compiled = self.exec_cache.get(key)
+        if compiled is not None:
+            return compiled(*args)
+        dev = tree_leaves(args[0])[0].device
+        t0 = time.perf_counter()
+        compiled, _ = self.exec_cache.compile_once(
+            key, lambda: executable(variant, fn, self.impl, dev))
+        self.compile_wait_s += time.perf_counter() - t0
+        self.retraces += 1
+        if self.universe is not None and sig[0] in ("packed", "wave"):
+            ok, why = self.universe.contains(sig)
+            if not ok:
+                logger.warning(
+                    "out-of-universe signature %s (%s): compiled "
+                    "synchronously on the slow path — the planner "
+                    "escaped the enumerable bucket set", sig, why)
+            else:
+                logger.info(
+                    "in-universe signature %s was not prewarmed: "
+                    "compiled synchronously (%s)", sig, variant)
+        return compiled(*args)
+
+    def _run(self, variant: str, sig, fn, args: tuple, key_args: tuple):
+        if self.exec_cache is None:
+            return fn(*args)
+        return self._exec_lookup(variant, sig, fn, args, key_args)
 
     def accumulate(self, params, plan: ExecutionPlan):
         """Run the plan's executions; returns ``(grads, scal)`` — the fp32
@@ -252,13 +387,23 @@ class TreeTrainEngine:
         if plan.packed is not None:
             batch = device_batch(plan.packed.inputs, dev)
             batch["num_trees"] = n
-            acc, scal = _packed_exec_fn(self.cfg, self.impl)(
-                params, batch, acc, scal)
+            B, S = plan.packed.inputs["tokens"].shape
+            acc, scal = self._run(
+                "packed+acc" if plan.has_waves else "packed",
+                packed_signature(B, S), _packed_exec_fn(self.cfg, self.impl),
+                (params, batch, acc, scal), packed_key_args(params, plan))
         if plan.has_waves:
             acc, scal = run_partition_plan(
                 self.cfg, params, plan.partition, acc, scal, impl=self.impl,
-                loss_scale=1.0 / n)
+                loss_scale=1.0 / n,
+                exec_lookup=(None if self.exec_cache is None
+                             else self._exec_lookup))
         return acc_tree(params, acc), scal
+
+    def _update(self, params, grads, opt_state):
+        return self._run("update", ("update",),
+                         functools.partial(update, self.opt_cfg),
+                         (params, grads, opt_state), (params, opt_state))
 
     def step(self, params, opt_state, plan: ExecutionPlan):
         """Returns ``(params, opt_state, metrics)`` — params and opt_state
@@ -267,7 +412,7 @@ class TreeTrainEngine:
         if self.opt_cfg is None:
             raise ValueError("TreeTrainEngine.step needs an OptimizerConfig")
         grads, scal = self.accumulate(params, plan)
-        params, opt_state, om = update(self.opt_cfg, params, grads, opt_state)
+        params, opt_state, om = self._update(params, grads, opt_state)
         del grads
         vec = torch.cat([scal, torch.stack([om["grad_norm"], om["lr"]]
                                            ).float()])
@@ -294,7 +439,7 @@ class TreeTrainEngine:
         if self.opt_cfg is None:
             raise ValueError("TreeTrainEngine.warmup needs an OptimizerConfig")
         grads, _ = self.accumulate(params, plan)
-        params, opt_state, _ = update(self.opt_cfg, params, grads, opt_state)
+        params, opt_state, _ = self._update(params, grads, opt_state)
         return params, opt_state
 
     def _sync(self, vec: torch.Tensor) -> np.ndarray:

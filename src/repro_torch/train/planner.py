@@ -42,8 +42,9 @@ For a model with a frontend (VLM, enc-dec) each step's packed rows get
 stub frontend embeddings drawn as the reference's planner draws them,
 ``np.random.default_rng([seed, 7919, step index])``.
 
-Not ported: the AOT warmup hook (``plans(..., warmup=)``: ROADMAP.md Queue A
-item 7c).
+``plans(..., warmup=svc)`` (``train/warmup.AOTWarmupService``) keys each
+step's executables on the pipeline's build threads before the engine
+consumes the step.
 """
 from __future__ import annotations
 
@@ -51,11 +52,11 @@ import threading
 import time
 from dataclasses import dataclass, field, replace
 from itertools import islice
-from typing import Any, Callable, Hashable, Iterable, Iterator, Optional, \
-    Sequence
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.analysis.signatures import step_signatures
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.forest import graft_trees
 from repro_torch.core.gateway import build_partition_plan
@@ -70,8 +71,7 @@ from repro_torch.core.plan_cost import (DEFAULT_WEIGHTS, CompileCacheSim,
                                         _packing_live_blocks,
                                         balanced_row_order, graft_gain,
                                         packed_signature, pow2,
-                                        round_to_multiple, score_packing,
-                                        wave_signature_of)
+                                        round_to_multiple, score_packing)
 from repro_torch.core.tree import TrajectoryTree, serialize_tree
 from repro_torch.data.loader import LoaderConfig, StepBatch, tree_stream
 from repro_torch.models.model import batch_arrays, chunk_size_of
@@ -802,7 +802,7 @@ class PlanPipeline:
 def plans(cfg: ModelConfig, lc: LoaderConfig,
           source: "int | Iterable[Sequence[TrajectoryTree]]",
           pc: Optional[PlannerConfig] = None, *,
-          max_rows: Optional[int] = None) -> PlanPipeline:
+          max_rows: Optional[int] = None, warmup=None) -> PlanPipeline:
     """THE planner entrypoint: a :class:`PlanPipeline` of
     :class:`PlannedStep`\\ s, scheduled over ``source`` and built on
     background threads.
@@ -812,16 +812,25 @@ def plans(cfg: ModelConfig, lc: LoaderConfig,
     queue, a dataset reader).  Each yielded step arrives with its
     materialization pre-built: call ``step.execution_plan()`` to train it
     (``TreeTrainEngine.step``) or ``step.step_batch()`` for the raw packed
-    rows — both are cached, already-paid lookups."""
+    rows — both are cached, already-paid lookups.
+
+    ``warmup``: a :class:`~repro_torch.train.warmup.AOTWarmupService` (or
+    any object with ``prewarm(step=...)``) — each step's executables are
+    made on the pipeline's build threads the moment its plans exist, so
+    ``TreeTrainEngine`` never blocks on a cold bucket.  Its ``sim`` is the
+    schedule's compile-cache model too."""
     pc = pc or PlannerConfig()
     if max_rows is not None and pc.max_rows is None:
         pc = replace(pc, max_rows=max_rows)
 
     def build(ps: PlannedStep) -> PlannedStep:
         ps.execution_plan()           # materialize on the worker thread
+        if warmup is not None:
+            warmup.prewarm(step=ps)   # before the engine consumes it
         return ps
 
-    return PlanPipeline(plan_stream(cfg, lc, source, pc), build,
+    sim = getattr(warmup, "sim", None) if warmup is not None else None
+    return PlanPipeline(plan_stream(cfg, lc, source, pc, cache=sim), build,
                         workers=pc.plan_workers, depth=pc.pipeline_depth)
 
 
@@ -837,21 +846,6 @@ def plan_pipeline(cfg: ModelConfig, lc: LoaderConfig, num_batches: int,
     return PlanPipeline(plan_stream(cfg, lc, num_batches, pc),
                         lambda ps: ps.execution_plan(),
                         workers=pc.plan_workers, depth=pc.pipeline_depth)
-
-
-def step_signatures(ps: PlannedStep) -> list[Hashable]:
-    """All shape signatures one PlannedStep runs (packed batch + every
-    partition wave)."""
-    sigs: list[Hashable] = []
-    sb = ps.step_batch()
-    if sb.tb is not None:
-        B, S = sb.tb.tokens.shape
-        sigs.append(packed_signature(B, S))
-    plan = ps.execution_plan()
-    if plan.partition is not None:
-        sigs.extend(wave_signature_of(wp, ps.lc.seq_len)
-                    for wp in plan.partition.waves)
-    return sigs
 
 
 def planned_step_features(ps: PlannedStep,

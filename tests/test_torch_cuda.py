@@ -753,3 +753,66 @@ def test_cuda_session_graph_replays_match_eager_steps(dev, arch):
             DecodeSession.graph_steps = True
         assert br._graph is None
     torch.testing.assert_close(graphed, eager, atol=1e-5, rtol=1e-5)
+
+
+def _pooled_logits(cfg, params, dev, pool, prompt, steps, extra):
+    """prefill → fork(3) → steps → (a second prefill where the family
+    prefills in parallel) → steps, through ``pool``: every call's logits
+    (all branches); the sessions are closed after."""
+    from repro_torch.serve.session import DecodeSession
+    sess = DecodeSession.create(cfg, params, buf_len=64, device=dev,
+                                graph_pool=pool)
+    out = [sess.prefill(prompt)]
+    br = sess.fork(3)
+    half = len(steps) // 2
+    for t in steps[:half]:
+        out.append(br.step(torch.full((3,), int(t), device=dev)))
+    if extra is not None:
+        out.append(br.prefill(extra))
+    for t in steps[half:]:
+        out.append(br.step(torch.full((3,), int(t), device=dev)))
+    sess.close()
+    br.close()
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1p5b", "zamba2_1p2b"])
+def test_cuda_pooled_decode_graphs_replay_bit_identically(dev, arch):
+    """The shape-keyed store with real CUDA graphs (bf16): a second session
+    of one shape leases the first one's graphs and captures nothing, and
+    its logits (a second prefill after the lease too) are ``torch.equal``
+    to the first one's and to a session without a pool (every step of
+    which replays a graph of its own); a snapshot taken while its source
+    holds the lease captures a graph of its own and steps as its source."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.session import DecodeSession, GraphPool
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(5)
+    prompt, steps = (rng.integers(0, cfg.vocab_size, 12),
+                     rng.integers(0, cfg.vocab_size, 16))
+    extra = rng.integers(0, cfg.vocab_size, 5) if cfg.ssm is None else None
+    with torch.inference_mode():
+        pool = GraphPool(dev)
+        a = _pooled_logits(cfg, params, dev, pool, prompt, steps, extra)
+        captures = pool.captures
+        b = _pooled_logits(cfg, params, dev, pool, prompt, steps, extra)
+        c = _pooled_logits(cfg, params, dev, None, prompt, steps, extra)
+        assert captures == (1 if cfg.ssm is None else 2)
+        assert pool.captures == captures and pool.reuses == captures
+        sess = DecodeSession.create(cfg, params, buf_len=64, device=dev,
+                                    graph_pool=pool)
+        sess.prefill(prompt)
+        br = sess.fork(3)
+        br.step(torch.zeros(3, dtype=torch.long, device=dev))
+        snap = br.snapshot()
+        x = br.step(torch.ones(3, dtype=torch.long, device=dev))
+        y = snap.step(torch.ones(3, dtype=torch.long, device=dev))
+        assert pool.captures == captures + 1
+        for s in (sess, br, snap):
+            s.close()
+    assert len(a) == len(b) == len(c)
+    assert all(torch.equal(p, q) and torch.equal(p, r)
+               for p, q, r in zip(a, b, c))
+    assert torch.equal(x, y)

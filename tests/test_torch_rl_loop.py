@@ -115,8 +115,12 @@ def test_rl_loop_cli_smoke(tmp_path):
     assert res2["stats"].min_version >= 3
 
 
-def test_rl_loop_refuses_compile_cache_dir(capsys):
+def test_rl_loop_refuses_compile_cache_dir(tmp_path, capsys):
+    """``--compile-cache-dir`` is accepted (``tests/test_torch_warmup.py``
+    runs it) unless it names something other than a directory."""
+    path = tmp_path / "a_file"
+    path.write_text("")
     with pytest.raises(SystemExit):
         rl_loop.main(["--arch", "qwen1p5_0p5b", "--smoke", "--device", "cpu",
-                      "--compile-cache-dir", "/nonexistent"])
-    assert "item 7" in capsys.readouterr().err
+                      "--compile-cache-dir", str(path)])
+    assert "not a directory" in capsys.readouterr().err

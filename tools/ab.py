@@ -24,7 +24,11 @@ such as ``build/``), builds that checkout's kernels and runs PHASE:
     the same seeds on both sides, so the median step after the first
     compares like with like; then its profiled step.  A checkout whose
     ``chip_smoke.py`` has no ``vlm_train_cut`` gets the same cut and plans
-    as its ``run_mm`` made them inline.
+    as its ``run_mm`` made them inline;
+  - ``rl_gen``: ``repro_torch.launch.rl_loop.main`` on Qwen2-1.5B at one
+    fixed shape (prompt 1024, K 8, 2 groups x 16 new tokens, 2 rows of
+    4096, STEPS steps at --max-ahead 1): the generation seconds a group,
+    the warm-up seconds and each step's wall.
 
 Every printed line carries TAG.  Run each side in its own process,
 alternating in one chip call (parent, change, change, parent), since the
@@ -89,7 +93,23 @@ def phi3_train(cs, tag: str, steps: int) -> None:
     cs.phase_train(cfg, sft, rl, f"[{tag}] {cs.VLM_ARCH} train", False)
 
 
-PHASES = {f.__name__: f for f in (serve, nemotron, phi3_train)}
+def rl_gen(cs, tag: str, steps: int) -> None:
+    res = cs.rl_loop.main(["--arch", "qwen2_1p5b", "--steps", str(steps),
+                           "--groups", "2", "--k", "8", "--prompt-len",
+                           "1024", "--max-new", "16", "--seq-len", "4096",
+                           "--rows", "2", "--max-ahead", "1"])
+    st = res["stats"]
+    print(f"[{tag}] rl_gen: generation {st.gen_busy_s:.4f} s over "
+          f"{st.trees_generated} groups, "
+          f"{st.gen_busy_s / st.trees_generated:.4f} s a group; warm-up "
+          f"{res['warmup_s']:.3f} s; step walls ms "
+          f"{[round(m['wall_ms'], 1) for m in res['history']]}; decode "
+          f"graphs captured in the loop "
+          f"{res.get('captures_in_loop', 'not counted')}  [{cs.CARD}]",
+          flush=True)
+
+
+PHASES = {f.__name__: f for f in (serve, nemotron, phi3_train, rl_gen)}
 
 
 def main(root: str, tag: str, phase: str, steps: int) -> None:
