@@ -96,6 +96,31 @@ Phases, each of which ends the run non-zero if it fails:
                   one row of 8192, kernels both: (a) 4 layers f32, loss
                   1e-5, grads max-rel 1e-4; (b) 28 layers bf16, loss 1e-2,
                   gradient relative L2 5e-2.
+ 10a. data parallel — (a) a world of 1 over NCCL (``torch.distributed``,
+                  a file store) at full width, 28 layers bf16: the packed
+                  plan's and the wave plan's grads through the engine on
+                  the data axis (``sharding.use_mesh``) ``torch.equal`` to
+                  the engine's with no process group; 3 steps on the
+                  axis, their launches counted from 0 just before them
+                  (28 of each kernel a step), one host sync each (step 1
+                  audited as in phase 6), their median beside phase 6's;
+                  one profiled step's reduction over the axis (device ms
+                  of the kernels in ``engine.REDUCE_SPAN``, and the bytes
+                  summed; at one rank NCCL sums nothing across cards).
+                  (b) a world of 2 spawned from the script (NCCL where
+                  the machine shows two devices, else gloo on the one
+                  card; printed; started with the phase, let go after
+                  (a)), 4 layers f32, 2 steps: phase 6's first plan, then
+                  the waves stream's first plan at num_replicas 2 that
+                  has a parent row on the other rank (the captures'
+                  all-gather and the cotangents' reduce-scatter cross
+                  ranks): each step's grads on the axis within 1e-4
+                  max-rel of world 1's at the same params (rank 0),
+                  params torch.equal across ranks after the steps, each
+                  kernel's launches a step on each rank as
+                  ``step_launches`` says, the engine's one host sync a
+                  step.  A rank that fails or outlives DP_TIMEOUT_S
+                  fails the run.
  11. timing     — each kernel, its plain version and one library call, at
                   the serving path's two shapes A and B (forward) and at
                   the training shape T (all three), and at W (a gateway
@@ -240,18 +265,21 @@ each at full width and depth, once the other archs' tensors are freed:
                   first plan of phase 28's stream (partition waves), at
                   SSM_DETERMINISM_LAYERS layers (8: Zamba2's shared
                   block applied twice).
- 28. <arch> waves — phase 8 at full depth on SSM_WAVE_BATCHES generator
+ 28. <arch> waves — phase 8 at half depth (SSM_WAVE_DEPTH: 12, 12 and 19
+                  layers) on SSM_WAVE_BATCHES generator
                   batches: chunk-aligned partitions and waves (auto
                   capacity, a multiple of the chunk), the chunk-padding
                   share per step, no profiled step; launches 0 for RWKV6
                   and GDN, for Zamba2 each kernel per application of the
                   shared block: forward 2 a wave (sweep and remat), dq
                   and dk/dv 1; at least 2 steps, 2 waves in some step.
- 29. <arch> wave parity — phase 10, chunk-aligned, (b) at full depth;
-                  (b)'s gradient bar is 5e-2, SSM_WAVE_L2 for Zamba2
-                  (1e-1); two broken partitioned runs are reported, and
-                  where the bar is raised the one with its relayed
-                  conv/shift tails zeroed must miss it.
+ 29. <arch> wave parity — phase 10, chunk-aligned, (b) at phase 28's
+                  depth on its trained weights (half depth since a run
+                  took 1163.6 s of the 1200 s limit on a slow host);
+                  (b)'s gradient bar is 5e-2 for all three (Zamba2's
+                  bar was 1e-1 at full depth, where its bf16 waves
+                  drift 5.7e-2-6.6e-2; at 19 layers 2.750e-2); two
+                  broken partitioned runs are reported.
  30. <arch> train parity — 4 layers f32: (a) kernel vs plain (Zamba2),
                   (b) tree vs per-branch baseline (tree state routing),
                   loss 1e-5, grads max-rel 1e-4.
@@ -336,17 +364,21 @@ import dataclasses
 import gzip
 import json
 import math
+import multiprocessing as mp
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -419,6 +451,11 @@ TRAIN_GEN = dict(num_turns=3, turn_len_range=(64, 256))
 WAVE_GEN = dict(num_turns=3, turn_len_range=(256, 1536), max_parallel_tools=2)
 WAVE_BATCHES, WAVE_TREES, WAVE_SEED, WAVE_LOOKAHEAD = 4, 2, 1, 2
 WAVE_MIN_ANC = 2048           # some gateway wave must carry this many
+# the data parallel phase: (a)'s steps on the axis; (b)'s world of 2:
+# depth (f32), steps (a packed plan, then a wave plan), and how long a
+# rank may take before the run fails
+DP_WORLD1_STEPS = 3
+DP_LAYERS, DP_STEPS, DP_TIMEOUT_S = 4, 2, 180
 PARITY_CAP, PARITY_ROW, PARITY_TOKENS = 2048, 8192, (6000, 8000)
 # the async tree-RL loop (rl_loop.main), Qwen2-1.5B: RL_K branches on a
 # prompt of RL_PROMPT, RL_LOOP_STEPS steps at --max-ahead 1 (steps
@@ -463,18 +500,17 @@ PARITY_LAYERS = 4
 SSM_ARCHS = ("rwkv6_1p6b", "qwen3p5_gdn_2b", "zamba2_1p2b")
 HYBRID_ARCH, SSM_SFT_STEPS, SSM_PARITY_TOKENS = "zamba2_1p2b", 3, 256
 # each SSM arch also trains SSM_WAVE_BATCHES generator batches of the waves
-# phase's trees (6k-16k tokens) through chunk-aligned partition waves
-SSM_WAVE_BATCHES = 3
+# phase's trees (6k-16k tokens) through chunk-aligned partition waves, at
+# half its depth (SSM_WAVE_DEPTH of it), and holds its wave parity there
+# on the weights those steps trained: at full depth the three waves
+# phases took 129 s of a 1276 s run on a slow host, the wave parity
+# phases 85 s of a 1164 s run on another, and the data parallel phase
+# needed the room under the 1200 s limit
+SSM_WAVE_BATCHES, SSM_WAVE_DEPTH = 3, 0.5
 # their determinism check (a packed and a wave plan) runs at this cut, as
 # deep as Zamba2's first two applications of its shared block need, to
 # keep the script inside its time limit
 SSM_DETERMINISM_LAYERS = 8
-# their wave parity (b)'s gradient bar, where it is not phase 10's 5e-2:
-# Zamba2's bf16 partitioned tree is 5.7e-2-6.6e-2 from its bf16 whole tree
-# (the reference's own bf16 waves drift as far: tests/test_torch_ssm_bf16.py),
-# while a planted gateway fault (zeroed tails) lands at 1.6e-1; where the
-# bar is raised, that fault must miss it
-SSM_WAVE_L2 = {"zamba2_1p2b": 1e-1}
 # control d of the SSM serve parity: each SSM mixer's step output x this
 SSM_CONTROL_SCALE = 1.02
 # the archs' head dims whose f32 (simple) kernels the arch phases hold at
@@ -1594,7 +1630,8 @@ def phase_train(cfg, sft, rl, tag: str = "train", baseline: bool = True):
 
 
 def profile_step(step, name: str = "train_step_trace",
-                 what: str = "train step", annotations: tuple = ()):
+                 what: str = "train step", annotations: tuple = (),
+                 stats: dict = None):
     """Run ``step`` (one train step, or ``what``) once under torch.profiler
     with CUDA activity and print, from its Chrome trace: the 15 CUDA
     kernels with the most device time (name, calls, ms, share of the step's
@@ -1602,7 +1639,7 @@ def profile_step(step, name: str = "train_step_trace",
     kernel, memcpy and memset intervals over the host-clock span of the
     step, which must end in a host sync.  The trace is kept, gzipped, as
     build/<name>.json.gz (``build/`` is not committed).  Returns ``step``'s
-    result."""
+    result; ``stats`` takes {annotation: (kernels, device ms)}."""
     from torch.profiler import ProfilerActivity, profile, record_function
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1617,7 +1654,9 @@ def profile_step(step, name: str = "train_step_trace",
     raw = path.read_bytes()
     path.unlink()
     (out_dir / f"{name}.json.gz").write_bytes(gzip.compress(raw))
-    report_trace(json.loads(raw)["traceEvents"], what, annotations)
+    ann = report_trace(json.loads(raw)["traceEvents"], what, annotations)
+    if stats is not None:
+        stats.update(ann)
     return out
 
 
@@ -1628,7 +1667,8 @@ def report_trace(trace_events, what: str = "train step",
     holds one ``train_step`` annotation; ``annotations`` names
     ``record_function`` ranges whose kernels' device time is reported;
     ``gaps``: that many longest idle gaps of the device in the window;
-    ``by_stream``: kernel time by CUDA stream."""
+    ``by_stream``: kernel time by CUDA stream.  Returns {annotation:
+    (kernels, device ms)}."""
     events = [e for e in trace_events if e.get("ph") == "X"]
     marks = [e for e in events if e.get("name") == "train_step"
              and e.get("cat") == "user_annotation"]
@@ -1637,7 +1677,7 @@ def report_trace(trace_events, what: str = "train step",
     if not marks or not dev:
         log(f"profile: the trace holds {len(marks)} step marks and "
             f"{len(dev)} device events: no device breakdown")
-        return
+        return {}
     t0 = marks[0]["ts"]
     t1 = t0 + marks[0]["dur"]
     spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
@@ -1740,6 +1780,7 @@ def report_trace(trace_events, what: str = "train step",
             f"{op[:110]}")
     # device time of the kernels launched inside each named annotation
     # (e.g. the gateway's K/V concatenation, models/attention.py)
+    ann = {}
     for label in annotations:
         spans = {}
         for e in events:
@@ -1755,6 +1796,7 @@ def report_trace(trace_events, what: str = "train step",
         log(f"profile: kernels launched inside '{label}': "
             f"{sum(map(len, spans.values()))} calls, {n} kernels, "
             f"{d / 1e3:.3f} ms ({100 * d / win:.2f}% of the window)")
+        ann[label] = (n, d / 1e3)
     # the layer stacks' gradients: one unbind per stack leaf and forward
     # (its backward stacks the layers' grads), or a select per layer
     log("profile: the layer stacks' gradient nodes (kernels, ms, share of "
@@ -1763,6 +1805,7 @@ def report_trace(trace_events, what: str = "train step",
             f"{by_op.get(op, (0, 0.0))[1] / 1e3:.3f} ms / "
             f"{100 * by_op.get(op, (0, 0.0))[1] / win:.1f}%"
             for op in ("UnbindBackward0", "SelectBackward0")))
+    return ann
 
 
 def grads_rel(ga, gb):
@@ -1914,6 +1957,16 @@ def wave_config(cfg):
     return lc, pc
 
 
+def step_launches(L: int, P: int, W: int) -> dict:
+    """Each kernel's launches in one engine step (on one rank) of a plan
+    with P packed executions and W waves, L attention layers: a forward,
+    dq and dk/dv a layer an execution, and a wave's forward twice (the
+    sweep and the backward's recompute)."""
+    return {"tree_attention_fwd": L * (P + 2 * W),
+            "tree_attention_bwd_dq": L * (P + W),
+            "tree_attention_bwd_dkv": L * (P + W)}
+
+
 def first_wave_plan(cfg):
     """The first plan of the waves phase's stream (host arrays)."""
     lc, pc = wave_config(cfg)
@@ -1992,7 +2045,8 @@ def wave_pads(plan) -> tuple[int, int]:
 def phase_waves(cfg, params, tag: str = "waves",
                 batches: int = WAVE_BATCHES, profile: bool = True,
                 cached: bool = False):
-    """``cfg`` (Qwen2-1.5B; an SSM arch at full depth) trained through
+    """``cfg`` (Qwen2-1.5B; an SSM arch at SSM_WAVE_DEPTH of its depth)
+    trained through
     ``plans`` on trees larger than a row:
     auto partition, auto capacity, lookahead 2, grafting on, the plans
     built on a background thread and copied to the card by the engine.
@@ -2055,9 +2109,7 @@ def phase_waves(cfg, params, tag: str = "waves",
         dt = time.perf_counter() - t1
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        want = {"tree_attention_fwd": L * (P + 2 * W),
-                "tree_attention_bwd_dq": L * (P + W),
-                "tree_attention_bwd_dkv": L * (P + W)}
+        want = step_launches(L, P, W)
         deltas.append(delta)
         tokens += plan.unique_tokens
         trees += plan.num_trees
@@ -2220,19 +2272,19 @@ GATEWAY_CONTROLS = {
 
 
 def phase_wave_parity(cfg, params, tag: str = "wave parity",
-                      l2_bar: float = 5e-2, controls: bool = False):
+                      controls: bool = False):
     """One tree partitioned at PARITY_CAP (≥ 3 waves, ancestors ≥
     PARITY_CAP tokens) against the same tree whole in one row of
     PARITY_ROW, through the kernels (chunk-aligned for an SSM arch):
     (a) 4 layers f32: loss 1e-5 relative, grads max-rel 1e-4; (b) all
-    layers bf16: loss 1e-2 relative, gradient relative L2 ``l2_bar``.
+    layers bf16: loss 1e-2 relative, gradient relative L2 5e-2.
 
     With ``controls`` (the SSM archs), the GATEWAY_CONTROLS' broken
     partitioned runs follow (b) at the same weights, each held against
-    the bf16 whole tree and reported; where ``l2_bar`` is raised above
-    5e-2, the one with the relayed conv and shift tails zeroed must miss
-    it.  (At the trained RWKV6-1.6B's weights that fault moves (b) by
-    only 5e-3, so it cannot be required to miss 5e-2.)"""
+    the bf16 whole tree and reported.  (At the trained RWKV6-1.6B's
+    weights the zeroed-tails fault moves (b) by 5e-3 to 2e-2, so it
+    cannot be required to miss 5e-2.)"""
+    l2_bar = 5e-2
     tree, parts = parity_tree(cfg)
     cs = chunk_size_of(cfg)
     ser = serialize_tree(tree, chunk_size=cs)
@@ -2282,10 +2334,6 @@ def phase_wave_parity(cfg, params, tag: str = "wave parity",
     check(wa >= 3, f"{tag}: fewer than 3 waves")
     check(la <= 1e-5 and ga <= 1e-4, f"{tag} (a)")
     check(lb <= 1e-2 and l2b <= l2_bar, f"{tag} (b)")
-    if controls and l2_bar > 5e-2:
-        lz, gz = ctl["zeroed tails"]
-        check(not (lz <= 1e-2 and gz <= l2_bar),
-              f"{tag} (b): the zeroed-tails control passed the bar")
 
 
 # --------------------------------------------------------------------------
@@ -2407,6 +2455,333 @@ class StepAudit:
 
     def __exit__(self, *exc):
         TreeTrainEngine.step = self._orig
+
+
+# --------------------------------------------------------------------------
+# the data axis (torch.distributed)
+# --------------------------------------------------------------------------
+
+def dp_store() -> str:
+    """A fresh file for a process group's file store (no port)."""
+    return os.path.join(tempfile.mkdtemp(prefix="dp_"), "store")
+
+
+def phase_data_parallel(cfg, params, sft, wave_plan, step_s: float) -> dict:
+    """(a) ``dp_world1``; (b) a world of 2 (``dp_spawn``), whose ranks
+    start with the phase and wait for (a) to end before they train, so
+    their start-up overlaps (a) and their work does not."""
+    ranks = dp_spawn(cfg, sft)
+    try:
+        res = dp_world1(cfg, params, sft, wave_plan, step_s)
+        torch.cuda.empty_cache()
+        res["world2"] = dp_collect(cfg, ranks)
+    finally:
+        for p in ranks["procs"]:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return res
+
+
+def dp_world1(cfg, params, sft, wave_plan, step_s: float) -> dict:
+    """(a) A world of 1 over NCCL at full width: the packed and the wave
+    plan's grads through the engine on the data axis ``torch.equal`` to
+    the engine's with no process group; then DP_WORLD1_STEPS steps on the
+    axis, counted from 0 just before them and read just after (each kernel
+    ``step_launches`` times a step), one host sync each (step 1 audited as
+    ``phase_train`` audits it), their time beside the train phase's; one
+    profiled step's reduction (device ms, bytes).  At one rank NCCL moves
+    no data, so that device time is the collectives' own cost, not the
+    cost of summing across cards."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch.mesh import host_descriptor
+    dist.init_process_group("nccl", init_method="file://" + dp_store(),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        t0 = time.perf_counter()
+        mesh = host_descriptor().build("cuda")
+        plain = TreeTrainEngine(cfg)
+        for name, plan in (("packed", sft[0]), ("waves", wave_plan)):
+            g0, s0 = plain.accumulate(params, plan)
+            with sh.use_mesh(mesh):
+                g1, s1 = TreeTrainEngine(cfg).accumulate(params, plan)
+            differ = differing(g0, g1)
+            n = len(flatten_tree(g0))
+            same = torch.equal(s0, s1)
+            del g0, g1
+            log(f"data parallel (a, {name}): NCCL world 1, {cfg.name} "
+                f"{cfg.n_layers} layers {cfg.dtype}, "
+                f"{plan.num_executions} executions: {n - len(differ)} of {n} "
+                f"gradient leaves and the scalars "
+                f"{'torch.equal' if same else 'differ'} to the engine with "
+                f"no process group"
+                + (f"; differing: {differ[:6]}" if differ else ""))
+            check(not differ and same, f"data parallel (a, {name}): the "
+                  f"data axis changed the gradients")
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        opt_state = init_opt_state(params)
+        engine = TreeTrainEngine(cfg, OptimizerConfig(
+            lr=3e-4, warmup_steps=2, total_steps=len(sft)))
+        steps = sft[:DP_WORLD1_STEPS]
+        times, per_step = [], []
+        with sh.use_mesh(mesh):
+            reset_launches()
+            for i, plan in enumerate(steps):
+                want = plan_launches(cfg.n_layers, plan)
+                before = launch_counts()
+                t2 = time.perf_counter()
+                if i == 1:
+                    (params, opt_state, m), hidden = count_hidden_syncs(
+                        engine, lambda: engine.step(params, opt_state, plan))
+                else:
+                    params, opt_state, m = engine.step(params, opt_state, plan)
+                times.append(time.perf_counter() - t2)
+                after = launch_counts()
+                per_step.append({k: after[k] - before[k] for k in after})
+                check(math.isfinite(m["loss"]), "data parallel: non-finite "
+                                                "loss")
+                check(engine.host_syncs == i + 1, f"data parallel step {i}: "
+                      f"{engine.host_syncs} host syncs")
+                check(per_step[-1] == want, f"data parallel (a) step {i}: "
+                      f"launches {per_step[-1]}, want {want}")
+            counts = launch_counts()
+            stats = {}
+            t3 = time.perf_counter()
+            params, opt_state, _ = profile_step(
+                lambda: engine.step(params, opt_state, sft[0]),
+                "dp_step_trace", "data-axis train step",
+                (train_engine.REDUCE_SPAN,), stats)
+        n_red, red_ms = stats.get(train_engine.REDUCE_SPAN, (0, math.nan))
+        nbytes = train_engine.reduced_bytes(params)
+        dp_s = statistics.median(times[1:])
+        log(f"data parallel (a): steps on the data axis "
+            f"{', '.join(f'{t:.3f}' for t in times)} s, median after the "
+            f"first {dp_s:.3f} s beside the train phase's {step_s:.3f} s; "
+            f"{engine.host_syncs} host syncs / {len(times) + 1} steps; step "
+            f"1 under set_sync_debug_mode('warn'): {len(hidden)} other "
+            f"synchronizing calls"
+            f"{': ' + '; '.join(sorted(set(hidden))) if hidden else ''}; "
+            f"launches counted from 0 over the {len(steps)} steps {counts}, "
+            f"a step {per_step}; the reduction in the profiled step: "
+            f"{n_red} kernels, {red_ms:.3f} device ms for {nbytes / 1e9:.3f} "
+            f"GB of fp32 slots and scalars (one rank: NCCL sums nothing "
+            f"across cards, so this is the collectives' cost, not the "
+            f"sum's); (a) took {time.perf_counter() - t0:.1f} s: the mesh "
+            f"and the grads' checks {t1 - t0:.1f}, the steps {t3 - t1:.1f}, "
+            f"the profiled step {time.perf_counter() - t3:.1f}")
+        check(not hidden, "data parallel: a step synchronized outside _sync")
+        check(counts == {k: sum(d[k] for d in per_step) for k in counts},
+              f"data parallel (a): launches {counts} beside the steps' "
+              f"{per_step}")
+        return dict(step_s=dp_s, reduce_ms=red_ms, reduce_kernels=n_red,
+                    reduce_bytes=nbytes, launches=per_step)
+    finally:
+        dist.destroy_process_group()
+
+
+def plan_launches(L: int, plan) -> dict:
+    """``step_launches`` of an execution plan."""
+    return step_launches(L, int(plan.packed is not None),
+                         len(plan.partition.waves) if plan.has_waves else 0)
+
+
+def crossing_parents(plan) -> int:
+    """Gateway slots of a plan's waves whose parent row sits on the other
+    rank of a data axis of 2 (contiguous row blocks)."""
+    waves, n = plan.partition.waves, 0
+    for wp in waves:
+        B = wp.batch["tokens"].shape[0]
+        for si, ref in enumerate(wp.parents):
+            pB = waves[ref.wave].batch["tokens"].shape[0]
+            n += wp.slot_rows[si] // (B // 2) != ref.row // (pB // 2)
+    return n
+
+
+def dp_wave_plan(cfg):
+    """The first plan of the waves phase's stream, planned for a data axis
+    of 2 ranks (``num_replicas=2``), that has a gateway slot whose parent
+    row sits on the other rank; returns (plan, such slots).  Every rank
+    plans the same stream from the same seed, as the launcher's ranks do."""
+    lc, pc = wave_config(cfg)
+    pc = dataclasses.replace(pc, num_replicas=2)
+    for ps in plans(cfg, lc, WAVE_BATCHES, pc):
+        plan = ps.execution_plan()
+        if plan.has_waves and crossing_parents(plan):
+            return plan, crossing_parents(plan)
+    raise RuntimeError(f"data parallel (b): none of the waves stream's "
+                       f"first {WAVE_BATCHES} plans has a parent on another "
+                       f"rank")
+
+
+def dp_spawn(cfg, sft) -> dict:
+    """Start (b)'s world of 2 (``dp_rank``): NCCL on two devices where the
+    machine shows two, else gloo on the one card; DP_LAYERS layers in
+    f32, the train phase's first plan and a wave plan.  The ranks wait for
+    the ``go`` file before they train (their start-up, the group, their
+    params and their planning come before it)."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    out = Path(tempfile.mkdtemp(prefix="dp_out_"))
+    ctx = mp.get_context("spawn")
+    cfg4 = cfg.replace(n_layers=DP_LAYERS, dtype="float32")
+    store = dp_store()
+    procs = [ctx.Process(target=dp_rank, args=(
+        r, 2, backend, store, cfg4, sft[0], str(out))) for r in range(2)]
+    for p in procs:
+        p.start()
+    return dict(procs=procs, out=out, backend=backend)
+
+
+def dp_collect(cfg, ranks: dict) -> dict:
+    """(b): let the ranks start (the ``go`` file), wait for them (at most
+    DP_TIMEOUT_S), and check what they wrote: each step's grads on the
+    axis (rank 0's share of the sum, which every rank holds) within 1e-4
+    max-rel of world 1's at the params the step started from, params
+    torch.equal across ranks after the steps, each kernel launched
+    ``plan_launches`` times a step on each rank, and the engine's one
+    host sync a step."""
+    out, procs, backend = ranks["out"], ranks["procs"], ranks["backend"]
+    t0 = time.perf_counter()
+    (out / "go").touch()
+    for p in procs:
+        p.join(max(DP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    alive = [p for p in procs if p.is_alive()]
+    wall = time.perf_counter() - t0
+    check(not alive, f"data parallel (b): {len(alive)} ranks still running "
+                     f"after {DP_TIMEOUT_S} s")
+    check(all(p.exitcode == 0 for p in procs), f"data parallel (b): rank "
+          f"exit codes {[p.exitcode for p in procs]}")
+    res = [json.loads((out / f"rank{r}.json").read_text()) for r in (0, 1)]
+    r0 = res[0]
+    log(f"data parallel (b): world 2 over {backend} on "
+        f"{'two devices' if backend == 'nccl' else 'the one card'}, "
+        f"{cfg.name} {DP_LAYERS} layers f32 ({TRAIN_ROWS} rows of "
+        f"{TRAIN_SEQ}, one a rank): step 1 the train phase's first plan "
+        f"(packed), step 2 the waves stream's first plan at num_replicas 2 "
+        f"with a parent on the other rank ({r0['waves']} waves, "
+        f"{r0['crossing']} gateway slots whose parent row is on the other "
+        f"rank: the captures' all-gather and the cotangents' "
+        f"reduce-scatter move data between the ranks); grads max-rel of "
+        f"world 1 by step {[s['max_rel'] for s in r0['steps']]} (limit "
+        f"1e-4) at {[s['leaf'] for s in r0['steps']]}; loss by step "
+        f"{[s['loss'] for s in r0['steps']]} vs world 1's "
+        f"{[s['loss1'] for s in r0['steps']]}; params after the steps "
+        f"{'torch.equal' if res[1]['params_equal'] else 'differ'} across "
+        f"ranks ({res[1]['leaves_equal']} of {res[1]['leaves']} leaves); "
+        f"launches by rank and step {[r['launches'] for r in res]} (want "
+        f"{r0['want']}); device memory a step's peak added, GB, by rank "
+        f"and step {[r['peak_gb'] for r in res]} beside world 1's "
+        f"accumulate on rank 0 {[s['peak_gb1'] for s in r0['steps']]}; "
+        f"the engine's host syncs {[r['host_syncs'] for r in res]} "
+        f"(its own counter: over gloo every collective on a card's tensor "
+        f"also blocks the host until it ends, which the counter does not "
+        f"see); step s {[r['step_s'] for r in res]}; wall {wall:.1f} s "
+        f"after the ranks were let go")
+    check(r0["crossing"] > 0, "data parallel (b): no parent on another rank")
+    check(all(s["max_rel"] <= 1e-4 for s in r0["steps"]),
+          "data parallel (b): grads")
+    check(res[1]["params_equal"], "data parallel (b): params differ across "
+                                  "ranks")
+    check(all(r["launches"] == r0["want"] for r in res),
+          "data parallel (b): launches")
+    check(all(r["host_syncs"] == DP_STEPS for r in res),
+          "data parallel (b): host syncs")
+    return dict(backend=backend, max_rel=[s["max_rel"] for s in r0["steps"]],
+                launches=[r["launches"] for r in res], wall_s=wall)
+
+
+def dp_rank(rank: int, world: int, backend: str, store: str, cfg, packed,
+            out: str) -> None:
+    """One rank of (b) (a spawned process): joins the group, makes its
+    params and plans the wave plan (``dp_wave_plan``); then, once
+    ``out``/go exists, DP_STEPS steps on the data axis, ``packed`` then
+    the wave plan, each step's launches counted around it; rank 0 first
+    runs each step's plan through the engine with no process group at the
+    params the step starts from (world 1) and holds the step's reduced
+    grads against it.  Writes rank<r>.json to ``out``."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch.mesh import host_descriptor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S),
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    try:
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+        wave, crossing = dp_wave_plan(cfg)
+        plans_ = [packed, wave][:DP_STEPS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while not Path(out, "go").exists():
+            if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                raise TimeoutError("data parallel (b): never let go")
+            time.sleep(0.1)
+        engine = TreeTrainEngine(cfg, OptimizerConfig(
+            lr=3e-4, warmup_steps=1, total_steps=DP_STEPS))
+        plain = TreeTrainEngine(cfg)
+        kept, accumulate = [], engine.accumulate
+
+        def keep(p, plan):
+            kept.append(accumulate(p, plan))
+            return kept[-1]
+
+        engine.accumulate = keep
+        opt = init_opt_state(params)
+        res = dict(crossing=crossing, waves=len(wave.partition.waves),
+                   want=[plan_launches(cfg.n_layers, p) for p in plans_],
+                   launches=[], step_s=[], steps=[], peak_gb=[])
+
+        def added_gb(fn):
+            """(fn's result, the device memory its peak added, GB)."""
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out_ = fn()
+            torch.cuda.synchronize(dev)
+            return out_, round((torch.cuda.max_memory_allocated(dev)
+                                - base) / 1e9, 3)
+
+        with sh.use_mesh(host_descriptor().build("cuda")):
+            for plan in plans_:
+                ref = None
+                if rank == 0:
+                    with sh.use_mesh(None):
+                        ref, ref_gb = added_gb(
+                            lambda: plain.accumulate(params, plan))
+                before = launch_counts()
+                t1 = time.perf_counter()
+                (params, opt, _), gb = added_gb(
+                    lambda: engine.step(params, opt, plan))
+                res["step_s"].append(round(time.perf_counter() - t1, 3))
+                res["peak_gb"].append(gb)
+                after = launch_counts()
+                res["launches"].append({k: after[k] - before[k]
+                                        for k in after})
+                got = kept.pop()
+                if ref is not None:
+                    worst, leaf, _, _ = grads_rel(got[0], ref[0])
+                    res["steps"].append(dict(
+                        max_rel=worst, leaf=leaf, peak_gb1=ref_gb,
+                        loss=round(float(got[1][0]), 6),
+                        loss1=round(float(ref[1][0]), 6)))
+                del got, ref
+        res["host_syncs"] = engine.host_syncs
+        same = []
+        for leaf in tree_leaves(params):
+            buf = leaf.clone()
+            dist.broadcast(buf, src=0)
+            same.append(torch.equal(buf, leaf))
+        res.update(params_equal=all(same), leaves_equal=sum(same),
+                   leaves=len(same))
+        Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
 
 
 def graph_pool_bytes() -> tuple[int, int]:
@@ -4032,16 +4407,20 @@ def run_ssm(timed) -> dict:
         torch.cuda.empty_cache()
         params, counts, deltas, step_s = timed(
             f"{arch} train", phase_ssm_train, cfg, sft, rl, f"{arch} train")
+        del params
+        torch.cuda.empty_cache()
         dcfg = cfg.replace(n_layers=SSM_DETERMINISM_LAYERS)
         timed(f"{arch} determinism", phase_determinism, dcfg,
               init_params(dcfg, torch.Generator(DEV).manual_seed(0)),
               [("packed", sft[0]), ("waves", first_wave_plan(dcfg))],
               f"{arch} determinism")
+        wcfg = cfg.replace(n_layers=round(cfg.n_layers * SSM_WAVE_DEPTH))
         params, w_big, w_launches, w_n, w_pad, w_deltas, w_step = timed(
-            f"{arch} waves", phase_waves, cfg, params, f"{arch} waves",
-            SSM_WAVE_BATCHES, False)
-        timed(f"{arch} wave parity", phase_wave_parity, cfg, params,
-              f"{arch} wave parity", SSM_WAVE_L2.get(arch, 5e-2), True)
+            f"{arch} waves", phase_waves, wcfg,
+            init_params(wcfg, torch.Generator(DEV).manual_seed(0)),
+            f"{arch} waves", SSM_WAVE_BATCHES, False)
+        timed(f"{arch} wave parity", phase_wave_parity, wcfg, params,
+              f"{arch} wave parity", True)
         del params
         torch.cuda.empty_cache()
         timed(f"{arch} train parity", phase_ssm_train_parity, cfg)
@@ -4586,13 +4965,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     params, counts, step_s = timed("train", phase_train, cfg, sft, rl_plans)
+    wave_plan = first_wave_plan(cfg)
     timed("determinism", phase_determinism, cfg, params,
-          [("packed", sft[0]), ("waves", first_wave_plan(cfg))],
-          "determinism", True)
+          [("packed", sft[0]), ("waves", wave_plan)], "determinism", True)
     params, wave_w, wave_launches, wave_n, wave_pad, _, _ = timed(
         "waves", phase_waves, cfg, params, "waves", WAVE_BATCHES, True, True)
     timed("train parity", phase_train_parity, cfg, params)
     timed("wave parity", phase_wave_parity, cfg, params)
+    dp = timed("data parallel", phase_data_parallel, cfg, params, sft,
+               wave_plan, step_s)
     del params
     torch.cuda.empty_cache()
     timing_ab = timed("timing", phase_timing_serve)
@@ -4748,6 +5129,15 @@ def main() -> int:
                           f"Kh 16, bf16, hd 64",
                     path=ta.kernel_path(key, torch.bfloat16, 64),
                     **mm["timing"]["S2"][key]))
+        e["data_parallel"] = dict(
+            shape=f"Qwen2-1.5B: (a) NCCL world 1, {cfg.n_layers} layers "
+                  f"bf16, {DP_WORLD1_STEPS} steps on the train phase's "
+                  f"plans; (b) world 2 over {dp['world2']['backend']}, "
+                  f"{DP_LAYERS} layers f32, {DP_STEPS} steps (packed, "
+                  f"waves)",
+            launches_world1_per_step=[c[name] for c in dp["launches"]],
+            launches_world2_per_rank_per_step=[
+                [c[name] for c in r] for r in dp["world2"]["launches"]])
         e["rl"] = dict(
             shape=f"rl loop: {RL_ARCH}, prompt {RL_PROMPT}, k {RL_K}, "
                   f"{rl['shape']['groups']} groups x "

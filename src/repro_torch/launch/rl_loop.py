@@ -52,6 +52,11 @@ the card the warm-up ends by emptying the allocator's cache, and after
 the loop the run reports the reserved and free device memory and the
 cache flushes (0 required).
 
+The loop runs on one rank: it takes the host descriptor as the
+reference does (``launch/mesh.host_descriptor``), and on a data axis of
+more than one rank (``torchrun``) it raises, since the RL loop and
+serving on a data axis are ROADMAP.md Queue A item 7e-ii.
+
 ``main`` returns the run's record (per-step metrics and the loop's
 totals), which ``chip_smoke.py`` reads.
 """
@@ -69,6 +74,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.plan_cost import CompileCacheSim
 from repro_torch.data.loader import LoaderConfig
 from repro_torch.device import map_tree, resolve_device, tree_leaves
+from repro_torch.launch.mesh import host_descriptor
 from repro_torch.models.model import device_batch, init_params
 from repro_torch.serve.rollout import RolloutConfig, rollout_group
 from repro_torch.serve.service import (AsyncTreeRLService, ServiceConfig,
@@ -229,6 +235,11 @@ def main(argv=None) -> dict:
     if args.ckpt_every is not None and not args.save:
         ap.error("--ckpt-every needs --save (the checkpoint directory)")
 
+    ndata = host_descriptor().data_axis_size
+    if ndata > 1:
+        ap.error(f"the RL loop runs on one rank, not a data axis of {ndata} "
+                 f"ranks: the RL loop and serving on a data axis are "
+                 f"ROADMAP.md Queue A item 7e-ii")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     tree_cap = args.prompt_len + args.k * args.max_new

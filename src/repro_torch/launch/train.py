@@ -37,7 +37,21 @@ stalls on a first use; the run ends with an ``aot-warmup:`` line (engine
 retraces: 0 on an in-universe stream).  ``--compile-cache-dir DIR`` builds
 the kernel libraries into DIR, where a restarted run finds them built.
 
-Not ported (ROADMAP.md Queue A item 7e): ``--mesh``.
+``--mesh host`` (the default) puts a data axis over every rank that
+``torchrun`` starts, one device a rank (``launch/mesh.host_descriptor``;
+NCCL on the card, gloo with ``--device cpu``); without ``torchrun`` the
+run is one process with no process group.  Each rank trains its block of
+every step's rows and the grads are summed over the axis
+(``train/engine``); every rank builds the same plans from the same seed,
+rank 0 prints and saves, and ``--resume`` loads on every rank:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch qwen1p5_0p5b --smoke --steps 3 \
+      --device cpu --mesh host
+
+``--mesh single`` and ``multi`` (the production meshes of 256 and 512
+devices, with a model axis of 16) raise: the model axis at run time is
+ROADMAP.md Queue A item 7e-ii.
 """
 from __future__ import annotations
 
@@ -47,12 +61,16 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core.plan_cost import CompileCacheSim
 from repro_torch.data.loader import LoaderConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (host_descriptor, join_from_env,
+                                     production_descriptor)
 from repro_torch.models.model import init_params
+from repro_torch.sharding import MODEL_AXIS_TODO, use_mesh
 from repro_torch.train.checkpoint import (load_checkpoint, load_meta,
                                           save_checkpoint)
 from repro_torch.train.engine import TreeTrainEngine
@@ -69,9 +87,10 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--mode", default="tree", choices=["tree", "baseline"])
     ap.add_argument("--seq-len", type=int, default=512)
-    ap.add_argument("--rows", type=int, default=2,
-                    help="rows per step (the reference's auto choice on "
-                         "one device is 2)")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="rows per step, a multiple of the data axis "
+                         "(default: the reference's auto choice, "
+                         "max(2, data-axis size))")
     ap.add_argument("--trees", type=int, default=6)
     ap.add_argument("--lookahead", type=int, default=1,
                     help="generator batches the planner bin-packs "
@@ -133,6 +152,12 @@ def main(argv=None) -> None:
                     help="token length range of an agentic/grpo turn "
                          "(longer turns make trees larger than a row, "
                          "which --auto-partition trains)")
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "single", "multi"],
+                    help="host: a data axis over every rank torchrun "
+                         "starts (one process without torchrun); single, "
+                         "multi: the production meshes, whose model axis "
+                         "is ROADMAP item 7e-ii")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None,
@@ -154,13 +179,40 @@ def main(argv=None) -> None:
     if args.ckpt_every is not None and not args.save:
         ap.error("--ckpt-every needs --save (the checkpoint directory)")
 
-    dev = resolve_device(args.device)
+    if args.mesh != "host":
+        d = production_descriptor(multi_pod=args.mesh == "multi")
+        ap.error(f"--mesh {args.mesh} is the {d.shape} mesh of "
+                 f"{d.device_count} devices with a model axis of "
+                 f"{d.axis_size(d.model_axis)}: {MODEL_AXIS_TODO}")
+    dev = join_from_env(resolve_device(args.device))
+    try:
+        with use_mesh(host_descriptor().build(dev.type)
+                      if dist.is_initialized() else None):
+            _train(ap, args, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(ap, args, dev: torch.device) -> None:
+    """The run on this rank's device, inside the launcher's mesh."""
+    desc = host_descriptor()
+    ndata = desc.data_axis_size
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.kind is None:
         args.kind = "grpo" if args.loss_mode == "rl" else "agentic"
-    print(f"[train] arch={cfg.name} family={cfg.family} mode={args.mode} "
-          f"impl={args.impl} loss_mode={args.loss_mode} kind={args.kind} "
-          f"device={dev}")
+    say(f"[train] arch={cfg.name} family={cfg.family} mode={args.mode} "
+        f"impl={args.impl} loss_mode={args.loss_mode} kind={args.kind} "
+        f"device={dev} mesh={desc.name} (data {ndata} x model 1)")
+    if args.rows is None:
+        args.rows = max(2, ndata)
+    elif args.rows % ndata:
+        ap.error(f"--rows {args.rows} was forced but is not a multiple "
+                 f"of the mesh's data axis ({ndata} replicas): batch rows "
+                 f"cannot shard evenly; drop --rows to let the planner "
+                 f"choose, or pick a multiple of {ndata}")
 
     auto_capacity = False
     if str(args.capacity).lower() == "auto":
@@ -208,7 +260,7 @@ def main(argv=None) -> None:
     if args.compile_cache_dir:
         # before any kernel is built or loaded
         d = configure_compile_cache(args.compile_cache_dir)
-        print(f"[train] kernel build directory: {d}")
+        say(f"[train] kernel build directory: {d}")
     params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                          device=dev)
     opt_state = init_opt_state(params)
@@ -216,10 +268,11 @@ def main(argv=None) -> None:
     if args.resume:
         params, opt_state = load_checkpoint(args.resume, params, opt_state)
         done = int(load_meta(args.resume).get("steps", 0))
-        print(f"[train] resumed {args.resume} @ step {done}")
+        say(f"[train] resumed {args.resume} @ step {done}")
 
     pcfg = PlannerConfig(lookahead=args.lookahead,
-                         plan_workers=args.plan_workers, max_rows=args.rows,
+                         plan_workers=args.plan_workers, num_replicas=ndata,
+                         max_rows=args.rows,
                          graft=args.graft, min_graft=args.min_graft)
     svc = None
     if args.aot_warmup:
@@ -227,9 +280,9 @@ def main(argv=None) -> None:
                                opt_state=opt_state, impl=args.impl,
                                sim=CompileCacheSim())
         svc.start(threads=args.warmup_threads)
-        print(f"[train] AOT warmup: {len(svc.signature_list())} universe "
-              f"signatures warming on {args.warmup_threads} background "
-              f"thread(s)")
+        say(f"[train] AOT warmup: {len(svc.signature_list())} universe "
+            f"signatures warming on {args.warmup_threads} background "
+            f"thread(s)")
     engine = TreeTrainEngine(cfg, opt_cfg, impl=args.impl,
                              exec_cache=svc.cache if svc else None,
                              universe=svc.universe if svc else None)
@@ -261,49 +314,50 @@ def main(argv=None) -> None:
                         "oversized": plan.num_oversized,
                         "dropped": plan.dropped})
         if i % args.log_every == 0:
-            print(f"step {i:4d} loss {m['loss']:10.4f} "
-                  f"nll/tok {m['nll']:7.4f} "
-                  f"gnorm {m['grad_norm']:8.3f} "
-                  f"parts {plan.num_oversized:2d} "
-                  f"{dt * 1e3:7.1f}ms", flush=True)
-        if args.ckpt_every and engine.steps_done % args.ckpt_every == 0:
+            say(f"step {i:4d} loss {m['loss']:10.4f} "
+                f"nll/tok {m['nll']:7.4f} "
+                f"gnorm {m['grad_norm']:8.3f} "
+                f"parts {plan.num_oversized:2d} "
+                f"{dt * 1e3:7.1f}ms", flush=True)
+        if args.ckpt_every and engine.steps_done % args.ckpt_every == 0 \
+                and rank == 0:
             save_checkpoint(args.save, params, opt_state,
                             meta={"arch": cfg.name,
                                   "steps": engine.steps_done})
-            print(f"[train] ckpt @ step {engine.steps_done} → {args.save}",
-                  flush=True)
+            say(f"[train] ckpt @ step {engine.steps_done} → {args.save}",
+                flush=True)
     wall = time.time() - t0
     peak = (f", peak device memory "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
             if dev.type == "cuda" else "")
-    print(f"[train] {len(history)} steps, {tokens_done} unique tokens, "
-          f"{dropped_total} dropped trees, {wall:.1f}s wall "
-          f"({engine.host_syncs} host syncs / {len(history)} steps), "
-          f"{padded_total} padded tokens "
-          f"({padded_total / max(tokens_done, 1):.2f}/unique){peak}")
-    print(f"[train] plan-ahead: {pipe.built} plans, "
-          f"{pipe.schedule_s * 1e3:.0f}ms scheduled + "
-          f"{pipe.build_s * 1e3:.0f}ms built / "
-          f"{pipe.exposed_s * 1e3:.0f}ms exposed "
-          f"(lookahead {args.lookahead}, {args.plan_workers} workers)")
+    say(f"[train] {len(history)} steps, {tokens_done} unique tokens, "
+        f"{dropped_total} dropped trees, {wall:.1f}s wall "
+        f"({engine.host_syncs} host syncs / {len(history)} steps), "
+        f"{padded_total} padded tokens "
+        f"({padded_total / max(tokens_done, 1):.2f}/unique){peak}")
+    say(f"[train] plan-ahead: {pipe.built} plans, "
+        f"{pipe.schedule_s * 1e3:.0f}ms scheduled + "
+        f"{pipe.build_s * 1e3:.0f}ms built / "
+        f"{pipe.exposed_s * 1e3:.0f}ms exposed "
+        f"(lookahead {args.lookahead}, {args.plan_workers} workers)")
     if args.auto_partition:
-        print(f"[train] partitioned: {part_trees} oversized trees, "
-              f"{part_tokens} tokens, {dropped_total} dropped")
+        say(f"[train] partitioned: {part_trees} oversized trees, "
+            f"{part_tokens} tokens, {dropped_total} dropped")
     if svc is not None:
         svc.stop()
         st = svc.stats()
-        print(f"[train] aot-warmup: {st['size']} executables "
-              f"({st['compile_s']:.1f}s compile, "
-              f"{svc.prewarmed} prewarmed), engine retraces "
-              f"{engine.retraces}, exposed compile wait "
-              f"{engine.compile_wait_s * 1e3:.0f}ms"
-              + (f", {st['errors']} warmup errors" if st["errors"] else ""))
-    if args.save:
+        say(f"[train] aot-warmup: {st['size']} executables "
+            f"({st['compile_s']:.1f}s compile, "
+            f"{svc.prewarmed} prewarmed), engine retraces "
+            f"{engine.retraces}, exposed compile wait "
+            f"{engine.compile_wait_s * 1e3:.0f}ms"
+            + (f", {st['errors']} warmup errors" if st["errors"] else ""))
+    if args.save and rank == 0:
         save_checkpoint(args.save, params, opt_state,
                         meta={"arch": cfg.name, "steps": engine.steps_done})
         with open(args.save + "/history.json", "w") as f:
             json.dump(history, f)
-        print(f"[train] saved → {args.save}")
+        say(f"[train] saved → {args.save}")
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import AttnCfg
 from repro_torch.models.layers import _dense_init, init_rmsnorm, rmsnorm, rope
 from repro_torch.models.ssm.common import checkpointed
+from repro_torch.sharding import tp_out_proj
 
 NEG_INF = -1e30
 BIG = 1 << 30
@@ -268,7 +269,7 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
     else:
         raise ValueError(f"attention impl {impl!r}: 'ref', 'chunked' or "
                          f"'kernel'")
-    y = o.reshape(B, S, -1) @ params["wo"]
+    y = tp_out_proj(o.reshape(B, S, -1), params["wo"])
     if capture_idx is not None:
         return y, caps
     return y

@@ -6,8 +6,9 @@ Port of ``repro/models/layers.py``: plain functions on tensors, taking the
 reference's parameter dicts (same names, ``x @ W`` orientation) and
 matching its rounding points — fp32 reductions in ``rmsnorm``, fp32 angles
 in ``rope``, fp32 logits from the head.
-The reference's ``tp_out_proj`` is ``h @ w`` without a device mesh, and
-the one-card port has no mesh, so it is a plain matmul here.
+The MLP's output projection is the reference's ``tp_out_proj``
+(``sharding.py``: the plain matmul on a data axis; a model axis is ROADMAP
+item 7e-ii).
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import tp_out_proj
 
 
 # the largest fp32 draw of ``_dense_init``: one layer of Kimi K2's 384
@@ -113,7 +116,7 @@ def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.relu(x @ params["wi_up"])
     else:
         raise ValueError(activation)
-    y = h @ params["wo"]
+    y = tp_out_proj(h, params["wo"])
     if "bo" in params:
         y = y + params["bo"]
     return y

@@ -16,8 +16,19 @@ from repro_torch.models.transformer import (forward, init_params,
                                             layer_groups, loss_and_metrics)
 
 __all__ = ["init_params", "forward", "loss_and_metrics", "batch_arrays",
-           "prepare_batch", "device_batch", "needs_chunks", "chunk_size_of",
-           "max_conv_taps", "layer_groups", "ParamTree"]
+           "prepare_batch", "device_batch", "rank_rows", "row_block",
+           "needs_chunks", "chunk_size_of", "max_conv_taps", "layer_groups",
+           "ParamTree"]
+
+# The batch columns whose leading dim is the row dim, which a data axis
+# splits (``rank_rows``), and the step's columns, which every rank reads
+# whole.  A column in neither set is refused, so a new column cannot be
+# split (or left whole) by accident.
+ROW_COLUMNS = frozenset((
+    "tokens", "pos_ids", "kv_last", "weight", "prev_idx", "valid",
+    "chunk_parent", "prev_pows", "extra_embeds", "extra_valid",
+    "extra_pos", "extra_label", "extra_weight", "anc_pos", "anc_valid"))
+STEP_COLUMNS = frozenset(("num_trees",))
 
 
 def needs_chunks(cfg: ModelConfig) -> bool:
@@ -93,6 +104,36 @@ def device_batch(batch: dict, device) -> dict:
                     device)
     if "chunk_parent" in batch:
         out["chunk_parent"] = batch["chunk_parent"]
+    return out
+
+
+def row_block(B: int, rank: int, size: int) -> tuple[int, int]:
+    """Rank ``rank``'s rows [r·B/R, (r+1)·B/R) of a batch of ``B`` rows on
+    a data axis of ``size`` ranks (the blocks the planner's
+    ``balanced_row_order`` balances); B must be a multiple of R."""
+    if B % size:
+        raise ValueError(f"{B} rows do not split over a data axis of {size} "
+                         f"ranks (the planner pads rows to a multiple of "
+                         f"num_replicas)")
+    n = B // size
+    return rank * n, (rank + 1) * n
+
+
+def rank_rows(batch: dict, rank: int, size: int) -> dict:
+    """This rank's contiguous row block (``row_block``) of every row column
+    of a batch (host arrays or tensors; ``chunk_parent`` stays what it
+    is); ``num_trees`` stays global, the loss normalizer of the whole
+    step."""
+    lo, hi = row_block(batch["tokens"].shape[0], rank, size)
+    out = {}
+    for k, v in batch.items():
+        if k in ROW_COLUMNS:
+            out[k] = v[lo:hi]
+        elif k in STEP_COLUMNS:
+            out[k] = v
+        else:
+            raise KeyError(f"batch column {k!r} is neither a row column nor "
+                           f"a step column (models/model.ROW_COLUMNS)")
     return out
 
 

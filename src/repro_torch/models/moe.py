@@ -15,14 +15,27 @@ order, pads never queue, and a slot past C goes to a spill row (index C)
 that is cut off.  Everything stays on the device with static shapes: no
 boolean-mask indexing, no ``nonzero``, no ``.item()``, so a training step
 keeps its one host sync.
+
+On a data axis (``sharding.use_mesh``) each rank holds a contiguous block
+of the batch's rows, and the layer keeps the whole batch's semantics: C
+comes from the global N, a rank's slots queue behind the lower ranks'
+(its offset per expert the sum of their counts, all-gathered: [R, E]
+integers, one collective a layer), and the aux losses take the global
+counts and valid-token count, so the ranks' losses (each its tokens'
+share) sum to the whole batch's, as do their gradients.  A rank keeps
+exactly the (token, slot) pairs one process holding every row keeps.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.layers import _dense_init
+from repro_torch.sharding import DataAxis, data_axis
 
 
 def init_moe(generator, cfg: MoECfg, d_model: int, activation: str,
@@ -79,11 +92,14 @@ def route(params: dict, cfg: MoECfg, xf: torch.Tensor):
     return logits, probs, top_p, top_e
 
 
-def queue(top_e: torch.Tensor, vmask: torch.Tensor, E: int, C: int):
+def queue(top_e: torch.Tensor, vmask: torch.Tensor, E: int, C: int,
+          axis: Optional[DataAxis] = None):
     """Each (token, slot)'s place in its expert's queue, in (token, slot)
     order over the flattened N·K rows, pads not queueing.  Returns (counts
     [E]: the valid slots that chose each expert, pos_c [N·K] with a dropped
-    or pad slot at the spill row C, keep [N·K] bool).  The masked one-hot
+    or pad slot at the spill row C, keep [N·K] bool).  On a data ``axis``
+    the rows are this rank's block of the batch: the queue runs on from
+    the lower ranks' slots and ``counts`` are the whole batch's.  The masked one-hot
     is laid out [E, N·K], so the cumsum runs along its contiguous last dim:
     down the rows of an [N·K, E] one-hot, PyTorch's outer-dim scan took
     25.5 ms a call at N·K = 65536, a sixth of a 2-layer Qwen3-30B-A3B
@@ -95,8 +111,16 @@ def queue(top_e: torch.Tensor, vmask: torch.Tensor, E: int, C: int):
           & valid[None, :]).to(torch.int32)                   # [E, N·K]
     pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - 1
     pos = torch.gather(pos, 0, e_flat[None, :])[0]
+    counts = oh.sum(1)
+    if axis is not None:
+        every = [torch.empty_like(counts) for _ in range(axis.size)]
+        dist.all_gather(every, counts, group=axis.group)
+        lower = torch.stack(every[:axis.rank]).sum(0) if axis.rank \
+            else torch.zeros_like(counts)
+        pos = pos + lower[e_flat]
+        counts = torch.stack(every).sum(0)
     keep = (pos >= 0) & (pos < C) & valid
-    return oh.sum(1), torch.where(keep, pos, C), keep
+    return counts, torch.where(keep, pos, C), keep
 
 
 def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
@@ -112,8 +136,10 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
     vmask = valid.reshape(N)
     logits, probs, top_p, top_e = route(params, cfg, xf)
 
-    C = capacity(N, cfg)
-    counts, pos_c, keep = queue(top_e, vmask, E, C)
+    axis = data_axis()
+    C = capacity(N if axis is None else N * axis.size, cfg)
+    counts, pos_c, keep = (queue(top_e, vmask, E, C) if axis is None
+                           else queue(top_e, vmask, E, C, axis))
     e_flat = top_e.reshape(N * K)
 
     # each token's row once per slot: an expand, not repeat_interleave,
@@ -148,8 +174,10 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
 
     if not with_aux:
         return y.reshape(B, S, D), {}
-    # aux losses over valid tokens
-    nv = torch.clamp(vmask.sum(), min=1).float()
+    # aux losses over valid tokens (each valid token has K slots, so the
+    # counts give the batch's valid-token count, on a data axis too: this
+    # rank's terms are its share over the whole batch's denominators)
+    nv = torch.clamp(counts.sum() // K, min=1).float()
     frac = counts.float() / (nv * K)
     pmean = (probs * vmask.float()[:, None]).sum(0) / nv
     z = torch.where(vmask, torch.logsumexp(logits, dim=-1) ** 2, 0.0)

@@ -21,8 +21,9 @@ and the cross block ``xattn``.  ``remat="full"`` recomputes each layer
 in the backward (the reference's ``jax.checkpoint`` on its scan body,
 :282-286): every layer that the reference scans, one at a time, but not
 the hybrid's shared block, which the reference applies outside its scan.
-The reference's ``shard_activation`` and ``shard_logits`` are the
-identity without a device mesh, and the one-card port has none.
+The reference's ``shard_activation`` follows every residual add, as
+there (``sharding.py``: the identity on a data axis, where each rank's
+rows are its block of the batch; a model axis is ROADMAP item 7e-ii).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.models.ssm.mamba2 import init_mamba2, mamba2
 from repro_torch.models.ssm.rwkv6 import (init_rwkv6_channelmix,
                                           init_rwkv6_timemix,
                                           rwkv6_channelmix, rwkv6_timemix)
+from repro_torch.sharding import shard_activation
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -184,14 +186,14 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
                               **ssm_kw)
             if cap is not None:
                 t, caps["tm"] = t
-            x = x + t
+            x = shard_activation(x + t)
             cap = None if capspec is None else \
                 {n: {"shift_pos": s["shift_pos"]} for n, s in capspec.items()}
             c = rwkv6_channelmix(p["cm"], rmsnorm(p["ln2"], x, eps),
                                  meta["prev_idx"], gcm.get("shift"), cap)
             if cap is not None:
                 c, caps["cm"] = c
-            return x + c, None, caps
+            return shard_activation(x + c), None, caps
         gs = gw.get("ssm", {})
         cap = None if capspec is None else \
             {n: {"chunk": s["cut_chunk"], "conv_pos": s["conv_pos"]}
@@ -202,10 +204,10 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
                   capture=cap, **ssm_kw)
         if cap is not None:
             y, caps["ssm"] = y
-        x = x + y
+        x = shard_activation(x + y)
         if kind == "gdn":
-            x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
-                        cfg.mlp_activation)
+            x = shard_activation(x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps),
+                                         cfg.mlp_activation))
         return x, None, caps
     if kind == "decoder_cross":
         x = x + attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
@@ -229,7 +231,7 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
                   capture_idx=cap_idx)
     if cap_idx is not None:
         a, caps["attn"] = a
-    x = x + a
+    x = shard_activation(x + a)
     h = rmsnorm(p["ln2"], x, eps)
     aux = None
     if kind == "moe":
@@ -237,7 +239,7 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
         aux = sum(auxd.values())
     else:
         m = mlp(p["mlp"], h, cfg.mlp_activation)
-    return x + m, aux, caps
+    return shard_activation(x + m), aux, caps
 
 
 def _layer(cfg: ModelConfig, *args):
@@ -294,7 +296,7 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
                                   "chunk_parent", "prev_pows", "anc_pos",
                                   "anc_valid") if k in batch}
-    x = embed(params["embed"], batch["tokens"])
+    x = shard_activation(embed(params["embed"], batch["tokens"]))
     gw_in = gw_in or {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":

@@ -38,6 +38,7 @@ from repro_torch.models.ssm.rwkv6 import (init_rwkv6_cache,
                                           rwkv6_channelmix_decode,
                                           rwkv6_timemix_decode)
 from repro_torch.models.transformer import _dtype, _unstack, layer_groups
+from repro_torch.sharding import shard_logits
 
 
 def _attn_cache(L: int, B: int, T: int, cfg: ModelConfig, dt, device) -> dict:
@@ -148,7 +149,8 @@ def _decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 x = _decode_layer(cfg, lp, kind, x, cache_l, pos, write_idx,
                                   cl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from_hidden(params["embed"], params.get("lm_head"), x)[:, 0]
+    return shard_logits(logits_from_hidden(params["embed"],
+                                           params.get("lm_head"), x))[:, 0]
 
 
 def _hybrid_decode(cfg: ModelConfig, params: dict, cache: dict, x, pos,

@@ -31,6 +31,11 @@ the copy; ``WeightStore.get`` makes the reader's stream wait for that event
 and marks the snapshot as used on the reader's stream (``record_stream``),
 so the caching allocator never hands a dropped snapshot's memory to the
 trainer while the generator's queued kernels may still read it.
+
+The generation thread need not re-enter a mesh, as the reference's does
+(``serve/service.py:122-135``): the port's mesh context is module state
+(``sharding.use_mesh``), and the RL loop runs on one rank
+(``launch/rl_loop``; a data axis is ROADMAP item 7e-ii).
 """
 from __future__ import annotations
 

@@ -61,6 +61,7 @@ from repro_torch.device import (DeviceLike, map_tree, resolve_device,
 from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import layer_groups, partition_forward
 from repro_torch.serve.decode import _decode_step, _init_cache
+from repro_torch.sharding import shard_logits
 from repro_torch.train.exec_cache import exec_key
 
 # held while a session captures its decode step into a ``GraphPool``.  A
@@ -301,9 +302,9 @@ class DecodeSession:
         capspecs = {"pf": {"path_idx": torch.arange(P, device=dev)}}
         hidden, _, caps = partition_forward(cfg, self.params, batch, gw,
                                             capspecs, impl)
-        logits = logits_from_hidden(self.params["embed"],
-                                    self.params.get("lm_head"),
-                                    hidden[:, -1:])[:, 0]
+        logits = shard_logits(logits_from_hidden(
+            self.params["embed"], self.params.get("lm_head"),
+            hidden[:, -1:]))[:, 0]
         for gi in range(n_groups):
             grp = self.cache[f"g{gi}"]
             cap = caps[f"g{gi}"]["attn"]["pf"]      # [L, B, P, Kh, hd]

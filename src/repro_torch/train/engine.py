@@ -26,6 +26,19 @@ with the stall in ``compile_wait_s``, and an out-of-universe signature is
 logged.  A wave's fingerprint is taken from its host-side columns and
 capture plans (``wave_key_args``), which determine the gateway and the
 device tensors built from them.
+
+On a data axis (``sharding.use_mesh``, one process a device) every rank
+runs its contiguous block of each execution's rows (``models/model.
+rank_rows``) with the step's global tree count, so the sum over ranks of
+the losses and grads is the whole step's.  ``accumulate`` then sums the
+fp32 grad slots and the scalar vector over the axis (``_reduce``: a fixed
+list of buckets in ``tree_leaves`` order, a slot no local backward reached
+entering as zeros), so every rank applies the same update and the
+parameters stay bit-equal across ranks.  The wave executor exchanges a
+wave's captures (all-gather along rows, after its forward) and the
+cotangents routed onto them (reduce-scatter along rows, before its
+backward), so a child's parent may sit on any rank.  No collective reads
+a device value on the host: the step keeps its one host sync.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gateway import (PartitionPlan, _cut_caps_view,
@@ -46,9 +60,10 @@ from repro_torch.core.gateway import (PartitionPlan, _cut_caps_view,
                                       device_capspecs, grad_slots, map2,
                                       partition_vjp, route_child_cot)
 from repro_torch.core.plan_cost import packed_signature, wave_signature_of
-from repro_torch.device import map_tree, tree_leaves
-from repro_torch.models.model import device_batch
+from repro_torch.device import map_tree, tree_leaves, unflatten_like
+from repro_torch.models.model import device_batch, rank_rows, row_block
 from repro_torch.models.transformer import loss_and_metrics, partition_loss
+from repro_torch.sharding import DataAxis, data_axis
 from repro_torch.train.exec_cache import ExecutableCache, exec_key, executable
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import update
@@ -57,6 +72,12 @@ logger = logging.getLogger(__name__)
 
 # the on-device scalar accumulator: [loss, nll_sum, weight_sum]
 NUM_SCALARS = 3
+
+# the largest bucket of small fp32 grad slots the data axis sums in one
+# collective (a larger slot is summed in place, alone)
+BUCKET_BYTES = 64 << 20
+# the profiler range around that sum (its device time is read from it)
+REDUCE_SPAN = "engine.data_axis_reduce"
 
 
 @dataclass
@@ -196,13 +217,100 @@ def wave_key_args(params, wp) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# The data axis
+# ---------------------------------------------------------------------------
+
+def _local_rows(batch: dict, axis: Optional[DataAxis]) -> dict:
+    return batch if axis is None else rank_rows(batch, axis.rank, axis.size)
+
+
+def _rows(tree, lo: int, hi: int):
+    """Rows [lo, hi) of a wave's gateway, captures or their cotangents
+    (row axis 1 of every leaf: [L, B, …])."""
+    return map_tree(lambda a: a[:, lo:hi], tree)
+
+
+def _gather_rows(tree, axis: DataAxis):
+    """Every rank's rows of ``tree`` (leaves [L, B/R, …]), concatenated
+    in rank order along the row axis: the wave's captures as one rank
+    holding all its rows would have them."""
+    def one(t):
+        parts = [torch.empty_like(t) for _ in range(axis.size)]
+        dist.all_gather(parts, t.contiguous(), group=axis.group)
+        return torch.cat(parts, dim=1)
+    return unflatten_like(tree, [one(t) for t in tree_leaves(tree)])
+
+
+# reduce-scatter of one tensor (``reduce_scatter_tensor`` before torch 2.13)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          None) or dist.reduce_scatter_tensor
+
+
+def _sum_rows(tree, axis: DataAxis, lo: int, hi: int):
+    """Rows [lo, hi) of every leaf of ``tree`` (leaves [L, B, …]) summed
+    over the data axis: one reduce-scatter a leaf along the rows, in
+    ``tree_leaves`` order (the same list of collectives on every rank), so
+    a rank receives only its own block of the sum."""
+    def one(t):
+        x = t.movedim(1, 0).contiguous()
+        out = x.new_empty((hi - lo,) + tuple(x.shape[1:]))
+        _reduce_scatter(out, x, group=axis.group)
+        return out.movedim(0, 1)
+    return unflatten_like(tree, [one(t) for t in tree_leaves(tree)])
+
+
+def _buckets(ts: list, limit: int = BUCKET_BYTES) -> list:
+    """Consecutive runs of ``ts`` of at most ``limit`` bytes (a larger
+    tensor alone)."""
+    out, cur, size = [], [], 0
+    for t in ts:
+        nb = t.numel() * t.element_size()
+        if cur and size + nb > limit:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size += nb
+    if cur:
+        out.append(cur)
+    return out
+
+
+def _reduce(params, acc: list, scal: torch.Tensor, axis: DataAxis):
+    """Sum the fp32 grad slots and the scalar vector over the data axis,
+    in place.  Every slot enters, as zeros where no backward of this rank
+    reached it (another rank's rows may have), so every rank issues the
+    same collectives in the same order: the slots in ``tree_leaves`` order
+    and the scalars last, in buckets of up to ``BUCKET_BYTES``."""
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           if a is None else a for p, a in zip(tree_leaves(params), acc)]
+    for bucket in _buckets(acc + [scal]):
+        if len(bucket) == 1:
+            dist.all_reduce(bucket[0], group=axis.group)
+            continue
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=axis.group)
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+    return acc, scal
+
+
+def reduced_bytes(params) -> int:
+    """Bytes one step sums over the data axis: an fp32 slot a parameter
+    leaf, and the scalar vector."""
+    return 4 * (sum(p.numel() for p in tree_leaves(params)) + NUM_SCALARS)
+
+
+# ---------------------------------------------------------------------------
 # Partition-plan executor (the runtime half of core/gateway's planner)
 # ---------------------------------------------------------------------------
 
 def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
                        acc: list, scal: torch.Tensor, *, impl: str = "kernel",
                        loss_scale: float = 1.0,
-                       exec_lookup: Optional[Callable] = None
+                       exec_lookup: Optional[Callable] = None,
+                       axis: Optional[DataAxis] = None
                        ) -> tuple[list, torch.Tensor]:
     """Execute a PartitionPlan: a forward sweep in wave order without
     autograd (assembling each fragment's gateway from its parent's
@@ -224,9 +332,20 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
 
     ``exec_lookup(variant, sig, fn, args, key_args)`` (the engine's
     executable-cache resolver) runs each wave's forward and backward
-    through the cache; None calls them directly."""
+    through the cache; None calls them directly.
+
+    On a data ``axis`` this rank runs its row block of every wave and
+    returns its share of ``acc`` and ``scal`` (``accumulate`` sums them).
+    The gateways are assembled for all of a wave's rows on every rank and
+    sliced; each wave's captures are all-gathered along rows after its
+    forward, so any rank can assemble any child's gateway; and the
+    cotangents a rank's children route onto a wave's captures and gateway
+    are summed over the axis before that wave's backward, each rank
+    receiving its own rows of the sum (a reduce-scatter; a wave no child
+    refers to exchanges nothing)."""
     dev = scal.device
     st: list[dict] = []
+    parents_of = {ref.wave for wp in plan.waves for ref in wp.parents}
     fwd, bwd = _wave_fwd_fn(cfg, impl), _wave_bwd_fn(cfg, impl)
 
     def resolve(variant, wp, fn, args):
@@ -239,7 +358,10 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
     # ---- forward sweep, wave order ---------------------------------------
     with torch.no_grad():
         for wp in plan.waves:
-            batch = device_batch(wp.batch, dev)
+            Bb = wp.batch["tokens"].shape[0]
+            lo, hi = (0, Bb) if axis is None else \
+                row_block(Bb, axis.rank, axis.size)
+            batch = device_batch(_local_rows(wp.batch, axis), dev)
             capspecs = device_capspecs(wp.capspecs, dev,
                                        wp.batch["tokens"].shape[1])
             gw = None
@@ -254,38 +376,55 @@ def run_partition_plan(cfg: ModelConfig, params: dict, plan: PartitionPlan,
                                                ref.row, ref.path_len)
                     rows_gw.append(
                         assemble_child_gw(cfg, p_gw_row, caps_view, cname))
-                gw = _stack_gw_rows(rows_gw, wp.anc_A_max,
-                                    batch["tokens"].shape[0],
+                gw = _stack_gw_rows(rows_gw, wp.anc_A_max, Bb,
                                     rows_idx=wp.slot_rows)
+            gw_local = gw if gw is None or axis is None else \
+                _rows(gw, lo, hi)
             caps, scal = resolve("wave.fwd", wp, fwd,
-                                 (params, batch, gw, capspecs, scal,
+                                 (params, batch, gw_local, capspecs, scal,
                                   loss_scale))
-            st.append(dict(batch=batch, capspecs=capspecs, gw=gw, caps=caps,
+            if axis is not None:
+                caps = _gather_rows(caps, axis)
+            st.append(dict(batch=batch, capspecs=capspecs, gw=gw,
+                           gw_local=gw_local, caps=caps, rows=(lo, hi),
                            cot_gw=None, cot_cut={}))
 
     # ---- backward sweep, reverse wave order ------------------------------
     for w in reversed(range(len(plan.waves))):
         wp, s = plan.waves[w], st[w]
+        lo, hi = s["rows"]
         with torch.no_grad():
             cot_caps = map_tree(torch.zeros_like, s["caps"])
             for cname, (r, cot_view) in s["cot_cut"].items():
                 _embed_cut_cot(cot_caps, cot_view, cname, r)
+            cot_gw = s["cot_gw"]
+            if axis is not None and w in parents_of:
+                cot_caps = _sum_rows(cot_caps, axis, lo, hi)
+                if s["gw"] is not None:
+                    cot_gw = _sum_rows(_zeros_f32(s["gw"]) if cot_gw is None
+                                       else cot_gw, axis, lo, hi)
+            elif axis is not None:      # no child: nothing routed onto it
+                cot_caps = _rows(cot_caps, lo, hi)
+            if axis is not None:
+                cot_caps = map_tree(lambda a: a.contiguous(), cot_caps)
         cot_loss = torch.full((), loss_scale, dtype=torch.float32,
                               device=dev)
         g_gw = resolve("wave.bwd", wp, bwd,
-                       (params, s["batch"], s["gw"], s["capspecs"], cot_loss,
-                        cot_caps, acc))
+                       (params, s["batch"], s["gw_local"], s["capspecs"],
+                        cot_loss, cot_caps, acc))
         del cot_caps
         with torch.no_grad():
             if wp.has_gw:
-                if s["cot_gw"] is not None:
-                    g_gw = map2(lambda a, b: a.float() + b, g_gw,
-                                s["cot_gw"])
+                if cot_gw is not None:
+                    g_gw = map2(lambda a, b: a.float() + b, g_gw, cot_gw)
                 for si, ref in enumerate(wp.parents):
                     row = wp.slot_rows[si]
+                    if not lo <= row < hi:     # another rank's child
+                        continue
                     stp, pwp = st[ref.wave], plan.waves[ref.wave]
                     cname = f"c{ref.cut}"
-                    cot_child_row = _slice_gw_row(g_gw, row, wp.A_real[row])
+                    cot_child_row = _slice_gw_row(g_gw, row - lo,
+                                                  wp.A_real[row])
                     p_gw_row = None if stp["gw"] is None else _slice_gw_row(
                         stp["gw"], ref.row, pwp.A_real[ref.row])
                     caps_view = _cut_caps_view(cfg, stp["caps"], cname,
@@ -379,13 +518,15 @@ class TreeTrainEngine:
         """Run the plan's executions; returns ``(grads, scal)`` — the fp32
         gradient sum (normalized per tree) and the on-device
         ``[loss, nll_sum, weight_sum]`` vector: the loss is a mean over the
-        step's trees, packed and partitioned alike."""
+        step's trees, packed and partitioned alike.  On a data axis each
+        rank runs its rows, and both are summed over the axis here."""
         dev = tree_leaves(params)[0].device
         scal = torch.zeros((NUM_SCALARS,), dtype=torch.float32, device=dev)
         n = max(plan.num_trees, 1)
         acc = grad_slots(params)
+        axis = data_axis()
         if plan.packed is not None:
-            batch = device_batch(plan.packed.inputs, dev)
+            batch = device_batch(_local_rows(plan.packed.inputs, axis), dev)
             batch["num_trees"] = n
             B, S = plan.packed.inputs["tokens"].shape
             acc, scal = self._run(
@@ -397,7 +538,10 @@ class TreeTrainEngine:
                 self.cfg, params, plan.partition, acc, scal, impl=self.impl,
                 loss_scale=1.0 / n,
                 exec_lookup=(None if self.exec_cache is None
-                             else self._exec_lookup))
+                             else self._exec_lookup), axis=axis)
+        if axis is not None:
+            with torch.profiler.record_function(REDUCE_SPAN):
+                acc, scal = _reduce(params, acc, scal, axis)
         return acc_tree(params, acc), scal
 
     def _update(self, params, grads, opt_state):

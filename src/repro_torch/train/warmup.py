@@ -29,7 +29,13 @@ an ``ExecutableCache`` key holds is the eager function
 
 Keys for a wave are fingerprinted from the wave's host-side columns and
 capture plans (``train/engine.wave_key_args``), not from the gateway
-tensors that the forward sweep assembles from them.
+tensors that the forward sweep assembles from them.  On a data axis the
+universe is enumerated at ``num_replicas`` = the axis size, and every key
+is the step's global shape (a rank's share follows from it), so the
+engines of all ranks find the keys the planner pre-warmed.  The warm-up
+threads need not re-enter the mesh, as the reference's must
+(``train/warmup.py:383-417``): the port's mesh context
+(``sharding.use_mesh``) is module state.
 
 Run ``python -m repro_torch.train.warmup --persist-probe DIR`` twice to
 measure the restart: each run prints JSON with the number of NEW files it
