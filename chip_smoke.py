@@ -121,6 +121,28 @@ Phases, each of which ends the run non-zero if it fails:
                   ``step_launches`` says, the engine's one host sync a
                   step.  A rank that fails or outlives DP_TIMEOUT_S
                   fails the run.
+ 10b. model parallel — the same two ranks, after (b)'s steps, on a mesh
+                  (data 1, model 2): Megatron tensor parallelism
+                  (``sharding.py``), each rank's blocks drawn from the
+                  seed as world 1 draws its leaves, the kernels at the
+                  rank's heads (H 6 / Kh 1), on ``mp_plans``: a packed
+                  plan and a 3-wave plan, 2 rows of MP_SEQ (1024; every
+                  block boundary's collective goes through the host over
+                  gloo).  (a) 4 layers f32, sequence
+                  parallelism off and on: loss 1e-6 relative and each
+                  rank's grad blocks 1e-4 max-rel of world 1's (each rank
+                  runs the engine with no process group too, at the same
+                  params, and holds its blocks against it), each
+                  kernel launched ``plan_launches`` times by each rank
+                  (4 a packed step).  (b) The same at MP_BF16_LAYERS
+                  layers in bf16 (reduced: the depth at which two ranks'
+                  world 1 runs and blocks fit the card beside the
+                  script's own process, reckoned and printed),
+                  gradient relative L2 5e-2 of world 1's, the kernels on
+                  their Hopper path.  Phases 2-3 also hold the kernels at
+                  the model axis's head layouts, H 6 / Kh 1 and H 8 / Kh
+                  2 at hd 128 (Qwen2-1.5B at model 2, Qwen3-8B at model
+                  4), on the T rows.
  11. timing     — each kernel, its plain version and one library call, at
                   the serving path's two shapes A and B (forward) and at
                   the training shape T (all three), and at W (a gateway
@@ -238,35 +260,39 @@ Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
                   rows; the kernels line names each row's bf16 path.
 
 Then the SSM and hybrid archs (RWKV6-1.6B, the GDN stack, Zamba2-1.2B),
-each at full width and depth, once the other archs' tensors are freed:
+each at full width, once the other archs' tensors are freed:
  23. zamba2 kernel, zamba2 bwd kernel — phases 2-3 at Zamba2's shared
                   attention layout (H 32/Kh 32, hd 64): the serving-width
                   prefill (S 1024, B 1) and the first chunk-aligned train
                   rows (B 2, S 4096; the chunk pads invisible keys, their
                   dk/dv exactly 0), bf16 and f32.
- 24. <arch> serve — one rollout group (prompt 1024, K 8, 64 new tokens)
+ 24. <arch> serve — at half depth (STEP_LOOP_SERVE_DEPTH: 12, 12 and 19
+                  layers): one rollout group (prompt 1024, K 8, 64 new
+                  tokens)
                   and the multi-turn session, prefilled through the step
                   loop: prefill and decode tokens/s, the decode bound, a
                   profiled decode step; no tree-attention kernel launches.
  25. <arch> serve parity — the step loop vs the packed forward on 256
-                  tokens, teacher-forced, at full depth and at 4 layers:
+                  tokens, teacher-forced, at phase 24's depth and at 4
+                  layers:
                   f32 (atol = rtol = 5e-4); bf16, both paths against the
                   f32 forward (the step loop within 1.25x of the bf16
                   forward's distance; at 4 layers also within 3e-2 of the
                   bf16 forward); two broken step loops: bf16 states
                   (reported) and a 2% fault in every SSM mixer's step
                   (must fail).
- 26. <arch> train — 3 SFT and 2 RL steps on chunk-aligned rows (2 of
-                  4096): step time, unique tokens/s, chunk-padding share,
-                  peak memory, one host sync (audited), launches (7 of each
-                  kernel a Zamba2 step, none for the pure SSMs), a
-                  profiled step.
+ 26. <arch> train — at a quarter of its depth (SSM_TRAIN_DEPTH: 6, 6
+                  and 10 layers), 3 SFT and 2 RL steps on chunk-aligned
+                  rows (2 of 4096): step time, unique tokens/s,
+                  chunk-padding share, peak memory, one host sync
+                  (audited), launches (2 of each kernel a Zamba2 step at
+                  10 layers, none for the pure SSMs), a profiled step.
  27. <arch> determinism — phase 7's check on a packed plan and on the
                   first plan of phase 28's stream (partition waves), at
                   SSM_DETERMINISM_LAYERS layers (8: Zamba2's shared
                   block applied twice).
- 28. <arch> waves — phase 8 at half depth (SSM_WAVE_DEPTH: 12, 12 and 19
-                  layers) on SSM_WAVE_BATCHES generator
+ 28. <arch> waves — phase 8 at a quarter of its depth (SSM_WAVE_DEPTH:
+                  6, 6 and 10 layers) on SSM_WAVE_BATCHES generator
                   batches: chunk-aligned partitions and waves (auto
                   capacity, a multiple of the chunk), the chunk-padding
                   share per step, no profiled step; launches 0 for RWKV6
@@ -274,8 +300,9 @@ each at full width and depth, once the other archs' tensors are freed:
                   shared block: forward 2 a wave (sweep and remat), dq
                   and dk/dv 1; at least 2 steps, 2 waves in some step.
  29. <arch> wave parity — phase 10, chunk-aligned, (b) at phase 28's
-                  depth on its trained weights (half depth since a run
-                  took 1163.6 s of the 1200 s limit on a slow host);
+                  depth on its trained weights (a quarter of the depth:
+                  at half depth a run passed the 1200 s limit on a slow
+                  host);
                   (b)'s gradient bar is 5e-2 for all three (Zamba2's
                   bar was 1e-1 at full depth, where its bf16 waves
                   drift 5.7e-2-6.6e-2; at 19 layers 2.750e-2); two
@@ -310,7 +337,8 @@ at full width, once the SSM archs' tensors are freed:
                   Δ, two launches bit-identical, invisible keys' dk/dv
                   exactly 0, the dk/dv schedule against its plain
                   version).
- 34. <arch> serve — full depth, bf16: Seamless's encoder over its 1024
+ 34. <arch> serve — half depth (STEP_LOOP_SERVE_DEPTH: Seamless 12 + 12
+                  layers, Phi-3 16), bf16: Seamless's encoder over its 1024
                   frames drawn from the seed and each decoder layer's
                   cross K/V; one rollout group (prompt 1024, K 8, 64 new
                   tokens; enc_len 0, as the reference's) and the
@@ -323,8 +351,8 @@ at full width, once the SSM archs' tensors are freed:
                   the same frames (atol = rtol = 5e-4), then a
                   ``load_cross`` after the graph was captured must move
                   the later logits (relative L2 > 1e-2) and match an
-                  eager step loop making the same swap (5e-4); full depth
-                  bf16 reported.  Phi-3 at 4 layers f32: its step loop vs
+                  eager step loop making the same swap (5e-4); phase
+                  34's depth in bf16 reported.  Phi-3 at 4 layers f32: its step loop vs
                   the forward of its text decoder (5e-4).
  36. <arch> train, <arch> determinism — phase 6 (no baseline timing) on
                   MM_TRAIN_GEN trees: 2 SFT + 1 RL steps, 2 rows of 4096,
@@ -361,6 +389,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import faulthandler
 import gzip
 import json
 import math
@@ -455,7 +484,17 @@ WAVE_MIN_ANC = 2048           # some gateway wave must carry this many
 # depth (f32), steps (a packed plan, then a wave plan), and how long a
 # rank may take before the run fails
 DP_WORLD1_STEPS = 3
-DP_LAYERS, DP_STEPS, DP_TIMEOUT_S = 4, 2, 180
+DP_LAYERS, DP_STEPS, DP_TIMEOUT_S = 4, 2, 300
+# the model parallel part of (b)'s ranks: a (data 1, model 2) mesh, the
+# bf16 check's depth, its plans' rows of MP_SEQ (every block boundary's
+# collective goes through the host over gloo on one card), the wave
+# plan's trees and capacity, and the head layouts the model axis gives
+# the kernels ((H, Kh) at hd 128: Qwen2-1.5B at model 2, Qwen3-8B at 4)
+MP_SHAPE, MP_BF16_LAYERS, MP_SEQ = (1, 2), 8, 1024
+MP_PACKED_GEN = dict(num_turns=3, turn_len_range=(16, 64))
+MP_WAVE_GEN = dict(num_turns=3, turn_len_range=(64, 256),
+                   max_parallel_tools=2)
+MP_HEADS = ((6, 1), (8, 2))
 PARITY_CAP, PARITY_ROW, PARITY_TOKENS = 2048, 8192, (6000, 8000)
 # the async tree-RL loop (rl_loop.main), Qwen2-1.5B: RL_K branches on a
 # prompt of RL_PROMPT, RL_LOOP_STEPS steps at --max-ahead 1 (steps
@@ -490,10 +529,11 @@ ARCHS = ("qwen3_8b", "qwen3_32b", "llama4_scout_17b_a16e", "kimi_k2_1t_a32b",
          "nemotron_4_340b")
 TRAIN_ARCH, TRAIN_LIMIT, TRAIN_ACT_BYTES = "qwen3_32b", 60e9, 1.9e9
 PARITY_LAYERS = 4
-# the SSM and hybrid archs, each at full width and depth: served (one
-# rollout group and the session, prefilled through the step loop),
-# teacher-forced step loop vs packed forward (SSM_PARITY_TOKENS, f32 and
-# bf16 at full depth and at PARITY_LAYERS layers), trained on chunk-aligned
+# the SSM and hybrid archs, each at full width: served (one rollout group
+# and the session, prefilled through the step loop, at
+# STEP_LOOP_SERVE_DEPTH of their depth), teacher-forced step loop vs
+# packed forward (SSM_PARITY_TOKENS, f32 and bf16 at that depth and at
+# PARITY_LAYERS layers), trained on chunk-aligned
 # rows (SSM_SFT_STEPS + RL_STEPS), held tree vs baseline at PARITY_LAYERS
 # layers in f32, and checked for deterministic grads; Zamba2's shared
 # attention block runs the three kernels at H 32/Kh 32, hd 64
@@ -501,12 +541,21 @@ SSM_ARCHS = ("rwkv6_1p6b", "qwen3p5_gdn_2b", "zamba2_1p2b")
 HYBRID_ARCH, SSM_SFT_STEPS, SSM_PARITY_TOKENS = "zamba2_1p2b", 3, 256
 # each SSM arch also trains SSM_WAVE_BATCHES generator batches of the waves
 # phase's trees (6k-16k tokens) through chunk-aligned partition waves, at
-# half its depth (SSM_WAVE_DEPTH of it), and holds its wave parity there
-# on the weights those steps trained: at full depth the three waves
-# phases took 129 s of a 1276 s run on a slow host, the wave parity
-# phases 85 s of a 1164 s run on another, and the data parallel phase
-# needed the room under the 1200 s limit
-SSM_WAVE_BATCHES, SSM_WAVE_DEPTH = 3, 0.5
+# a quarter of its depth (SSM_WAVE_DEPTH of it), and holds its wave parity
+# there on the weights those steps trained; its train phase runs at the
+# same cut (SSM_TRAIN_DEPTH).  The partitions and waves depend on the
+# trees' sizes only, not on the depth.  At full depth the three waves
+# phases took 129 s of a 1276 s run on a slow host and the three train
+# phases 119.0 s of a 1138.8 s run; at half depth a run on a slow host
+# still passed the 1200 s limit.  Full-depth SSM training stays in the
+# Zamba2 RL loop.
+SSM_WAVE_BATCHES, SSM_WAVE_DEPTH = 3, 0.25
+SSM_TRAIN_DEPTH = 0.25
+# the archs whose sessions prefill through the step loop (the SSM, hybrid,
+# enc-dec and VLM archs) serve, and hold the step loop against the
+# forward, at this share of their depth: at full depth their five serve
+# phases took 89.6 s of a 928.5 s run
+STEP_LOOP_SERVE_DEPTH = 0.5
 # their determinism check (a packed and a wave plan) runs at this cut, as
 # deep as Zamba2's first two applications of its shared block need, to
 # keep the script inside its time limit
@@ -517,8 +566,8 @@ SSM_CONTROL_SCALE = 1.02
 # the archs' shapes: hd 192 (Nemotron-4 340B), which no other phase runs
 # at a real size; hd 128's f32 path is held at Qwen2-1.5B's shapes
 ARCH_F32_HEAD_DIMS = (192,)
-# the enc-dec and VLM archs, at full width: each serves at full depth in
-# bf16 (one rollout group and the session, prefilled through the step loop
+# the enc-dec and VLM archs, at full width: each serves at
+# STEP_LOOP_SERVE_DEPTH of its depth in bf16 (one rollout group and the session, prefilled through the step loop
 # as the reference does; SeamlessM4T's encoder first runs over its
 # frontend_len (1024) frames drawn from the seed and its session holds each decoder layer's
 # cross K/V), trains MM_SFT_STEPS + MM_RL_STEPS steps on planner rows of
@@ -534,6 +583,8 @@ MM_TRAIN_GEN = dict(num_turns=2, turn_len_range=(64, 256))
 # elements (4 GB in f32) a call
 PLAIN_CHUNK = 1 << 30
 DEV = "cuda"
+# the run's own limit, inside the 1200 s a caller allows it with its start-up
+WATCHDOG_S = 1150
 CARD = ""
 # {source: {kernel instance: its ptxas and SASS numbers}}, from phase_build
 INSTANCES: dict = {}
@@ -604,9 +655,18 @@ def tree_rows(seed: int, B: int, S: int, fill: float = 0.75):
     return np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])
 
 
+def randn(rng, shape, dtype) -> torch.Tensor:
+    """N(0, 1) values of ``shape`` in ``dtype``, drawn in f32 on the card by
+    a generator seeded from ``rng`` (drawing them on the host took tens of
+    seconds a run)."""
+    g = torch.Generator(DEV).manual_seed(int(rng.integers(1 << 62)))
+    return torch.randn(tuple(shape), generator=g, device=DEV).to(dtype)
+
+
 def qkv(rng, B, S, Skv, H, Kh, hd, dtype):
-    mk = lambda *sh: torch.tensor(rng.normal(size=sh), dtype=dtype, device=DEV)
-    return mk(B, S, H, hd), mk(B, Skv, Kh, hd), mk(B, Skv, Kh, hd)
+    return (randn(rng, (B, S, H, hd), dtype),
+            randn(rng, (B, Skv, Kh, hd), dtype),
+            randn(rng, (B, Skv, Kh, hd), dtype))
 
 
 def i32(a) -> torch.Tensor:
@@ -647,9 +707,11 @@ def case_adder(rng, cases: list):
     return add
 
 
-def kernel_cases(train_kv_last=None):
+def kernel_cases(train_kv_last=None, tp_kv_last=None):
     """(name, dtype, q, k, v, kv_last, q_off, window, pos_q, pos_k).  With
-    ``train_kv_last`` the training shape T (its real kv_last) comes last."""
+    ``tp_kv_last`` the model axis's head layouts (MP_HEADS) on those rows,
+    f32 and bf16; with ``train_kv_last`` the training shape T (its real
+    kv_last) comes last."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     add = case_adder(np.random.default_rng(0), cases)
@@ -684,6 +746,12 @@ def kernel_cases(train_kv_last=None):
         np.full((1, 1024), 1023))
     add("path: tool prefill S=200 q_off=1056 bf16", bf16, 8, 200, 12, 2, 128,
         tool_kv_last(), q_off=1056)
+    if tp_kv_last is not None:
+        B, S = tp_kv_last.shape
+        for H, Kh in MP_HEADS:
+            for dt in (f32, bf16):
+                add(f"model axis H {H}/Kh {Kh} on T (B={B}, S={S}) {dt}", dt,
+                    B, S, H, Kh, 128, tp_kv_last)
     if train_kv_last is not None:
         B, S = train_kv_last.shape
         add(f"train shape T (B={B}, S={S}) bf16", bf16, B, S, 12, 2, 128,
@@ -1110,7 +1178,7 @@ def phase_bwd_kernel(cases) -> dict:
         for name, dt, q, k, v, kl, q_off, window, pq, pk in cases:
             kw = dict(q_off=q_off, window=window, pos_q=pq, pos_k=pk)
             sc = q.shape[-1] ** -0.5
-            do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
+            do = randn(rng, q.shape, dt)
             o, lse = ta.tree_attention(q, k, v, kl, sc, save_residuals=True,
                                        **kw)
             got = tab.tree_attention_bwd(q, k, v, kl, o, lse, do, sc, **kw)
@@ -1221,7 +1289,7 @@ def phase_mask_soundness() -> dict:
             n_dead = int(dead.sum()) // ta.BLOCK_K
             check(n_dead > 0, f"mask soundness {name}: no key tile is dead "
                               f"for every query tile")
-            do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
+            do = randn(rng, q.shape, dt)
 
             def run(k_, v_):
                 o, lse = ta.tree_attention(q, k_, v_, kl, sc,
@@ -2688,7 +2756,8 @@ def dp_collect(cfg, ranks: dict) -> dict:
     check(all(r["host_syncs"] == DP_STEPS for r in res),
           "data parallel (b): host syncs")
     return dict(backend=backend, max_rel=[s["max_rel"] for s in r0["steps"]],
-                launches=[r["launches"] for r in res], wall_s=wall)
+                launches=[r["launches"] for r in res], wall_s=wall,
+                mp=mp_report(res))
 
 
 def dp_rank(rank: int, world: int, backend: str, store: str, cfg, packed,
@@ -2779,9 +2848,164 @@ def dp_rank(rank: int, world: int, backend: str, store: str, cfg, packed,
             same.append(torch.equal(buf, leaf))
         res.update(params_equal=all(same), leaves_equal=sum(same),
                    leaves=len(same))
+        del params, opt, kept
+        torch.cuda.empty_cache()
+        res["mp"] = mp_rank(rank, dev, cfg)
         Path(out, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
+
+
+def mp_bf16_reckoning(cfg) -> str:
+    """The device memory the bf16 check of the model parallel part needs
+    at MP_BF16_LAYERS layers, reckoned from the config: each rank holds
+    world 1's parameters, fp32 grads and activations, and its blocks,
+    their fp32 grads and their activations."""
+    L, D, F, V = MP_BF16_LAYERS, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    layer = cfg.param_count() - 2 * V * D
+    layer //= cfg.n_layers
+    n = 2 * V * D + L * layer
+    tok = TRAIN_ROWS * MP_SEQ
+    # a layer keeps about 8 [tokens, D] and 4 [tokens, F] bf16 tensors
+    act = L * tok * (8 * D + 4 * F) * 2
+    rank = n * (2 + 4) + act + (n * (2 + 4) + act) // 2
+    return (f"{L} layers bf16: world 1 {n / 1e9:.3f} B params; a rank "
+            f"~{rank / 1e9:.1f} GB (world 1's params, fp32 grads and "
+            f"activations, and its blocks'), two ranks beside the script's "
+            f"own process")
+
+
+def mp_block_rel(got, ref, first: bool):
+    """This rank's blocks of the model axis's grads ``got`` against world
+    1's full grads ``ref``: (the largest max|a - b| / max|b| over a leaf,
+    that leaf, Σ (a - b)², Σ b²), the sums over this rank's blocks of the
+    model-sharded leaves and, on the ``first`` rank only, the replicated
+    leaves (whole and equal on every rank)."""
+    from repro_torch import sharding as sh
+    worst, wleaf, num, den = 0.0, "", 0.0, 0.0
+    mine = sh.local_params(ref)
+    for (path, a), b, full in zip(flatten_tree(got), tree_leaves(mine),
+                                  tree_leaves(ref)):
+        a, b = a.float(), b.float()
+        d = float((a - b).abs().max() / full.float().abs().max()
+                  .clamp_min(1e-30))
+        if d > worst:
+            worst, wleaf = d, "/".join(map(str, path))
+        if first or sh.model_dim(path, a.dim()) is not None:
+            num += float((a - b).pow(2).sum())
+            den += float(b.pow(2).sum())
+    return worst, wleaf, num, den
+
+
+def mp_plans(cfg) -> tuple:
+    """The model parallel part's plans, 2 rows of MP_SEQ: the planner's
+    first packed plan of short agentic trees (4 a batch), and its first
+    plan of two agentic trees larger than a row, partitioned at MP_SEQ
+    (3 waves).  Every rank plans them from the same seeds."""
+    lc = LoaderConfig(seq_len=MP_SEQ, batch_rows=TRAIN_ROWS,
+                      trees_per_batch=4, kind="agentic", seed=0,
+                      gen_kwargs=MP_PACKED_GEN)
+    packed = next(p for p in (ps.execution_plan() for ps in plans(cfg, lc, 8))
+                  if p.packed is not None and not p.has_waves)
+    lc = LoaderConfig(seq_len=MP_SEQ, batch_rows=TRAIN_ROWS,
+                      trees_per_batch=2, kind="agentic", seed=1,
+                      auto_partition=True, capacity=MP_SEQ,
+                      gen_kwargs=MP_WAVE_GEN)
+    wave = next(p for p in (ps.execution_plan() for ps in plans(
+        cfg, lc, 8, PlannerConfig(max_rows=TRAIN_ROWS))) if p.has_waves)
+    return packed, wave
+
+
+def mp_rank(rank: int, dev, cfg) -> dict:
+    """Phase 10b on one rank of (b)'s world: the (data 1, model 2) mesh
+    (MP_SHAPE).  For (a) ``cfg`` (4 layers f32) and (b) the same at
+    MP_BF16_LAYERS in bf16: this rank's blocks drawn from seed 0
+    (``init_params`` under the mesh) and world 1's full params from the
+    same seed; for ``mp_plans``' packed and wave plan, with sequence
+    parallelism off and on, one ``accumulate`` on the mesh (its launches
+    counted around it) beside world 1's, each rank holding its blocks of
+    the grads against world 1's (``mp_block_rel``; the errors combined
+    over the axis: no full gradient crosses the host).  Returns the
+    rank's rows."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch.mesh import MeshDescriptor
+    mesh = MeshDescriptor("mp", MP_SHAPE, ("data", "model"),
+                          ("data",)).build(dev.type)
+    t0 = time.perf_counter()
+    packed, wave = mp_plans(cfg)
+    rows = []
+    parts = (("a", cfg), ("b", cfg.replace(n_layers=MP_BF16_LAYERS,
+                                            dtype="bfloat16")))
+    for part, c in parts:
+        with sh.use_mesh(None):
+            full = init_params(c, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+        with sh.use_mesh(mesh):
+            local = init_params(c, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        for name, plan in (("packed", packed), ("waves", wave)):
+            with sh.use_mesh(None):
+                ref = TreeTrainEngine(c).accumulate(full, plan)
+            for sp in (False, True):
+                with sh.use_mesh(mesh, seq_parallel=sp):
+                    reset_launches()
+                    torch.cuda.synchronize(dev)
+                    t1 = time.perf_counter()
+                    grads, scal = TreeTrainEngine(c).accumulate(local, plan)
+                    torch.cuda.synchronize(dev)
+                    t2 = time.perf_counter()
+                    counts = launch_counts()
+                    worst, leaf, num, den = mp_block_rel(grads, ref[0],
+                                                         rank == 0)
+                    ax = sh.model_axis()
+                    tot = torch.tensor([num, den], dtype=torch.float64,
+                                       device=dev)
+                    top = torch.tensor([worst], device=dev)
+                    dist.all_reduce(tot, group=ax.group)
+                    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=ax.group)
+                rows.append(dict(
+                    part=part, plan=name, sp=sp, launches=counts,
+                    want=plan_launches(c.n_layers, plan),
+                    s=round(t2 - t1, 3), max_rel=float(top), leaf=leaf,
+                    rank_max_rel=worst, rel_l2=math.sqrt(float(tot[0])
+                                                         / float(tot[1])),
+                    loss=float(scal[0]), loss1=float(ref[1][0])))
+                del grads
+            del ref
+        del full, local
+        torch.cuda.empty_cache()
+    return dict(rows=rows, wall_s=round(time.perf_counter() - t0, 3),
+                reckoning=mp_bf16_reckoning(cfg))
+
+
+def mp_report(res: list) -> dict:
+    """Phase 10b's prints and checks, from the ranks' rows."""
+    rows0 = res[0]["mp"]["rows"]
+    for r0, r1 in zip(rows0, res[1]["mp"]["rows"]):
+        tag = (f"model parallel ({r0['part']}, {r0['plan']}, sequence "
+               f"parallelism {'on' if r0['sp'] else 'off'})")
+        rel = abs(r0["loss"] - r0["loss1"]) / max(abs(r0["loss1"]), 1e-12)
+        leaf = max((r0, r1), key=lambda r: r["rank_max_rel"])["leaf"]
+        log(f"{tag}: mesh {MP_SHAPE}, loss {r0['loss']:.7f} vs world 1's "
+            f"{r0['loss1']:.7f} (rel {rel:.2e}); the ranks' grad blocks "
+            f"max-rel {r0['max_rel']:.3e} of world 1's (at {leaf}), "
+            f"relative L2 {r0['rel_l2']:.3e}; launches by rank "
+            f"{[r0['launches'], r1['launches']]} (want {r0['want']}); "
+            f"accumulate s by rank {[r0['s'], r1['s']]}")
+        check(r0["launches"] == r0["want"] and r1["launches"] == r0["want"],
+              f"{tag}: launches")
+        if r0["part"] == "a":
+            check(rel <= 1e-6 and r0["max_rel"] <= 1e-4, f"{tag}: loss "
+                  f"{rel:.2e} or grads {r0['max_rel']:.2e}")
+        else:
+            check(r0["rel_l2"] <= 5e-2, f"{tag}: gradient relative L2 "
+                                        f"{r0['rel_l2']:.2e}")
+    log(f"model parallel (b) depth, reduced: {res[0]['mp']['reckoning']}; "
+        f"the part took {res[0]['mp']['wall_s']:.1f} s on rank 0")
+    return dict(wall_s=res[0]["mp"]["wall_s"],
+                launches=[[r["launches"] for r in x["mp"]["rows"]]
+                          for x in res],
+                rows=[(r["part"], r["plan"], r["sp"]) for r in rows0])
 
 
 def graph_pool_bytes() -> tuple[int, int]:
@@ -3368,6 +3592,19 @@ def serve_depth(cfg) -> int:
     return fit_depth(cfg, PEAK_LIMIT - SERVE_WORK)
 
 
+def step_loop_cut(cfg):
+    """``cfg`` at STEP_LOOP_SERVE_DEPTH of its depth (an enc-dec model's
+    encoder and decoder both), and the words that say so."""
+    L = round(cfg.n_layers * STEP_LOOP_SERVE_DEPTH)
+    cut = cfg.replace(n_layers=L)
+    if cfg.encdec is not None:
+        cut = cut.replace(encdec=dataclasses.replace(
+            cfg.encdec, dec_layers=L, enc_layers=round(
+                cfg.encdec.enc_layers * STEP_LOOP_SERVE_DEPTH)))
+    return cut, (f"reduced: {L} of {cfg.n_layers} layers, "
+                 f"STEP_LOOP_SERVE_DEPTH")
+
+
 def weights_match(cfg, params) -> bool:
     """Whether ``head_bytes`` and ``layer_bytes`` count the model's
     weights to the byte."""
@@ -3679,6 +3916,10 @@ def phase_moe_train_parity(cfg_full):
 # timing
 # --------------------------------------------------------------------------
 
+# graph_ms: calls longer than this many ms go into its graph this many times
+LONG_CALL_MS, LONG_CALL_REPS = 2.0, 4
+
+
 def time_ms(fn, reps=20, warm=3) -> float:
     for _ in range(warm):
         fn()
@@ -3699,7 +3940,10 @@ def graph_ms(fn, reps=20):
     graph holding ``reps`` calls (median of 5 replays, divided by
     ``reps``), so the host's launch overhead, which ``time_ms`` includes
     whenever a call's device work is shorter than its host work, is not in
-    it.  None where the call cannot be captured."""
+    it.  A call that takes more than LONG_CALL_MS (timed once after the
+    warm-up) goes into the graph LONG_CALL_REPS times instead: its launch
+    overhead is already negligible.  None where the call cannot be
+    captured."""
     try:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -3707,6 +3951,14 @@ def graph_ms(fn, reps=20):
             for _ in range(3):
                 fn()
         torch.cuda.current_stream().wait_stream(side)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        if a.elapsed_time(b) > LONG_CALL_MS:
+            reps = LONG_CALL_REPS
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             for _ in range(reps):
@@ -3839,7 +4091,7 @@ def phase_timing_train(train_kv_last, step_s, n_layers: int,
     kl = i32(train_kv_last)
     q, k, v = qkv(rng, B, S, Skv, H, Kh, hd, dt)
     qo = dict(q_off=q_off)
-    do = torch.tensor(rng.normal(size=q.shape), dtype=dt, device=DEV)
+    do = randn(rng, q.shape, dt)
     sc = hd ** -0.5
     out = {}
     fused = tab.fuses_delta(q)      # the dq kernel computes Δ itself
@@ -4061,19 +4313,20 @@ def ssm_decode_bound(cfg, params, tm, tag: str) -> None:
 
 
 def phase_ssm_serve(arch: str):
-    """One arch at full width and depth, random bf16 weights: one rollout
+    """One arch at full width and STEP_LOOP_SERVE_DEPTH of its depth,
+    random bf16 weights: one rollout
     group (prompt 1024, K 8, 64 new tokens) and the multi-turn session,
     both prefilled through the step loop as the reference does; prefill
     and decode tokens/s, the decode bound, a profiled decode step.  No
     tree-attention kernel may launch (Zamba2's decode attention is the
     plain one).  Returns (cfg, params, the measured launch counts)."""
     tag = f"{arch} serve"
-    cfg = get_config(arch)
+    cfg, cut = step_loop_cut(get_config(arch))
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
     torch.cuda.synchronize()
     n = sum(t.numel() for _, t in flatten_tree(params))
-    log(f"{tag}: {ssm_desc(cfg)}: {n / 1e9:.3f} B parameters "
+    log(f"{tag}: {ssm_desc(cfg)} ({cut}): {n / 1e9:.3f} B parameters "
         f"({cfg.param_count() / 1e9:.3f} B by the reference's formula), "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, random weights in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -4221,23 +4474,24 @@ def phase_ssm_serve_parity(cfg, params):
     training path), ``serve_parity_at`` at two depths:
     - every depth: the f32 step loop within atol = rtol = 5e-4 of the f32
       forward, the reference's decode bar (tests/test_serve.py:47-48);
-    - full depth and PARITY_LAYERS layers, bf16: the step loop within
+    - the serve phase's depth (``cfg``: STEP_LOOP_SERVE_DEPTH of the
+      arch's) and PARITY_LAYERS layers, bf16: the step loop within
       1.25x the bf16 forward's distance from the f32 forward (the
       reference's bf16 step loop drifts as far as the port's,
       tests/test_torch_ssm_model.py), and control d, a 2% fault in every
       SSM mixer's step, must fail that bar;
     - PARITY_LAYERS layers, bf16: also the step loop within relative L2
-      3e-2 of the bf16 forward (at full depth the random model's own bf16
+      3e-2 of the bf16 forward (deeper, the random model's own bf16
       drift exceeds 3e-2);
     - control c (states stored in bf16) is reported: it moves the logits
       by a few per cent of the bf16 drift, below any bar (PERF.md)."""
     tag = f"{cfg.name} serve parity"
     e = serve_parity_at(cfg, params, 12, tag)
-    check(e["ok32"], f"{tag} (f32, full depth)")
+    check(e["ok32"], f"{tag} (f32, {cfg.n_layers} layers)")
     check(e["finite"] and e["sF"] <= 1.25 * e["fF"],
-          f"{tag} (bf16, full depth)")
+          f"{tag} (bf16, {cfg.n_layers} layers)")
     check(e["dF"] > 1.25 * e["fF"], f"{tag}: control d passed the "
-                                    f"full-depth bf16 check")
+                                    f"{cfg.n_layers}-layer bf16 check")
     cfg4 = cfg.replace(n_layers=PARITY_LAYERS)
     p4 = init_params(cfg4, torch.Generator(DEV).manual_seed(0))
     e4 = serve_parity_at(cfg4, p4, 13, tag)
@@ -4262,8 +4516,8 @@ def chunk_pads(plan) -> tuple[int, int]:
 
 
 def phase_ssm_train(cfg, sft, rl, tag: str):
-    """Full width and depth in bf16 through ``TreeTrainEngine.step`` on the
-    planner's chunk-aligned rows (TRAIN_ROWS of TRAIN_SEQ): SFT steps on
+    """``cfg``'s width and depth in bf16 through ``TreeTrainEngine.step`` on
+    the planner's chunk-aligned rows (TRAIN_ROWS of TRAIN_SEQ): SFT steps on
     agentic trees, then RL steps on GRPO trees; each step's chunk-padding
     share, time, unique tokens/s, launches (each kernel once per
     application of the shared attention block, none for a pure SSM) and
@@ -4405,16 +4659,18 @@ def run_ssm(timed) -> dict:
         timed(f"{arch} serve parity", phase_ssm_serve_parity, cfg, params)
         del params
         torch.cuda.empty_cache()
+        full = get_config(arch)
+        tcfg = full.replace(n_layers=round(full.n_layers * SSM_TRAIN_DEPTH))
         params, counts, deltas, step_s = timed(
-            f"{arch} train", phase_ssm_train, cfg, sft, rl, f"{arch} train")
+            f"{arch} train", phase_ssm_train, tcfg, sft, rl, f"{arch} train")
         del params
         torch.cuda.empty_cache()
-        dcfg = cfg.replace(n_layers=SSM_DETERMINISM_LAYERS)
+        dcfg = full.replace(n_layers=SSM_DETERMINISM_LAYERS)
         timed(f"{arch} determinism", phase_determinism, dcfg,
               init_params(dcfg, torch.Generator(DEV).manual_seed(0)),
               [("packed", sft[0]), ("waves", first_wave_plan(dcfg))],
               f"{arch} determinism")
-        wcfg = cfg.replace(n_layers=round(cfg.n_layers * SSM_WAVE_DEPTH))
+        wcfg = full.replace(n_layers=round(full.n_layers * SSM_WAVE_DEPTH))
         params, w_big, w_launches, w_n, w_pad, w_deltas, w_step = timed(
             f"{arch} waves", phase_waves, wcfg,
             init_params(wcfg, torch.Generator(DEV).manual_seed(0)),
@@ -4423,14 +4679,14 @@ def run_ssm(timed) -> dict:
               f"{arch} wave parity", True)
         del params
         torch.cuda.empty_cache()
-        timed(f"{arch} train parity", phase_ssm_train_parity, cfg)
+        timed(f"{arch} train parity", phase_ssm_train_parity, full)
         torch.cuda.empty_cache()
         runs[arch] = dict(counts=counts, step_counts=deltas, step_s=step_s,
                           serve_counts=serve_counts, wave_counts=w_deltas,
                           wave_step_s=w_step)
         if arch == HYBRID_ARCH:
             zw = dict(wave=w_big, launches=w_launches, waves=w_n, pad=w_pad)
-            zrl = timed("zamba2 rl loop", phase_ssm_rl_loop, cfg)
+            zrl = timed("zamba2 rl loop", phase_ssm_rl_loop, full)
             torch.cuda.empty_cache()
     a = zcfg.attn
     heads, hd, apps = (a.n_heads, a.n_kv_heads), a.head_dim, shared_apps(zcfg)
@@ -4439,7 +4695,8 @@ def run_ssm(timed) -> dict:
         f"timing {lay} prefill", phase_timing_train, np.full((1, 1024), 1023),
         None, 0, heads, f"{lay} serving prefill S=1024", 0, hd), train=timed(
         f"timing {lay} train", phase_timing_train, kl_z,
-        runs[HYBRID_ARCH]["step_s"], apps, heads,
+        runs[HYBRID_ARCH]["step_s"], shared_apps(zcfg.replace(
+            n_layers=round(zcfg.n_layers * SSM_TRAIN_DEPTH))), heads,
         f"{lay} chunk-padded train rows", 0, hd))
     # ZW: the Zamba2 waves phase's gateway wave with the largest A_max
     zw["err"] = timed("zamba2 wave kernel", phase_wave_kernel,
@@ -4587,7 +4844,9 @@ def mm_decode_bound(cfg, params, tm, tag: str, enc_len: int) -> None:
 
 
 def phase_mm_serve(arch: str):
-    """One arch at full width and depth, random bf16 weights.  Seamless:
+    """One arch at full width and STEP_LOOP_SERVE_DEPTH of its depth
+    (Seamless: of its encoder's and its decoder's), random bf16 weights.
+    Seamless:
     its encoder over its 1024 frames drawn from the seed, each decoder
     layer's cross K/V projected.  Then one rollout group (prompt 1024, K 8,
     64 new tokens; its session holds no encoder output, enc_len 0, as the
@@ -4598,12 +4857,12 @@ def phase_mm_serve(arch: str):
     decode bound; a profiled decode step.  No tree-attention kernel may
     launch.  Returns (cfg, params, launch counts, frames or None)."""
     tag = f"{arch} serve"
-    cfg = get_config(arch)
+    cfg, cut = step_loop_cut(get_config(arch))
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
     torch.cuda.synchronize()
     n = sum(t.numel() for _, t in flatten_tree(params))
-    log(f"{tag}: {mm_desc(cfg)}: {n / 1e9:.3f} B parameters "
+    log(f"{tag}: {mm_desc(cfg)} ({cut}): {n / 1e9:.3f} B parameters "
         f"({cfg.param_count() / 1e9:.3f} B by the reference's formula), "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, random weights in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -4899,7 +5158,8 @@ def run_mm(timed) -> dict:
               [("packed", sft[0])], f"{arch} determinism")
         del params
         torch.cuda.empty_cache()
-        timed(f"{arch} train parity", phase_mm_train_parity, cfg)
+        timed(f"{arch} train parity", phase_mm_train_parity,
+              get_config(arch))
         torch.cuda.empty_cache()
         runs[arch] = dict(counts=counts, step_s=step_s, layers=tcfg.n_layers,
                           serve_counts=serve_counts, remat=tcfg.remat,
@@ -4928,15 +5188,21 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t_start = time.perf_counter()
+    # past WATCHDOG_S every thread's stack goes to stderr and the run ends
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     phase_s = {}
+    last_end = [t_start]
 
     def timed(name, fn, *args):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*args)
-        phase_s[name] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        phase_s[name] = t1 - t0
         log(f"phase {name}: {phase_s[name]:.1f} s, peak memory "
-            f"{peak_gb():.2f} GB")
+            f"{peak_gb():.2f} GB; {t0 - last_end[0]:.1f} s since the last "
+            f"phase, {t1 - t_start:.1f} s since the start")
+        last_end[0] = t1
         return out
 
     cfg = get_config("qwen2_1p5b")
@@ -4945,8 +5211,9 @@ def main() -> int:
     kl_t = np.asarray(sft[0].packed.inputs["kv_last"])
     timed("build", phase_build)
     timed("warm restart", phase_warm_restart)
-    worst_fwd = timed("kernel", phase_kernel, kernel_cases())
-    worst_bwd = timed("bwd kernel", phase_bwd_kernel, kernel_cases(kl_t))
+    worst_fwd = timed("kernel", phase_kernel, kernel_cases(tp_kv_last=kl_t))
+    worst_bwd = timed("bwd kernel", phase_bwd_kernel,
+                      kernel_cases(kl_t, kl_t))
     mask = timed("mask soundness", phase_mask_soundness)
 
     t0 = time.perf_counter()
@@ -4974,6 +5241,10 @@ def main() -> int:
     timed("wave parity", phase_wave_parity, cfg, params)
     dp = timed("data parallel", phase_data_parallel, cfg, params, sft,
                wave_plan, step_s)
+    mp_ = dp["world2"]["mp"]
+    phase_s["model parallel"] = mp_["wall_s"]
+    log(f"phase model parallel: {mp_['wall_s']:.1f} s (the data parallel "
+        f"phase's ranks, after its steps; inside its time)")
     del params
     torch.cuda.empty_cache()
     timing_ab = timed("timing", phase_timing_serve)
@@ -5025,7 +5296,10 @@ def main() -> int:
     mm = run_mm(timed)
     worst_fwd = max(worst_fwd, mm["err"]["fwd"])
     worst_bwd = {k: max(worst_bwd[k], mm["err"][k]) for k in worst_bwd}
-    log(f"total {time.perf_counter() - t_start:.1f} s; phases "
+    total = time.perf_counter() - t_start
+    inside = sum(phase_s.values()) - mp_["wall_s"]   # mp_: inside a phase
+    log(f"total {total:.1f} s, of which {total - inside:.1f} s outside the "
+        f"phases; phases "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
     src = "src/repro_torch/kernels/csrc/"
@@ -5138,6 +5412,15 @@ def main() -> int:
             launches_world1_per_step=[c[name] for c in dp["launches"]],
             launches_world2_per_rank_per_step=[
                 [c[name] for c in r] for r in dp["world2"]["launches"]])
+        e["model_parallel"] = dict(
+            shape=f"Qwen2-1.5B on a (data 1, model 2) mesh over "
+                  f"{dp['world2']['backend']}, {TRAIN_ROWS} rows of "
+                  f"{MP_SEQ}: H 6 / Kh 1 a rank, hd 128; "
+                  f"(a) {DP_LAYERS} layers f32, (b) {MP_BF16_LAYERS} layers "
+                  f"bf16; one accumulate each of (part, plan, sequence "
+                  f"parallelism) {mp_['rows']}",
+            launches_per_rank_per_accumulate=[
+                [c[name] for c in r] for r in mp_["launches"]])
         e["rl"] = dict(
             shape=f"rl loop: {RL_ARCH}, prompt {RL_PROMPT}, k {RL_K}, "
                   f"{rl['shape']['groups']} groups x "
@@ -5169,4 +5452,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # end here: a process group's or an allocator's teardown at the
+    # interpreter's exit must not outlive the result (every rank and
+    # subprocess this script started has been joined)
+    for child in mp.active_children():
+        child.kill()
+        child.join()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

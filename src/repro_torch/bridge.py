@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, config_from_dict
 from repro_torch.device import DeviceLike, map_tree
+from repro_torch.sharding import gather_params, local_params
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -26,15 +27,20 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree, device: DeviceLike) -> dict:
+def params_from_jax(tree, device: DeviceLike, mesh=None) -> dict:
     """Nested dict/list of numpy arrays (the JAX layout) → the same tree of
-    torch tensors on ``device``."""
-    return map_tree(lambda a: _to_tensor(a, device), tree)
+    torch tensors on ``device``; with a ``mesh`` (a ``DeviceMesh``) this
+    rank's blocks of them (``sharding.local_params``)."""
+    params = map_tree(lambda a: _to_tensor(a, device), tree)
+    return params if mesh is None else local_params(params, mesh)
 
 
 def params_to_numpy(params: dict) -> dict:
-    """The inverse for float32/int leaves: torch tensors → numpy arrays."""
-    return map_tree(lambda t: t.detach().cpu().numpy(), params)
+    """The inverse for float32/int leaves: torch tensors → numpy arrays;
+    on a model axis the full leaves, gathered over it
+    (``sharding.gather_params``, a collective every rank calls)."""
+    return map_tree(lambda t: t.detach().cpu().numpy(),
+                    gather_params(params))
 
 
 def config_from_jax(cfg) -> ModelConfig:

@@ -1,4 +1,5 @@
-"""Mesh topology, the single source of truth for the port's data axis.
+"""Mesh topology, the single source of truth for the port's data and model
+axes.
 
 Port of ``repro/launch/mesh.py``.  Every topology is one
 :class:`MeshDescriptor`: logical shape, axis names, which axes are
@@ -9,9 +10,10 @@ sharding rules (``repro_torch/sharding.py``) take the descriptor itself
 for their spec math, which needs no process group.
 
 The production meshes (one pod of 16 × 16 and two pods of 2 × 16 × 16)
-have a model axis of 16: the port runs them only as descriptors, since
-the model axis at run time is ROADMAP item 7e-ii.  At run time the only
-mesh is the host mesh ``(world, 1)``: pure data parallelism.
+have a model axis of 16, which the dense family runs (``sharding.py``);
+the host mesh ``(world, 1)`` is pure data parallelism.  ``build()``'s
+rank order is ``jax.make_mesh``'s: row-major, the model axis fastest
+(rank = data index · model size + model index).
 
 Functions, not module constants: importing this module touches no
 device and no process group.

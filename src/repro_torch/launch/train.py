@@ -49,9 +49,15 @@ rank 0 prints and saves, and ``--resume`` loads on every rank:
       -m repro_torch.launch.train --arch qwen1p5_0p5b --smoke --steps 3 \
       --device cpu --mesh host
 
-``--mesh single`` and ``multi`` (the production meshes of 256 and 512
-devices, with a model axis of 16) raise: the model axis at run time is
-ROADMAP.md Queue A item 7e-ii.
+``--mesh single`` and ``multi`` run the production meshes (one pod of
+16 × 16 devices, two pods of 2 × 16 × 16; ``launch/mesh.
+production_descriptor``) when ``torchrun`` starts their 256 or 512
+ranks, as the reference's launcher does: the rows over the data axes, and
+the dense family's parameters over the model axis of 16 (Megatron tensor
+parallelism, ``sharding.py``).  On any other world they exit naming the
+ranks needed; a family the model axis does not run yet exits naming
+ROADMAP.md Queue A item 7e-ii.  Every rank saves (the model axis's
+gather), rank 0 writes.
 """
 from __future__ import annotations
 
@@ -68,7 +74,7 @@ from repro_torch.core.plan_cost import CompileCacheSim
 from repro_torch.data.loader import LoaderConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (host_descriptor, join_from_env,
-                                     production_descriptor)
+                                     production_descriptor, world_size)
 from repro_torch.models.model import init_params
 from repro_torch.sharding import MODEL_AXIS_TODO, use_mesh
 from repro_torch.train.checkpoint import (load_checkpoint, load_meta,
@@ -156,8 +162,9 @@ def main(argv=None) -> None:
                     choices=["host", "single", "multi"],
                     help="host: a data axis over every rank torchrun "
                          "starts (one process without torchrun); single, "
-                         "multi: the production meshes, whose model axis "
-                         "is ROADMAP item 7e-ii")
+                         "multi: the production meshes (256 and 512 "
+                         "ranks), their model axis of 16 for the dense "
+                         "family")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None,
@@ -179,24 +186,33 @@ def main(argv=None) -> None:
     if args.ckpt_every is not None and not args.save:
         ap.error("--ckpt-every needs --save (the checkpoint directory)")
 
+    desc = host_descriptor()
     if args.mesh != "host":
-        d = production_descriptor(multi_pod=args.mesh == "multi")
-        ap.error(f"--mesh {args.mesh} is the {d.shape} mesh of "
-                 f"{d.device_count} devices with a model axis of "
-                 f"{d.axis_size(d.model_axis)}: {MODEL_AXIS_TODO}")
+        desc = production_descriptor(multi_pod=args.mesh == "multi")
+        if world_size() != desc.device_count:
+            ap.error(f"--mesh {args.mesh} is the {desc.shape} mesh of "
+                     f"{desc.device_count} devices: it needs "
+                     f"{desc.device_count} ranks (torchrun "
+                     f"--nproc-per-node ... with {desc.device_count} ranks "
+                     f"in all), this world has {world_size()}")
+        cfg = get_config(args.arch, smoke=args.smoke)
+        if cfg.family != "dense":
+            ap.error(f"--mesh {args.mesh} has a model axis of "
+                     f"{desc.axis_size(desc.model_axis)}: the {cfg.family} "
+                     f"family on a model axis is {MODEL_AXIS_TODO}")
     dev = join_from_env(resolve_device(args.device))
     try:
-        with use_mesh(host_descriptor().build(dev.type)
-                      if dist.is_initialized() else None):
-            _train(ap, args, dev)
+        with use_mesh(desc.build(dev.type) if dist.is_initialized()
+                      else None, desc.data_axes, desc.model_axis):
+            _train(ap, args, dev, desc)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _train(ap, args, dev: torch.device) -> None:
-    """The run on this rank's device, inside the launcher's mesh."""
-    desc = host_descriptor()
+def _train(ap, args, dev: torch.device, desc) -> None:
+    """The run on this rank's device, inside the launcher's mesh
+    ``desc``."""
     ndata = desc.data_axis_size
     rank = dist.get_rank() if dist.is_initialized() else 0
     say = print if rank == 0 else (lambda *a, **k: None)
@@ -205,7 +221,8 @@ def _train(ap, args, dev: torch.device) -> None:
         args.kind = "grpo" if args.loss_mode == "rl" else "agentic"
     say(f"[train] arch={cfg.name} family={cfg.family} mode={args.mode} "
         f"impl={args.impl} loss_mode={args.loss_mode} kind={args.kind} "
-        f"device={dev} mesh={desc.name} (data {ndata} x model 1)")
+        f"device={dev} mesh={desc.name} (data {ndata} x model "
+        f"{desc.axis_size(desc.model_axis)})")
     if args.rows is None:
         args.rows = max(2, ndata)
     elif args.rows % ndata:
@@ -319,8 +336,7 @@ def _train(ap, args, dev: torch.device) -> None:
                 f"gnorm {m['grad_norm']:8.3f} "
                 f"parts {plan.num_oversized:2d} "
                 f"{dt * 1e3:7.1f}ms", flush=True)
-        if args.ckpt_every and engine.steps_done % args.ckpt_every == 0 \
-                and rank == 0:
+        if args.ckpt_every and engine.steps_done % args.ckpt_every == 0:
             save_checkpoint(args.save, params, opt_state,
                             meta={"arch": cfg.name,
                                   "steps": engine.steps_done})
@@ -352,9 +368,10 @@ def _train(ap, args, dev: torch.device) -> None:
             f"{engine.retraces}, exposed compile wait "
             f"{engine.compile_wait_s * 1e3:.0f}ms"
             + (f", {st['errors']} warmup errors" if st["errors"] else ""))
-    if args.save and rank == 0:
+    if args.save:
         save_checkpoint(args.save, params, opt_state,
                         meta={"arch": cfg.name, "steps": engine.steps_done})
+    if args.save and rank == 0:
         with open(args.save + "/history.json", "w") as f:
             json.dump(history, f)
         say(f"[train] saved → {args.save}")

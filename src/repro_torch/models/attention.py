@@ -19,6 +19,15 @@ RoPE) is the plain softmax under 'ref' and 'kernel', as the reference's
 'chunked'; the cross-attention over pre-projected encoder K/V is the plain
 softmax under every impl.  In training the plain softmax's scores are
 recomputed in the backward (``ssm.common.checkpointed``).
+
+On a model axis (``sharding.py``) ``wq``/``wk``/``wv`` and their biases
+are column blocks and ``wo`` a row block: the attention runs on this
+rank's heads, the kernel at the local head counts, and ``tp_out_proj``
+sums the ranks' partial outputs.  Where a rank's columns are not whole
+heads (Qwen2-1.5B's two KV heads on a model axis of 4), the projections
+are all-gathered over the axis and the rank keeps the heads its ``wo``
+rows read (``_local_heads``), its KV heads repeated per query head where
+the kept heads do not form whole GQA groups.
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ import torch
 from repro_torch.configs.base import AttnCfg
 from repro_torch.models.layers import _dense_init, init_rmsnorm, rmsnorm, rope
 from repro_torch.models.ssm.common import checkpointed
-from repro_torch.sharding import tp_out_proj
+from repro_torch.sharding import (gather_model, model_axis, model_block,
+                                  require_no_model_axis, tp_out_proj)
 
 NEG_INF = -1e30
 BIG = 1 << 30
@@ -56,20 +66,61 @@ def init_attention(generator, cfg: AttnCfg, d_model: int, dtype=torch.float32,
     return p
 
 
+def _local_heads(cfg: AttnCfg, q, k, v):
+    """This rank's heads of the projections q [B, S, q_dim/m] and k, v
+    [B, S, kv_dim/m] (its column blocks): the query heads that its block
+    [c0, c1) of the query columns (and of ``wo``'s rows) touches, and the
+    KV heads they read.  A block that cuts a head is all-gathered over the
+    model axis first.  Returns (q [B, S, Hl, hd], k, v [B, S, Kl, hd], the
+    block's columns within the kept heads' [w0, w1)): Hl a multiple of
+    Kl, query head i reading KV head i // (Hl/Kl) (the KV heads repeated
+    per query head where the kept heads are not whole GQA groups)."""
+    B, S, _ = q.shape
+    H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // Kh
+    c0, c1 = model_block(cfg.q_dim)
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+
+    def heads(x, lo, hi, n):
+        # this rank's columns [lo, hi) of x; the heads [n0, n1) they need
+        n0, n1 = n
+        if (lo, hi) != (n0 * hd, n1 * hd):
+            x = gather_model(x)[..., n0 * hd:n1 * hd].contiguous()
+        return x.reshape(B, S, n1 - n0, hd)
+
+    q = heads(q, c0, c1, (h0, h1))
+    e0, e1 = model_block(cfg.kv_dim)
+    k, v = (heads(t, e0, e1, (k0, k1)) for t in (k, v))
+    Hl, Kl = h1 - h0, k1 - k0
+    kv_of = [h // G - k0 for h in range(h0, h1)]
+    if Hl % Kl or kv_of != [i // (Hl // Kl) for i in range(Hl)]:
+        idx = torch.tensor(kv_of, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v, (c0 - h0 * hd, c1 - h0 * hd)
+
+
 def _project_qkv(params: dict, cfg: AttnCfg, x: torch.Tensor):
+    """(q, k, v) [B, S, heads, hd], and on a model axis the columns of the
+    flattened heads' output that this rank's ``wo`` rows read (None
+    without one)."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    cols = None
+    if model_axis() is None:
+        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    else:
+        q, k, v, cols = _local_heads(cfg, q, k, v)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    return q, k, v
+    return q, k, v, cols
 
 
 def _scale(cfg: AttnCfg) -> float:
@@ -207,7 +258,7 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
     B, S, _ = x.shape
     if cross_kv is not None:
         return cross_attention(params, cfg, x, *cross_kv, cross_valid)
-    q, k, v = _project_qkv(params, cfg, x)
+    q, k, v, cols = _project_qkv(params, cfg, x)
     if bidirectional:
         if impl == "chunked":
             o = _attend_chunked(q, k, v, torch.arange(S, device=x.device),
@@ -269,7 +320,10 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, *,
     else:
         raise ValueError(f"attention impl {impl!r}: 'ref', 'chunked' or "
                          f"'kernel'")
-    y = tp_out_proj(o.reshape(B, S, -1), params["wo"])
+    o = o.reshape(B, S, -1)
+    if cols is not None and cols != (0, o.shape[-1]):
+        o = o[..., cols[0]:cols[1]]
+    y = tp_out_proj(o, params["wo"])
     if capture_idx is not None:
         return y, caps
     return y
@@ -298,8 +352,9 @@ def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
     [B, T_enc, Kh, hd], valid [B, T_enc]}, whose attention output joins
     the self-attention's before ``wo`` (the reference's ``cross_cache``
     term; the enc-dec decode layer runs its own cross block instead)."""
+    require_no_model_axis("serving (the decode step)")
     B = x.shape[0]
-    q, k_new, v_new = _project_qkv(params, cfg, x)
+    q, k_new, v_new, _ = _project_qkv(params, cfg, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
     cache["k"].index_copy_(1, write_idx, k_new.to(cache["k"].dtype))

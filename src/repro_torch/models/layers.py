@@ -6,19 +6,29 @@ Port of ``repro/models/layers.py``: plain functions on tensors, taking the
 reference's parameter dicts (same names, ``x @ W`` orientation) and
 matching its rounding points — fp32 reductions in ``rmsnorm``, fp32 angles
 in ``rope``, fp32 logits from the head.
-The MLP's output projection is the reference's ``tp_out_proj``
-(``sharding.py``: the plain matmul on a data axis; a model axis is ROADMAP
-item 7e-ii).
+On a model axis (``sharding.py``) the embedding and the LM head are
+vocab-parallel (each rank holds a block of the vocab's rows: the lookup's
+partial sums are reduced over the axis, and the loss combines the ranks'
+logsumexps), and the MLP is Megatron's: column-parallel ``wi_*`` and
+``bi``, row-parallel ``wo`` through the reference's ``tp_out_proj``.
+Under ``deferred_draws`` the random initialisers return ``Draw``
+placeholders that ``Draw.realize`` later draws in their creation order,
+keeping a block of each (a rank's parameters, drawn as world 1 draws
+them, with no full stacked leaf held).
 """
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.sharding import tp_out_proj
+from repro_torch.sharding import model_axis, model_span, model_sum, tp_out_proj
 
 
 # the largest fp32 draw of ``_dense_init``: one layer of Kimi K2's 384
@@ -26,34 +36,86 @@ from repro_torch.sharding import tp_out_proj
 _DRAW_BYTES = 4 << 30
 
 
+_DEFER = threading.local()
+
+
 def _dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
-                dtype=torch.float32, device=None) -> torch.Tensor:
+                dtype=torch.float32, device=None):
     """N(0, 1/fan_in) (or N(0, scale²)) drawn in fp32, cast to ``dtype``.
     A stacked leaf (ndim ≥ 3) is drawn one slice of its leading dim at a
     time into the ``dtype`` tensor, so no fp32 copy of a whole stack exists
     (48 layers of Qwen3-30B-A3B's experts would be 39 GB of it); a slice
     whose fp32 draw would pass ``_DRAW_BYTES`` is drawn a slice of its own
-    leading dim at a time, and so on down."""
+    leading dim at a time, and so on down.  Under ``deferred_draws`` a
+    ``Draw`` placeholder instead."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    scale = scale if scale is not None else fan_in ** -0.5
-    draw = lambda sh: (torch.randn(sh, generator=generator,
-                                   dtype=torch.float32, device=device)
-                       * scale).to(dtype)
-    if len(shape) < 3:
-        return draw(shape)
-    out = torch.empty(shape, dtype=dtype, device=device)
-    _fill(out, draw)
-    return out
+    d = Draw(generator, tuple(shape),
+             scale if scale is not None else fan_in ** -0.5, dtype, device)
+    pending = getattr(_DEFER, "draws", None)
+    if pending is not None:
+        pending.append(d)
+        return d
+    return d.realize()
 
 
-def _fill(out: torch.Tensor, draw) -> None:
-    """``out[i] = draw(out.shape[1:])`` for each i, or recursively into
-    ``out[i]`` where that draw's fp32 copy would pass ``_DRAW_BYTES``."""
-    for i in range(out.shape[0]):
-        if out.dim() > 3 and out[i].numel() * 4 > _DRAW_BYTES:
-            _fill(out[i], draw)
-        else:
-            out[i] = draw(out.shape[1:])
+@dataclass
+class Draw:
+    """One ``_dense_init`` call, drawn by ``realize``."""
+    generator: torch.Generator
+    shape: tuple
+    scale: float
+    dtype: torch.dtype
+    device: object
+
+    def realize(self, keep: Optional[tuple] = None) -> torch.Tensor:
+        """The draw (the generator advanced as ``_dense_init`` advances
+        it), or with ``keep`` = (dim, lo, hi) its block [lo, hi) along
+        ``dim``, no stacked leaf's full draw held at once."""
+        draw = lambda sh: (torch.randn(sh, generator=self.generator,
+                                       dtype=torch.float32,
+                                       device=self.device)
+                           * self.scale).to(self.dtype)
+        if len(self.shape) < 3:
+            x = draw(self.shape)
+            return x if keep is None else \
+                x.narrow(keep[0], keep[1], keep[2] - keep[1]).clone()
+        local = list(self.shape)
+        if keep is not None:
+            local[keep[0]] = keep[2] - keep[1]
+        out = torch.empty(local, dtype=self.dtype, device=self.device)
+        _fill(out, draw, self.shape, keep)
+        return out
+
+
+@contextmanager
+def deferred_draws():
+    """``_dense_init`` returns ``Draw`` placeholders in the body; yields
+    the list they are appended to, in creation order."""
+    old, _DEFER.draws = getattr(_DEFER, "draws", None), []
+    try:
+        yield _DEFER.draws
+    finally:
+        _DEFER.draws = old
+
+
+def _fill(out: torch.Tensor, draw, shape: tuple,
+          keep: Optional[tuple] = None) -> None:
+    """``out[i] = draw(shape[1:])`` for each i < shape[0], or recursively
+    into ``out[i]`` where that draw's fp32 copy would pass
+    ``_DRAW_BYTES``; with ``keep`` = (dim, lo, hi) ``out`` holds only the
+    block [lo, hi) of ``dim`` (past the leading one) of the full
+    ``shape``."""
+    if keep is not None and keep[0] == 0:
+        raise NotImplementedError("a block of a stacked leaf's leading dim")
+    sub = None if keep is None else (keep[0] - 1, keep[1], keep[2])
+    for i in range(shape[0]):
+        if len(shape) > 3 and int(np.prod(shape[1:])) * 4 > _DRAW_BYTES:
+            _fill(out[i], draw, shape[1:], sub)
+            continue
+        # no name holds a draw past its copy: the next draw's fp32
+        # temporaries may need its memory (Nemotron's cut fills 69 GB)
+        out[i] = draw(shape[1:]) if sub is None else \
+            draw(shape[1:]).narrow(sub[0], sub[1], sub[2] - sub[1])
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None, lead=()) -> dict:
@@ -129,10 +191,22 @@ def init_embedding(generator, vocab: int, d_model: int, dtype=torch.float32,
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the table at ``tokens``.  On a model axis the table is this
+    rank's block of the vocab: ids outside it read zeros, and the partial
+    rows are summed over the axis (``sharding.model_sum``: under sequence
+    parallelism this rank's block of S)."""
     # F.embedding, not table[tokens]: its backward is deterministic on both
     # devices (on CUDA it sorts the token ids and sums each id's rows in
     # order; the indexing backward on the CPU accumulates across threads)
-    return F.embedding(tokens, params["table"])
+    table = params["table"]
+    ax = model_axis()
+    if ax is None:
+        return F.embedding(tokens, table)
+    n = table.shape[0]
+    ids = tokens.long() - ax.rank * n
+    mine = (ids >= 0) & (ids < n)
+    rows = F.embedding(torch.where(mine, ids, 0), table)
+    return model_sum(torch.where(mine[..., None], rows, 0.0))
 
 
 class _TakeRows(torch.autograd.Function):
@@ -169,11 +243,15 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _TakeRows.apply(x, idx)
 
 
+def _head(emb_params: dict, head_params: Optional[dict]) -> torch.Tensor:
+    return emb_params["table"].T if head_params is None else head_params["w"]
+
+
 def logits_from_hidden(emb_params: dict, head_params: Optional[dict],
                        h: torch.Tensor) -> torch.Tensor:
-    """LM head (tied embeddings when head_params is None); fp32 logits."""
-    w = emb_params["table"].T if head_params is None else head_params["w"]
-    return (h @ w.to(h.dtype)).float()
+    """LM head (tied embeddings when head_params is None); fp32 logits, on
+    a model axis this rank's block of the vocab."""
+    return (h @ _head(emb_params, head_params).to(h.dtype)).float()
 
 
 # fp32 logits per chunk of the loss (1 GiB): a full-width row pair holds
@@ -182,25 +260,48 @@ def logits_from_hidden(emb_params: dict, head_params: Optional[dict],
 NLL_CHUNK = 1 << 28
 
 
+def _lse_and_label(lg: torch.Tensor, labels: torch.Tensor, ax):
+    """(logsumexp, the label's logit) of fp32 logits [n, V]; on a model
+    axis ``lg`` is this rank's block of the vocab, and both are combined
+    over the axis: the max (an all-reduce), then the exponentials' sum
+    and the label's logit, held by one rank, in one all-reduce."""
+    if ax is None:
+        return torch.logsumexp(lg, -1), lg.gather(-1, labels[:, None])[:, 0]
+    V = lg.shape[1]
+    mx = lg.amax(-1)
+    with model_span():
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=ax.group)
+    lab = labels - ax.rank * V
+    mine = (lab >= 0) & (lab < V)
+    pick = lg.gather(-1, torch.where(mine, lab, 0)[:, None])[:, 0]
+    both = torch.stack([torch.exp(lg - mx[:, None]).sum(-1),
+                        torch.where(mine, pick, 0.0)])
+    with model_span():
+        dist.all_reduce(both, group=ax.group)
+    return mx + torch.log(both[0]), both[1]
+
+
 class _TokenNLL(torch.autograd.Function):
     """``logsumexp(h @ w) − (h @ w)[label]`` per row of h [N, D], with fp32
     logits made for ``rows`` rows at a time and kept for none: the forward
     saves h, w and each row's logsumexp, and the backward recomputes each
     chunk's logits for ``(softmax − onehot) · g``.  dw sums the chunks in
-    fp32, in chunk order."""
+    fp32, in chunk order.  On a model axis ``ax`` w is this rank's block
+    of the vocab (``_lse_and_label``), dw this block's gradient and dh
+    this block's share, which the hidden state's ``sharding.tp_in``
+    sums."""
 
     @staticmethod
-    def forward(ctx, h, w, labels, rows):
+    def forward(ctx, h, w, labels, rows, ax):
         n = h.shape[0]
         lse = torch.empty(n, dtype=torch.float32, device=h.device)
         nll = torch.empty_like(lse)
         for s in range(0, n, rows):
-            lg = (h[s:s + rows] @ w).float()
-            lse[s:s + rows] = torch.logsumexp(lg, -1)
-            nll[s:s + rows] = lse[s:s + rows] - lg.gather(
-                -1, labels[s:s + rows, None])[:, 0]
+            lse[s:s + rows], pick = _lse_and_label(
+                (h[s:s + rows] @ w).float(), labels[s:s + rows], ax)
+            nll[s:s + rows] = lse[s:s + rows] - pick
         ctx.save_for_backward(h, w, labels, lse)
-        ctx.rows = rows
+        ctx.rows, ctx.off = rows, 0 if ax is None else ax.rank * w.shape[1]
         return nll
 
     @staticmethod
@@ -208,17 +309,20 @@ class _TokenNLL(torch.autograd.Function):
         h, w, labels, lse = ctx.saved_tensors
         rows, g = ctx.rows, g.float()
         dh, dw = torch.empty_like(h), None
+        V = w.shape[1]
         for s in range(0, h.shape[0], rows):
             e = s + rows
             p = (h[s:e] @ w).float().sub_(lse[s:e, None]).exp_()
             # one label per row: the scatter never collides
-            p.scatter_add_(1, labels[s:e, None],
-                           p.new_full((p.shape[0], 1), -1.0))
+            lab = labels[s:e] - ctx.off
+            mine = (lab >= 0) & (lab < V)
+            p.scatter_add_(1, torch.where(mine, lab, 0)[:, None],
+                           torch.where(mine, -1.0, 0.0)[:, None])
             d = p.mul_(g[s:e, None]).to(h.dtype)
             dh[s:e] = d @ w.T
             part = h[s:e].T @ d
             dw = part.float() if dw is None else dw.add_(part)
-        return dh, dw.to(w.dtype), None, None
+        return dh, dw.to(w.dtype), None, None, None
 
 
 def token_nll(emb_params: dict, head_params: Optional[dict],
@@ -227,12 +331,12 @@ def token_nll(emb_params: dict, head_params: Optional[dict],
     """CE of ``labels`` [...] from hidden rows h [..., D] through the LM
     head, fp32: ``logits_from_hidden`` followed by logsumexp minus the
     label's logit, computed ``chunk`` logits at a time in forward and
-    backward (``_TokenNLL``), so the loss holds no full fp32 logits."""
-    w = emb_params["table"].T if head_params is None else head_params["w"]
-    w = w.to(h.dtype)
+    backward (``_TokenNLL``), so the loss holds no full fp32 logits (on a
+    model axis, vocab-parallel: no rank holds a row's full logits)."""
+    w = _head(emb_params, head_params).to(h.dtype)
     rows = max(1, chunk // w.shape[1])
     nll = _TokenNLL.apply(h.reshape(-1, h.shape[-1]), w,
-                          labels.long().reshape(-1), rows)
+                          labels.long().reshape(-1), rows, model_axis())
     return nll.reshape(labels.shape)
 
 

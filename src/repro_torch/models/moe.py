@@ -24,6 +24,7 @@ integers, one collective a layer), and the aux losses take the global
 counts and valid-token count, so the ranks' losses (each its tokens'
 share) sum to the whole batch's, as do their gradients.  A rank keeps
 exactly the (token, slot) pairs one process holding every row keeps.
+A model axis above 1 raises: expert parallelism is ROADMAP item 7e-ii.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.layers import _dense_init
-from repro_torch.sharding import DataAxis, data_axis
+from repro_torch.sharding import DataAxis, data_axis, require_no_model_axis
 
 
 def init_moe(generator, cfg: MoECfg, d_model: int, activation: str,
@@ -129,6 +130,7 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
     aux = {"load_balance", "router_z"} f32 scalars (means over valid
     tokens, already weighted), or {} without ``with_aux``: decode discards
     them, and a decode step is bound by its kernel launches."""
+    require_no_model_axis("the MoE layer (expert parallelism)")
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     N = B * S

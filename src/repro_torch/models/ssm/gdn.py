@@ -27,6 +27,7 @@ from repro_torch.models.layers import (_dense_init, init_rmsnorm, rmsnorm,
 from repro_torch.models.ssm.common import (checkpointed, chunkify,
                                            lower_mask, tree_chunk_scan,
                                            unchunkify)
+from repro_torch.sharding import require_no_model_axis
 
 
 def init_gdn(generator, cfg: SSMCfg, d_model: int, dtype=torch.float32,
@@ -140,6 +141,7 @@ def gdn(params: dict, cfg: SSMCfg, x: torch.Tensor, *, chunk_parent,
     """x [B, S, D] (pre-normed) → [B, S, D], recomputed in the backward
     (``checkpointed``); arguments as ``mamba2.mamba2``'s, the state
     {"S": [B, H, hd, hd]}."""
+    require_no_model_axis("the GDN layer")
     return checkpointed(
         lambda x_: _gdn(params, cfg, x_, chunk_parent, prev_pows, valid,
                         initial_state, conv_ctx, capture), x)

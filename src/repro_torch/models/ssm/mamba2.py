@@ -25,6 +25,7 @@ from repro_torch.models.layers import (_dense_init, init_rmsnorm, rmsnorm,
 from repro_torch.models.ssm.common import (checkpointed, chunkify,
                                            lower_mask, tree_chunk_scan,
                                            unchunkify)
+from repro_torch.sharding import require_no_model_axis
 
 
 def init_mamba2(generator, cfg: SSMCfg, d_model: int, dtype=torch.float32,
@@ -137,6 +138,7 @@ def mamba2(params: dict, cfg: SSMCfg, x: torch.Tensor, *, chunk_parent,
     ``capture`` maps a cut name to {"chunk": host int, "conv_pos": index
     tensor} and makes the call return ``(out, captures)`` with, per cut,
     the state after that chunk and the pre-conv inputs at ``conv_pos``."""
+    require_no_model_axis("the Mamba2 layer")
     return checkpointed(
         lambda x_: _mamba2(params, cfg, x_, chunk_parent, prev_pows, valid,
                            initial_state, conv_ctx, capture), x)

@@ -29,6 +29,7 @@ from repro_torch.models.layers import (_dense_init, gather_prev,
 from repro_torch.models.ssm.common import (checkpointed, chunkify,
                                            lower_mask, tree_chunk_scan,
                                            unchunkify)
+from repro_torch.sharding import require_no_model_axis
 
 LOGW_MIN = -8.0  # per-token decay clamp (exp(−8) ≈ 3e-4), FLA-style
 
@@ -137,6 +138,7 @@ def rwkv6_timemix(params: dict, cfg: SSMCfg, x: torch.Tensor, *,
     host int, "shift_pos": index tensor} and makes the call return
     ``(out, captures)``: per cut the state after that chunk and the inputs
     at ``shift_pos``."""
+    require_no_model_axis("the RWKV6 time-mix")
     return checkpointed(
         lambda x_: _timemix(params, cfg, x_, chunk_parent, prev_idx, valid,
                             initial_state, shift_ctx, capture), x)

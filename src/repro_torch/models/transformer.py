@@ -23,7 +23,15 @@ in the backward (the reference's ``jax.checkpoint`` on its scan body,
 the hybrid's shared block, which the reference applies outside its scan.
 The reference's ``shard_activation`` follows every residual add, as
 there (``sharding.py``: the identity on a data axis, where each rank's
-rows are its block of the batch; a model axis is ROADMAP item 7e-ii).
+rows are its block of the batch).  On a model axis the dense family runs
+Megatron's layout: each block's input passes ``sharding.tp_in`` (under
+sequence parallelism the all-gather of the residual stream's S blocks),
+its output projection ``tp_out_proj`` sums the ranks' partial products
+(under sequence parallelism a reduce-scatter back to S blocks), and the
+final hidden state passes ``tp_in`` on its way to the vocab-parallel
+loss; ``init_params`` draws every leaf as world 1 does and keeps this
+rank's block.  The other families refuse the model axis
+(``check_model_axis``: ROADMAP item 7e-ii).
 """
 from __future__ import annotations
 
@@ -32,12 +40,14 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, map_tree, resolve_device
+from repro_torch.device import (DeviceLike, flatten_tree, map_tree,
+                               resolve_device, unflatten_like)
 from repro_torch.models.attention import (attention, init_attention,
                                           project_cross_kv)
-from repro_torch.models.layers import (_dense_init, embed, init_embedding,
-                                       init_lm_head, init_mlp, init_rmsnorm,
-                                       mlp, rmsnorm, take_rows, token_nll)
+from repro_torch.models.layers import (Draw, _dense_init, deferred_draws,
+                                       embed, init_embedding, init_lm_head,
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
+                                       take_rows, token_nll)
 from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.ssm.common import checkpointed
 from repro_torch.models.ssm.gdn import gdn, init_gdn
@@ -45,7 +55,9 @@ from repro_torch.models.ssm.mamba2 import init_mamba2, mamba2
 from repro_torch.models.ssm.rwkv6 import (init_rwkv6_channelmix,
                                           init_rwkv6_timemix,
                                           rwkv6_channelmix, rwkv6_timemix)
-from repro_torch.sharding import shard_activation
+from repro_torch.sharding import (local_block, model_size,
+                                  not_on_model_axis, sequence,
+                                  shard_activation, tp_in)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -121,15 +133,54 @@ def _init_layers(cfg: ModelConfig, kind: str, lead: tuple, generator, dtype,
     return p
 
 
+def check_model_axis(cfg: ModelConfig) -> None:
+    """Refuse a model axis above 1 where the port does not run it: any
+    family but the dense one (ROADMAP item 7e-ii), and a dense model whose
+    vocab, query, KV or FFN width does not divide the axis (the spec
+    would replicate that weight, which the port does not run)."""
+    m = model_size()
+    if m == 1:
+        return
+    if cfg.family != "dense" or cfg.frontend is not None:
+        raise not_on_model_axis(f"the {cfg.family} family ({cfg.name})")
+    a = cfg.attn
+    for what, n in (("vocab", cfg.padded_vocab), ("query width", a.q_dim),
+                    ("KV width", a.kv_dim), ("FFN width", cfg.d_ff)):
+        if n % m:
+            raise not_on_model_axis(f"{cfg.name}'s {what} {n}, which does "
+                                    f"not divide a model axis of {m},")
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None) -> dict:
     """Random parameters in the reference's layout, on ``device`` (the CUDA
     device by default).  ``generator`` (seed 0 on ``device`` if None)
     plays the role of the reference's PRNG key; the draws differ from
-    JAX's, so cross-package tests bridge JAX's weights instead."""
+    JAX's, so cross-package tests bridge JAX's weights instead.  On a
+    model axis each rank makes every draw world 1 makes, in its order,
+    and keeps its ``sharding.local_block`` of each leaf: world 1's
+    parameters, no stacked leaf drawn whole at once (``layers.Draw``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    if model_size() == 1:
+        return _init_params(cfg, generator, dev)
+    check_model_axis(cfg)
+    with deferred_draws() as draws:
+        tree = _init_params(cfg, generator, dev)
+    flat = flatten_tree(tree)
+    keep = {id(x): local_block(p, x.shape) for p, x in flat}
+    made = {id(d): d.realize(keep[id(d)]) for d in draws}
+
+    def local(x):
+        if isinstance(x, Draw):
+            return made[id(x)]
+        b = keep[id(x)]
+        return x if b is None else x.narrow(b[0], b[1], b[2] - b[1]).clone()
+    return unflatten_like(tree, [local(x) for _, x in flat])
+
+
+def _init_params(cfg: ModelConfig, generator, dev) -> dict:
     dt = _dtype(cfg)
     params: dict = {
         "embed": init_embedding(generator, cfg.padded_vocab, cfg.d_model, dt,
@@ -224,7 +275,7 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
     egw = gw.get("attn")
     if egw is not None:
         egw = {**egw, "pos": meta["anc_pos"], "valid": meta.get("anc_valid")}
-    a = attention(p["attn"], cfg.attn, rmsnorm(p["ln1"], x, eps),
+    a = attention(p["attn"], cfg.attn, tp_in(rmsnorm(p["ln1"], x, eps)),
                   pos_ids=meta["pos_ids"], kv_last=meta["kv_last"],
                   valid=meta["valid"], impl=impl,
                   bidirectional=kind == "encoder", extra_kv=egw,
@@ -232,7 +283,7 @@ def _apply_layer(cfg: ModelConfig, p: dict, kind: str, x: torch.Tensor,
     if cap_idx is not None:
         a, caps["attn"] = a
     x = shard_activation(x + a)
-    h = rmsnorm(p["ln2"], x, eps)
+    h = tp_in(rmsnorm(p["ln2"], x, eps))
     aux = None
     if kind == "moe":
         m, auxd = moe(p["moe"], cfg.moe, h, meta["valid"], cfg.mlp_activation)
@@ -293,6 +344,13 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             "partitioned training currently covers dense/moe/ssm/hybrid")
+    check_model_axis(cfg)
+    with sequence(batch["tokens"].shape[1]):
+        return _partition_forward(cfg, params, batch, gw_in, capspecs, impl)
+
+
+def _partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
+                       capspecs: Optional[dict], impl: str):
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
                                   "chunk_parent", "prev_pows", "anc_pos",
                                   "anc_valid") if k in batch}
@@ -315,7 +373,8 @@ def partition_forward(cfg: ModelConfig, params: dict, batch: dict, gw_in,
                 aux = aux + a
             caps.append(c)
         caps_all[f"g{gi}"] = _stack_caps(caps) if capspecs else {}
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, caps_all
+    return tp_in(rmsnorm(params["final_norm"], x, cfg.norm_eps)), aux, \
+        caps_all
 
 
 def _mm_prefix_meta(batch: dict) -> dict:
@@ -373,9 +432,15 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     batch's ``extra_embeds`` [B, F, D] are a prefix of every row, sliced
     off the hidden states again; an audio batch's are the encoder's
     frames (``extra_valid`` [B, F] masks them, all valid by default)."""
+    check_model_axis(cfg)
+    with sequence(batch["tokens"].shape[1]):
+        return _forward(cfg, params, batch, impl)
+
+
+def _forward(cfg: ModelConfig, params: dict, batch: dict, impl: str):
     meta = {k: batch[k] for k in ("pos_ids", "kv_last", "valid", "prev_idx",
                                   "chunk_parent", "prev_pows") if k in batch}
-    x = embed(params["embed"], batch["tokens"])
+    x = shard_activation(embed(params["embed"], batch["tokens"]))
     F = 0
     if cfg.family == "vlm" or (cfg.frontend and cfg.family != "audio"):
         meta.update(_mm_prefix_meta(batch))
@@ -395,7 +460,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
                 x, a, _ = _layer(cfg, lp, kind, x, meta, impl)
                 if a is not None:
                     aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = tp_in(rmsnorm(params["final_norm"], x, cfg.norm_eps))
     return (x[:, F:] if F else x), aux
 
 

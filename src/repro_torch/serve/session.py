@@ -61,7 +61,7 @@ from repro_torch.device import (DeviceLike, map_tree, resolve_device,
 from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import layer_groups, partition_forward
 from repro_torch.serve.decode import _decode_step, _init_cache
-from repro_torch.sharding import shard_logits
+from repro_torch.sharding import require_no_model_axis, shard_logits
 from repro_torch.train.exec_cache import exec_key
 
 # held while a session captures its decode step into a ``GraphPool``.  A
@@ -209,6 +209,7 @@ class DecodeSession:
                buf_len: int, enc_len: int = 0, device: DeviceLike = None,
                graph_pool: Optional["GraphPool"] = None
                ) -> "DecodeSession":
+        require_no_model_axis("serving (a decode session)")
         dev = resolve_device(device)
         if params["embed"]["table"].device.type != dev.type:
             raise ValueError(f"params live on "

@@ -1,5 +1,5 @@
 """Sharding rules: the mesh context, per-tensor partition specs, and the
-data axis that ``torch.distributed`` runs.
+run-time data and model axes on ``torch.distributed``.
 
 Port of ``repro/sharding.py``.  The layout is the reference's
 Megatron-style one on a (data…, model) mesh:
@@ -15,30 +15,58 @@ as ``jax.sharding.PartitionSpec`` does).  The spec math (``param_spec``,
 ``launch.mesh.MeshDescriptor`` or a built ``DeviceMesh``; ``placements``
 turns a spec into DTensor placements, one per mesh dim.
 
-At run time the port has a data axis only.  Under ``use_mesh`` every batch
-the model sees is this rank's contiguous block of the step's rows
-(``models/model.rank_rows``): the engine sums the grads over the data
-axis, and the MoE layer queues its tokens over the whole batch
-(``models/moe``).  So the activation constraints (``shard_activation``,
-``shard_logits``, ``shard_spec``) are the identity, and ``tp_out_proj`` is
-the plain matmul, while the model axis has size 1; with a larger model
-axis they raise: the model axis at run time is ROADMAP item 7e-ii.
+At run time every tensor is this rank's: under ``use_mesh`` a batch is
+this rank's contiguous block of the step's rows (``models/model.
+rank_rows``, over the data axes), and a parameter is its ``param_spec``
+block along the model axis (``local_params``).  GSPMD's implicit
+collectives become explicit autograd functions:
+
+  - ``tp_in``: a block's input.  Without sequence parallelism the
+    identity, whose backward all-reduces over the model axis; with it an
+    all-gather along S, whose backward is a reduce-scatter.
+  - ``tp_out_proj``: a block's row-parallel output projection, the
+    partial products all-reduced over the model axis, or reduce-scattered
+    along S under sequence parallelism (backward: an all-gather).
+  - ``shard_activation``: the residual stream.  Under sequence
+    parallelism a full-length tensor is scattered to this rank's block of
+    S (backward: an all-gather); one that is already its block passes.
+
+Where every rank computes a replicated leaf's whole gradient (a norm
+scale on the replicated residual stream without sequence parallelism)
+the engine takes it as it is; where each computes a share (the q/k norm
+scales, which see only the rank's heads; every replicated leaf under
+sequence parallelism, whose tokens are split) it sums it over the model
+axis (``model_partial``).  The dense family runs on a model axis
+(``models/transformer.check_model_axis``); the other families, serving
+and the RL loop raise ``not_on_model_axis``: ROADMAP item 7e-ii.
 
 The mesh context is module state, not thread-local: the RL service's and
 the warm-up's threads see the mesh the launcher entered (the reference
-re-enters it in each thread, ``serve/service.py:122-135``).
+re-enters it in each thread, ``serve/service.py:122-135``).  The length
+of the sequence a forward runs (``sequence``) is per thread.
 """
 from __future__ import annotations
 
 import re
+import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.device import flatten_tree, unflatten_like
 
-MODEL_AXIS_TODO = ("the model axis at run time is ROADMAP.md Queue A item "
-                   "7e-ii (the port runs the data axis only)")
+MODEL_AXIS_TODO = ("ROADMAP.md Queue A item 7e-ii: the port runs the dense "
+                   "family's model axis; expert parallelism, FSDP, the SSM, "
+                   "hybrid, enc-dec and VLM rules, and serving and the RL "
+                   "loop on the axes are still to come")
+
+
+def not_on_model_axis(what: str) -> NotImplementedError:
+    """The refusal of a path not ported to a model axis above 1."""
+    return NotImplementedError(f"{what} on a model axis: {MODEL_AXIS_TODO}")
 
 
 def spec(*parts) -> tuple:
@@ -47,35 +75,51 @@ def spec(*parts) -> tuple:
                  for p in parts)
 
 
-# the run-time mesh's axes (the host mesh's); the reference's other
-# values (two data axes, sequence parallelism over the model axis) come
-# with the model axis at run time, item 7e-ii
-DATA_AXES: tuple[str, ...] = ("data",)
-MODEL_AXIS = "model"
-SEQ_PARALLEL = False
-
-
 class _Ctx:
     mesh = None
+    data_axes: tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    seq_parallel: bool = False
+    axes: dict = {}              # the mesh's axes (``_axis``), made once
 
 
 _CTX = _Ctx()
+_SEQ = threading.local()
 
 
 @contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, data_axes=("data",), model_axis="model",
+             seq_parallel: bool = False):
     """Run the body on ``mesh`` (a ``DeviceMesh``, or None for no mesh):
-    its data axis splits every step's rows over the ranks."""
-    old, _CTX.mesh = _CTX.mesh, mesh
+    its data axes split every step's rows over the ranks, its model axis
+    every parameter's ``param_spec`` dim.  ``seq_parallel``: Megatron
+    sequence parallelism, the residual stream between blocks split along
+    S over the model axis (each block's output projection reduce-scatters
+    instead of all-reducing, and its input all-gathers)."""
+    old = (_CTX.mesh, _CTX.data_axes, _CTX.model_axis, _CTX.seq_parallel,
+           _CTX.axes)
+    (_CTX.mesh, _CTX.data_axes, _CTX.model_axis, _CTX.seq_parallel,
+     _CTX.axes) = mesh, tuple(data_axes), model_axis, seq_parallel, {}
     try:
         yield
     finally:
-        _CTX.mesh = old
+        (_CTX.mesh, _CTX.data_axes, _CTX.model_axis, _CTX.seq_parallel,
+         _CTX.axes) = old
 
 
 def current_mesh():
     """The active mesh, if any (seen from every thread)."""
     return _CTX.mesh
+
+
+def mesh_key():
+    """What the active mesh changes in an executable: its axes and sizes,
+    which of them are data axes, and sequence parallelism (None without
+    a mesh)."""
+    if _CTX.mesh is None:
+        return None
+    return (tuple(_axis_sizes(_CTX.mesh).items()), _CTX.data_axes,
+            _CTX.model_axis, _CTX.seq_parallel)
 
 
 def _axis_sizes(mesh) -> dict:
@@ -85,69 +129,287 @@ def _axis_sizes(mesh) -> dict:
     return {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
 
 
-def _model_size() -> int:
+def model_size() -> int:
+    """The active mesh's model axis size (1 without a mesh)."""
     if _CTX.mesh is None:
         return 1
-    return _axis_sizes(_CTX.mesh).get(MODEL_AXIS, 1)
+    return _axis_sizes(_CTX.mesh).get(_CTX.model_axis, 1)
 
 
-def _data_only(x):
-    if _model_size() > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
-    return x
+def require_no_model_axis(what: str) -> None:
+    """Raise ``not_on_model_axis(what)`` under a model axis above 1."""
+    if model_size() > 1:
+        raise not_on_model_axis(what)
 
 
 @dataclass(frozen=True)
 class DataAxis:
-    """The data axis of the active mesh: its process group, this rank's
-    index on it and its size."""
+    """A mesh axis as one rank sees it: its process group, this rank's
+    index on it and its size (the data axes flattened into one)."""
     group: Any
     rank: int
     size: int
 
 
-def data_axis() -> Optional[DataAxis]:
-    """The active mesh's data axis, or None without a mesh."""
+def _axis(names: tuple) -> DataAxis:
     mesh = _CTX.mesh
-    if mesh is None:
+    if names not in _CTX.axes:
+        sub = mesh[names[0]] if len(names) == 1 else mesh[names]._flatten()
+        _CTX.axes[names] = DataAxis(sub.get_group(), sub.get_local_rank(),
+                                    sub.size())
+    return _CTX.axes[names]
+
+
+def data_axis() -> Optional[DataAxis]:
+    """The active mesh's data axes as one, or None without a mesh."""
+    return None if _CTX.mesh is None else _axis(_CTX.data_axes)
+
+
+def model_axis() -> Optional[DataAxis]:
+    """The active mesh's model axis, or None without a mesh or where it
+    has size 1 (every tensor then whole on this rank)."""
+    if model_size() == 1:
         return None
-    (name,) = DATA_AXES
-    dim = mesh.mesh_dim_names.index(name)
-    return DataAxis(mesh.get_group(name), mesh.get_local_rank(name),
-                    mesh.size(dim))
+    return _axis((_CTX.model_axis,))
 
 
-def shard_activation(x):
-    """[B, S, D] (or [B, S]) activations: the rows are already this rank's
-    block of the batch, so the identity while the model axis is 1."""
-    return x if _CTX.mesh is None else _data_only(x)
+def seq_parallel() -> bool:
+    """Sequence parallelism is on and the model axis is above 1."""
+    return _CTX.seq_parallel and model_size() > 1
+
+
+@contextmanager
+def sequence(S: int):
+    """The body runs one forward over rows of ``S`` tokens (what
+    ``shard_activation`` tells a full-length tensor from this rank's block
+    by).  Under sequence parallelism S must divide the model axis: the
+    port refuses the rows the reference would leave unsplit (ROADMAP,
+    differs on purpose), since its replicated leaves' gradients are the
+    model axis's shares only where every block's tokens were split."""
+    if seq_parallel() and S % model_size():
+        raise ValueError(f"rows of {S} tokens do not split over a model "
+                         f"axis of {model_size()} under sequence "
+                         f"parallelism")
+    old, _SEQ.S = getattr(_SEQ, "S", None), S
+    try:
+        yield
+    finally:
+        _SEQ.S = old
 
 
 def seq_sharded(S: int) -> bool:
     """True when sequence parallelism is active and a length-``S`` sequence
     dim divides the model axis (the reference's condition)."""
-    return (_CTX.mesh is not None and SEQ_PARALLEL
-            and S % _model_size() == 0)
+    return (_CTX.mesh is not None and _CTX.seq_parallel
+            and S % model_size() == 0)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over the model axis, as autograd functions
+# ---------------------------------------------------------------------------
+
+# the profiler range around every model-axis collective (their device time
+# is read from it)
+MODEL_AXIS_SPAN = "sharding.model_axis"
+
+
+def model_span():
+    return torch.profiler.record_function(MODEL_AXIS_SPAN)
+
+
+def _gather(x: torch.Tensor, dim: int, ax: DataAxis) -> torch.Tensor:
+    """Every rank's ``x`` concatenated in rank order along ``dim``."""
+    with model_span():
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((ax.size * xt.shape[0],) + tuple(xt.shape[1:]))
+        dist.all_gather_into_tensor(out, xt, group=ax.group)
+        return out.movedim(0, dim)
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, ax: DataAxis) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``x``
+    (a reduce-scatter; ``reduce_scatter_tensor`` before torch 2.13)."""
+    with model_span():
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // ax.size,) + tuple(xt.shape[1:]))
+        rs = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        rs(out, xt, group=ax.group)
+        return out.movedim(0, dim)
+
+
+def _sum(x: torch.Tensor, ax: DataAxis) -> torch.Tensor:
+    with model_span():
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=ax.group)
+        return y
+
+
+def _block(x: torch.Tensor, dim: int, ax: DataAxis) -> torch.Tensor:
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.rank * n, n)
+
+
+class _Sum(torch.autograd.Function):
+    """Partial sums → their total on every rank; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _sum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity on a replicated tensor whose users each take a share
+    of the gradient; backward: the shares all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.ax), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; backward: a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.dim, ctx.ax), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; backward: an all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _scatter_sum(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.ax), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's block along ``dim`` of a replicated tensor; backward:
+    the blocks' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _block(x, dim, ax).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.ax), None, None
+
+
+def _seq_len(x: torch.Tensor) -> int:
+    S = getattr(_SEQ, "S", None)
+    return x.shape[1] if S is None else S
+
+
+def shard_activation(x):
+    """[B, S, D] (or [B, S]) activations: the rows are already this rank's
+    block of the batch; under sequence parallelism a full-length tensor
+    is scattered to this rank's block of S (the reference's constraint),
+    and a block passes as it is."""
+    ax = model_axis()
+    if ax is None or not _CTX.seq_parallel or x.dim() < 2:
+        return x
+    S = _seq_len(x)
+    if x.shape[1] == S:
+        return _Scatter.apply(x, 1, ax) if S % ax.size == 0 else x
+    if x.shape[1] * ax.size != S:
+        raise ValueError(f"activation of length {x.shape[1]} in a forward "
+                         f"over {S} tokens on a model axis of {ax.size}")
+    return x
+
+
+def tp_in(x):
+    """A block's input [B, S, D] as every rank of the model axis reads
+    it: without sequence parallelism the replicated tensor, whose gradient
+    the ranks' shares sum to (the backward's all-reduce); with it this
+    rank's block of S all-gathered (the backward's reduce-scatter).  Also
+    the final hidden state the loss reads."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    if _CTX.seq_parallel:
+        return _Gather.apply(x, 1, ax)
+    return _Copy.apply(x, ax)
+
+
+def model_sum(y):
+    """Partial products [B, S, D] of the model axis's ranks summed: an
+    all-reduce, or under sequence parallelism (S dividing the axis) a
+    reduce-scatter leaving this rank's block of S."""
+    ax = model_axis()
+    if ax is None:
+        return y
+    if y.dim() == 3 and seq_sharded(y.shape[1]):
+        return _ReduceScatter.apply(y, 1, ax)
+    return _Sum.apply(y, ax)
 
 
 def tp_out_proj(h, w):
-    """The output projection ``h @ w`` of a block; the reference's
-    reduce-scatter under sequence parallelism needs a model axis (item
-    7e-ii)."""
-    _data_only(None)
-    return h @ w
+    """The output projection ``h @ w`` of a block: h [B, S, F] this rank's
+    feature columns, w [F, D] its rows, so each rank's product is a
+    partial sum, reduced by ``model_sum`` (the reference's
+    ``psum_scatter`` under sequence parallelism, its fall-back to the
+    plain all-reduce otherwise)."""
+    return model_sum(h @ w)
+
+
+def gather_model(x, dim: int = -1):
+    """Every rank's ``x`` concatenated along ``dim`` (a head dimension
+    whose blocks cut heads); backward: a reduce-scatter."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    return _Gather.apply(x, dim % x.dim(), ax)
+
+
+def model_block(n: int) -> tuple[int, int]:
+    """This rank's [lo, hi) of a model-sharded dim of size ``n``."""
+    ax = model_axis()
+    if ax is None:
+        return 0, n
+    return ax.rank * n // ax.size, (ax.rank + 1) * n // ax.size
 
 
 def shard_spec(x, *axes):
-    """Constrain arbitrary dims ('data', 'model' or None per dim): the
-    identity while the model axis is 1."""
-    return x if _CTX.mesh is None else _data_only(x)
+    """Constrain arbitrary dims ('data', 'model' or None per dim): a
+    'model' dim that divides the model axis keeps this rank's block (the
+    rows are already this rank's data block)."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    for i, a in enumerate(axes):
+        if a == "model" and x.shape[i] % ax.size == 0:
+            x = _block(x, i, ax)
+    return x
 
 
 def shard_logits(x):
     """[B, S, V]: batch over the data axes (already this rank's rows),
-    vocab over the model axis (item 7e-ii)."""
-    return x if _CTX.mesh is None else _data_only(x)
+    this rank's block of the vocab where it divides the model axis."""
+    ax = model_axis()
+    if ax is None or x.shape[-1] % ax.size:
+        return x
+    return _block(x, x.dim() - 1, ax)
 
 
 # ---------------------------------------------------------------------------
@@ -325,3 +587,99 @@ def cache_shardings(cache_shapes: Any, mesh, daxes=("data",),
     return unflatten_like(cache_shapes, [rule(p, x) for p, x in
                                          flatten_tree(cache_shapes)])
 
+
+
+# ---------------------------------------------------------------------------
+# Parameters at run time: this rank's blocks
+# ---------------------------------------------------------------------------
+
+def _stack_dims(path_str: str) -> int:
+    return 1 if ("layer_stacks" in path_str
+                 or path_str.startswith("encoder")) else 0
+
+
+def _ps(path) -> str:
+    return path if isinstance(path, str) else _path_str(path)
+
+
+def model_dim(path, ndim: int) -> Optional[int]:
+    """The dim of a parameter (or of its gradient or moment, whose paths
+    end the same way) that the rules shard over the model axis where it
+    divides, or None for a leaf the rules replicate.  On a model axis
+    every such dim divides (``local_params`` refuses one that does not),
+    so this is the leaf's run-time layout.  ``path``: a ``flatten_tree``
+    key path or its "a/0/b" string."""
+    path_str = _ps(path)
+    n_stack = _stack_dims(path_str)
+    for pat, fn in _RULES:
+        if re.search(pat, path_str):
+            parts = fn((1,) * (ndim - n_stack), 1)
+            return next((n_stack + i for i, a in enumerate(parts)
+                         if a == "M"), None)
+    return None
+
+
+# the replicated leaves a block applies to the model axis's own heads or
+# features: each rank's gradient of one is its share
+_INSIDE_BLOCK = re.compile(r"(^|/)(attn|mlp)/(?!bo$)")
+
+
+def model_partial(path, ndim: int) -> bool:
+    """Whether this rank's gradient of a replicated leaf is a share that
+    the model axis sums: under sequence parallelism every replicated
+    leaf's (its tokens are split); otherwise those a block applies to the
+    rank's heads (the q/k norm scales), since the residual stream's leaves
+    see every token on every rank."""
+    if model_dim(path, ndim) is not None:
+        return False
+    return seq_parallel() or bool(_INSIDE_BLOCK.search(_ps(path)))
+
+
+def local_block(path, shape: tuple, mesh=None
+                ) -> Optional[tuple[int, int, int]]:
+    """(dim, lo, hi): this rank's block of a full leaf (at ``path``, a
+    ``flatten_tree`` key path or its "a/0/b" string) of ``shape`` on
+    ``mesh`` (the active one by default), or None where it is whole here.
+    A dim the rules would shard that does not divide the model axis is
+    refused: the spec replicates it, and the port does not run a
+    replicated weight's block on the model axis."""
+    mesh = _CTX.mesh if mesh is None else mesh
+    if mesh is None:
+        return None
+    path_str = _ps(path)
+    m = _axis_sizes(mesh).get(_CTX.model_axis, 1)
+    d = model_dim(path_str, len(shape))
+    if m == 1 or d is None:
+        return None
+    if shape[d] % m:
+        raise not_on_model_axis(f"{path_str} {tuple(shape)}: dim {d} does "
+                                f"not divide the model axis of {m}")
+    r = mesh.get_local_rank(_CTX.model_axis)
+    n = shape[d] // m
+    return d, r * n, (r + 1) * n
+
+
+def local_params(params: Any, mesh=None) -> Any:
+    """This rank's block (``param_spec`` on ``mesh``, the active mesh by
+    default) of every leaf of a full parameter tree (or of an optimizer
+    state, whose leaves follow their parameters' rules)."""
+    def one(path, leaf):
+        b = local_block(path, tuple(leaf.shape), mesh)
+        return leaf if b is None else \
+            leaf.narrow(b[0], b[1], b[2] - b[1]).clone()
+    return unflatten_like(params, [one(p, x) for p, x in
+                                   flatten_tree(params)])
+
+
+def gather_params(params: Any) -> Any:
+    """The full leaves of a tree of this rank's blocks: each model-sharded
+    leaf all-gathered over the model axis along its dim (every rank of
+    the axis takes part, in ``flatten_tree`` order)."""
+    ax = model_axis()
+    if ax is None:
+        return params
+    out = []
+    for path, leaf in flatten_tree(params):
+        d = model_dim(path, leaf.dim())
+        out.append(leaf if d is None else _gather(leaf.detach(), d, ax))
+    return unflatten_like(params, out)

@@ -39,6 +39,14 @@ wave's captures (all-gather along rows, after its forward) and the
 cotangents routed onto them (reduce-scatter along rows, before its
 backward), so a child's parent may sit on any rank.  No collective reads
 a device value on the host: the step keeps its one host sync.
+
+On a model axis (the dense family, ``sharding.py``) every rank holds its
+blocks of the parameters, so the grad slots are its blocks' gradients.
+The rows a rank runs are its data block (the model axis's ranks run the
+same rows), the captures and gateways hold the rank's KV heads, and the
+exchanges above stay on the data axis.  ``_reduce`` then also sums over
+the model axis the replicated leaves whose gradients are the ranks'
+shares (``sharding.model_partial``).
 """
 from __future__ import annotations
 
@@ -60,10 +68,12 @@ from repro_torch.core.gateway import (PartitionPlan, _cut_caps_view,
                                       device_capspecs, grad_slots, map2,
                                       partition_vjp, route_child_cot)
 from repro_torch.core.plan_cost import packed_signature, wave_signature_of
-from repro_torch.device import map_tree, tree_leaves, unflatten_like
+from repro_torch.device import (flatten_tree, map_tree, tree_leaves,
+                               unflatten_like)
 from repro_torch.models.model import device_batch, rank_rows, row_block
 from repro_torch.models.transformer import loss_and_metrics, partition_loss
-from repro_torch.sharding import DataAxis, data_axis
+from repro_torch.sharding import (DataAxis, data_axis, model_axis,
+                                  model_partial)
 from repro_torch.train.exec_cache import ExecutableCache, exec_key, executable
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import update
@@ -275,24 +285,37 @@ def _buckets(ts: list, limit: int = BUCKET_BYTES) -> list:
     return out
 
 
-def _reduce(params, acc: list, scal: torch.Tensor, axis: DataAxis):
-    """Sum the fp32 grad slots and the scalar vector over the data axis,
-    in place.  Every slot enters, as zeros where no backward of this rank
-    reached it (another rank's rows may have), so every rank issues the
-    same collectives in the same order: the slots in ``tree_leaves`` order
-    and the scalars last, in buckets of up to ``BUCKET_BYTES``."""
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           if a is None else a for p, a in zip(tree_leaves(params), acc)]
-    for bucket in _buckets(acc + [scal]):
+def _all_reduce(ts: list, group) -> None:
+    """Sum each tensor of ``ts`` over ``group`` in place, in buckets of up
+    to ``BUCKET_BYTES`` (a larger tensor alone)."""
+    for bucket in _buckets(ts):
         if len(bucket) == 1:
-            dist.all_reduce(bucket[0], group=axis.group)
+            dist.all_reduce(bucket[0], group=group)
             continue
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat, group=axis.group)
+        dist.all_reduce(flat, group=group)
         off = 0
         for t in bucket:
             t.copy_(flat[off:off + t.numel()].view_as(t))
             off += t.numel()
+
+
+def _reduce(params, acc: list, scal: torch.Tensor, axis: DataAxis):
+    """Sum the fp32 grad slots and the scalar vector over the data axis,
+    in place; on a model axis then the slots of the replicated leaves
+    whose gradients are the ranks' shares (``sharding.model_partial``)
+    over the model axis.  Every slot enters, as zeros where no backward
+    of this rank reached it (another rank's rows may have), so every rank
+    issues the same collectives in the same order: the slots in
+    ``tree_leaves`` order and the scalars last, in buckets of up to
+    ``BUCKET_BYTES``."""
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           if a is None else a for p, a in zip(tree_leaves(params), acc)]
+    _all_reduce(acc + [scal], axis.group)
+    ax = model_axis()
+    if ax is not None:
+        _all_reduce([a for (path, p), a in zip(flatten_tree(params), acc)
+                     if model_partial(path, p.dim())], ax.group)
     return acc, scal
 
 

@@ -7,7 +7,7 @@ holds what the engine runs for each of them.  Every engine dispatch
 (packed microbatch with or without accumulator, wave forward and
 backward, optimizer update) is keyed by
 
-    (variant, signature, arg fingerprint)
+    (variant, signature, mesh, arg fingerprint)
 
 where the *signature* is the planner-level shape bucket
 (``core/plan_cost.packed_signature`` / ``wave_signature``) and the
@@ -39,6 +39,7 @@ from repro_torch.device import DeviceLike, flatten_tree, map_tree
 from repro_torch.kernels import build
 from repro_torch.kernels import tree_attention as ta
 from repro_torch.kernels import tree_attention_bwd as tab
+from repro_torch.sharding import mesh_key
 
 # the kernels each training variant launches under impl="kernel": a
 # packed execution and a wave's backward (its forward recomputed) run the
@@ -87,8 +88,10 @@ def arg_fingerprint(args: tuple) -> Hashable:
 
 
 def exec_key(variant: str, sig: Hashable, args: tuple) -> Hashable:
-    """The cache key one engine dispatch resolves to."""
-    return (variant, sig, arg_fingerprint(args))
+    """The cache key one engine dispatch resolves to: with the active
+    mesh's shape and sequence parallelism (``sharding.mesh_key``), which
+    change the collectives a dispatch issues."""
+    return (variant, sig, mesh_key(), arg_fingerprint(args))
 
 
 def load_kernels(variant: str, impl: str, device: DeviceLike) -> None:

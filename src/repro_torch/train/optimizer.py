@@ -6,7 +6,9 @@ parameter tree: ``{"mu", "nu"}`` hold fp32 moments of every leaf and
 nu and step **in place** under ``torch.no_grad()`` (JAX donates the old
 buffers instead; PyTorch has no counterpart, and in place keeps one copy).
 The learning rate, the bias corrections and the clip scale stay fp32
-tensors on the device, so an update never waits on the host.
+tensors on the device, so an update never waits on the host.  On a model
+axis each rank updates its blocks (``sharding.local_params``), with the
+clip scale of the whole model's norm (``global_norm``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ from typing import Any
 
 import torch
 
-from repro_torch.device import map_tree, tree_leaves
+import torch.distributed as dist
+
+from repro_torch.device import flatten_tree, map_tree, tree_leaves
+from repro_torch.sharding import model_axis, model_dim
 
 
 @dataclass(frozen=True)
@@ -50,8 +55,23 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(a.float()))
-                          for a in tree_leaves(tree)))
+    """The L2 norm of every leaf together.  On a model axis a tree of this
+    rank's blocks: the model-sharded leaves' squares are summed over the
+    axis (one all-reduce), the replicated leaves' counted once."""
+    sq = lambda a: torch.sum(torch.square(a.float()))
+    ax = model_axis()
+    if ax is None:
+        return torch.sqrt(sum(sq(a) for a in tree_leaves(tree)))
+    split = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(tree)[0].device)
+    whole = torch.zeros_like(split)
+    for path, a in flatten_tree(tree):
+        if model_dim(path, a.dim()) is None:
+            whole = whole + sq(a)
+        else:
+            split = split + sq(a)
+    dist.all_reduce(split, group=ax.group)
+    return torch.sqrt(whole + split)
 
 
 def _decay_mask(params: Any) -> Any:

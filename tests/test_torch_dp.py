@@ -372,11 +372,13 @@ def test_launcher_on_a_world_of_2_prints_the_world_1_losses(capsys,
 
 
 def test_launcher_refuses_the_production_meshes(capsys, monkeypatch):
+    """On a world that is not the production mesh's, ``--mesh single`` and
+    ``multi`` exit naming the ranks they need."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    for mesh in ("single", "multi"):
+    for mesh, n in (("single", 256), ("multi", 512)):
         with pytest.raises(SystemExit):
             train_launch.main(SMOKE + ["--mesh", mesh])
-        assert "7e-ii" in capsys.readouterr().err
+        assert f"it needs {n} ranks" in capsys.readouterr().err
 
 
 def test_launcher_refuses_rows_that_do_not_split(capsys, monkeypatch):

@@ -6,7 +6,8 @@ coverage, the mesh descriptors' fields, ``batch_shardings`` and
 ``cache_shardings`` on a (2, 4) mesh (the reference's built in one
 subprocess on 8 fake host devices), and ``placements`` on a gloo (2, 1)
 CPU ``DeviceMesh`` (two processes).  The activation constraints are the
-identity on a data axis and raise on a model axis."""
+identity on a data axis and the dense family's layout on a model axis,
+where the other families raise."""
 import functools
 import json
 import os
@@ -299,16 +300,28 @@ def test_param_shardings_are_the_specs_placements():
 
 
 class _FakeMesh:
-    """A mesh-shaped stand-in (axis names and sizes only)."""
+    """A mesh-shaped stand-in (axis names and sizes; rank 0 of each axis,
+    its groups never used)."""
     def __init__(self, shape):
         self.mesh_dim_names = ("data", "model")
         self._shape = shape
 
-    def size(self, i):
+    def size(self, i=None):
         return self._shape[i]
+
+    def __getitem__(self, name):
+        n = self._shape[self.mesh_dim_names.index(name)]
+        return type("Axis", (), {"get_group": lambda s: None,
+                                 "get_local_rank": lambda s: 0,
+                                 "size": lambda s: n})()
 
 
 def test_constraints_are_the_identity_on_a_data_axis_and_raise_on_a_model_axis():
+    """On a data axis the constraints are the identity.  On a model axis
+    they are the dense family's layout (the residual stream passes without
+    sequence parallelism, a 'model' dim keeps this rank's block; the
+    collectives themselves run in tests/test_torch_tp.py), and the
+    families the model axis does not run yet raise, naming item 7e-ii."""
     x, w = torch.randn(2, 3, 4), torch.randn(4, 5)
     assert sh.shard_activation(x) is x and sh.shard_logits(x) is x
     with sh.use_mesh(_FakeMesh((2, 1))):
@@ -318,8 +331,19 @@ def test_constraints_are_the_identity_on_a_data_axis_and_raise_on_a_model_axis()
         assert torch.equal(sh.tp_out_proj(x, w), x @ w)
         assert sh.seq_sharded(3) is False
     with sh.use_mesh(_FakeMesh((1, 2))):
-        for fn in (lambda: sh.shard_activation(x), lambda: sh.shard_logits(x),
-                   lambda: sh.shard_spec(x, None), lambda: sh.tp_out_proj(x, w)):
+        assert sh.shard_activation(x) is x
+        assert sh.tp_in(x) is not None and sh.model_block(12) == (0, 6)
+        assert torch.equal(sh.shard_logits(x), x[..., :2])
+        assert torch.equal(sh.shard_spec(x, "data", None, "model"),
+                           x[..., :2])
+        assert sh.shard_spec(x, "model", None, None).shape == (1, 3, 4)
+        for fam in ("moe", "ssm_mamba2", "hybrid", "vlm", "audio"):
+            cfg = config_from_jax(tiny_cfg(fam))
             with pytest.raises(NotImplementedError, match="7e-ii"):
-                fn()
+                init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        with pytest.raises(NotImplementedError, match="7e-ii"):
+            sh.require_no_model_axis("serving")
+    with sh.use_mesh(_FakeMesh((1, 2)), seq_parallel=True):
+        assert sh.seq_sharded(4) and not sh.seq_sharded(3)
     assert sh.current_mesh() is None
