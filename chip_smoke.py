@@ -208,7 +208,9 @@ Then the MoE model, Qwen3-30B-A3B (H 32, Kh 4, 128 experts top-8), once
 the dense model's tensors are freed:
  12. moe kernel — phases 2-3 at H 32/Kh 4: a gateway case (f32, bf16),
                   the serving path's prefill and tool prefill, and the MoE
-                  train step's rows T_moe.
+                  train step's rows T_moe; and at the model axis's head
+                  layouts of the MoE model, H 16/Kh 2 and H 8/Kh 1 (model
+                  2 and 4), on the T_moe rows in f32 and bf16.
  13. moe serve  — all 48 layers (or the deepest cut whose bf16 weights fit
                   75 GB, printed as reduced), random weights: phase 4's
                   groups and session, decode tokens/s beside the bound of
@@ -229,6 +231,25 @@ the dense model's tensors are freed:
                   capacity factor E/K (C = N): loss 1e-5 relative, gradient
                   relative L2 1e-4, routing flips counted; then, not
                   checked, tree vs baseline at the real capacity factor.
+ 16a. expert parallel — a world of 2 spawned from the script (NCCL where
+                  the machine shows two devices, else gloo on the one
+                  card), the memory reckoned and printed first, on a mesh
+                  (data 1, model 2): each rank holds 64 of the 128 experts
+                  (``models/moe.py``), its blocks drawn from the seed as
+                  world 1 draws its leaves, and runs the kernels at H 16 /
+                  Kh 2; 2 layers at full width, ``mp_plans``' packed and
+                  3-wave plans (2 rows of MP_SEQ), sequence parallelism off
+                  and on, the aux losses on, one ``accumulate`` each beside
+                  world 1's on the rank.  (a) f32: loss 1e-6 relative and
+                  each rank's grad blocks 1e-4 max-rel of world 1's, every
+                  MoE call's routing torch.equal across the ranks and its
+                  kept (token, slot) pairs world 1's; (b) bf16: gradient
+                  relative L2 5e-2 of world 1's with the routing flips
+                  against world 1 counted; a miss is rerun with world 1's
+                  routing pinned, and passes, reported as a miss, only if
+                  flips occurred and the pinned run is within the bar.
+                  Each kernel is launched ``plan_launches`` times by each
+                  rank.
  17. moe timing T — phase 11's training-shape timing at T_moe.
 Then the rest of the dense and MoE archs (Qwen3-8B, Qwen3-32B, Llama-4
 Scout, Kimi K2, Nemotron-4 340B), once the MoE model's tensors are freed:
@@ -379,7 +400,9 @@ generation; Zamba2's too) under ``rl``, the five archs' layouts under
 ``archs``,
 Zamba2's layout, the SSM wave steps' launches and ZW under ``ssm``, the
 enc-dec and VLM archs' launches and the V and S2 timings under ``mm``,
-and every instance its source built, with
+the data, model and expert parallel phases' launches under
+``data_parallel``, ``model_parallel`` and ``expert_parallel``, and every
+instance its source built, with
 registers, spills, HGMMA and UTMALDG, under ``instances``); the
 last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2.
@@ -519,6 +542,14 @@ RL_GEN_THREAD = "tree-rl-gen"
 # trains at; a serving run's weights and work may take PEAK_LIMIT of the
 # card, 6 GB of it for the caches, activations and parity replays
 MOE_ARCH, MOE_HEADS, MOE_TRAIN_LAYERS = "qwen3_30b_a3b", (32, 4), 2
+# the expert parallel phase: the MoE model on a (data 1, model 2) mesh at
+# MOE_TRAIN_LAYERS layers, 2 rows of MP_SEQ, spawned ranks that may take
+# EP_TIMEOUT_S; the head layouts the model axis gives its kernels ((H, Kh)
+# at hd 128: model 2 and model 4)
+EP_SHAPE, EP_TIMEOUT_S = (1, 2), 240
+# (b)'s bar: the bf16 gradient's relative L2 of world 1's
+EP_BF16_L2 = 5e-2
+EP_HEADS = ((16, 2), (8, 1))
 PEAK_LIMIT, SERVE_WORK = 75e9, 6e9
 # the rest of the dense and MoE archs: each serves at the deepest cut that
 # fits and is held in f32 at up to PARITY_LAYERS layers; Qwen3-32B also
@@ -762,7 +793,9 @@ def kernel_cases(train_kv_last=None, tp_kv_last=None):
 def moe_kernel_cases(train_kv_last):
     """The MoE model's attention (H 32, Kh 4: a GQA group of 8, hd 128): a
     gateway case in f32 and bf16, the serving path's prefill and tool
-    prefill, and the MoE training shape T (its real kv_last) last."""
+    prefill, the model axis's head layouts (EP_HEADS: a rank's heads at
+    model 2 and 4) on the MoE training rows in f32 and bf16, and the MoE
+    training shape T (its real kv_last) last."""
     f32, bf16 = torch.float32, torch.bfloat16
     H, Kh = MOE_HEADS
     cases = []
@@ -777,6 +810,10 @@ def moe_kernel_cases(train_kv_last):
     add(f"H {H}/Kh {Kh} path: tool prefill S=200 q_off=1056 bf16", bf16, 8,
         200, H, Kh, 128, tool_kv_last(), q_off=1056)
     B, S = train_kv_last.shape
+    for h, kh in EP_HEADS:
+        for dt in (f32, bf16):
+            add(f"model axis H {h}/Kh {kh} on T_moe (B={B}, S={S}) {dt}", dt,
+                B, S, h, kh, 128, train_kv_last)
     add(f"H {H}/Kh {Kh} MoE train shape T (B={B}, S={S}) bf16", bf16, B, S,
         H, Kh, 128, train_kv_last)
     return cases
@@ -3005,6 +3042,285 @@ def mp_report(res: list) -> dict:
     return dict(wall_s=res[0]["mp"]["wall_s"],
                 launches=[[r["launches"] for r in x["mp"]["rows"]]
                           for x in res],
+                rows=[(r["part"], r["plan"], r["sp"]) for r in rows0])
+
+
+def ep_reckoning(cfg) -> tuple[str, float]:
+    """The device memory the expert parallel phase needs, reckoned from the
+    config at MOE_TRAIN_LAYERS layers in f32 (its larger part): each rank
+    holds world 1's parameters and fp32 grads, its blocks, their grads and
+    world 1's grads cut to its blocks, and a layer's activations at 2
+    rows of MP_SEQ (about 8 [tokens, D] f32 tensors and the dispatch's
+    [E, C + 1, D] and [E, C, F] ones, twice for the ranks' own)."""
+    L, D, V = MOE_TRAIN_LAYERS, cfg.d_model, cfg.padded_vocab
+    m, a = cfg.moe, cfg.attn
+    ne = EP_SHAPE[1]
+    expert = (3 if cfg.mlp_activation == "swiglu" else 2) * \
+        m.num_experts * D * m.d_expert
+    attn = D * (a.q_dim + 2 * a.kv_dim) + a.q_dim * D + D * m.num_experts
+    n = 2 * V * D + L * (expert + attn)
+    block = n // ne
+    tok = TRAIN_ROWS * MP_SEQ
+    C = moe_layer.capacity(tok, m)
+    act = L * 4 * (8 * tok * D + m.num_experts * C * (D + 2 * m.d_expert))
+    rank = 4 * (2 * n + 3 * block) + act * 3 // 2
+    return (f"{L} layers f32: world 1 {n / 1e9:.3f} B params "
+            f"({expert / 1e9:.3f} B in a layer's experts), a rank's blocks "
+            f"{block / 1e9:.3f} B; a rank ~{rank / 1e9:.1f} GB (world 1's "
+            f"params and fp32 grads, its blocks, their grads and world 1's "
+            f"cut to them, activations), two ranks ~{2 * rank / 1e9:.1f} GB "
+            f"beside the script's own process"), 2 * rank
+
+
+class RouteRecord:
+    """While active, every MoE call's routing as the layer's own ``route``
+    and ``queue`` return it: ``top_e`` [N, K], the kept (token, slot)
+    pairs and the valid tokens.  With ``pin`` (a record of the same calls
+    in another run) call i routes each token to the experts that ``pin``'s
+    call i chose, weighted by this call's router probabilities of them
+    (renormalised), as ``PinnedRouting`` does: a run that differs from the
+    pinned one by near-tie flips then makes its routing and drops."""
+
+    def __init__(self, pin: "RouteRecord" = None):
+        self.top_e, self.keep, self.valid, self.pin = [], [], [], pin
+
+    def __enter__(self):
+        self._route, self._queue = moe_layer.route, moe_layer.queue
+
+        def route(params, mcfg, xf):
+            logits, probs, top_p, top_e = self._route(params, mcfg, xf)
+            if self.pin is not None:
+                top_e = self.pin.top_e[len(self.top_e)]
+                top_p = torch.gather(probs, 1, top_e)
+                top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True),
+                                            min=1e-9)
+            self.top_e.append(top_e)
+            return logits, probs, top_p, top_e
+
+        def queue(top_e, vmask, *args):
+            out = self._queue(top_e, vmask, *args)
+            self.keep.append(out[2])
+            self.valid.append(vmask)
+            return out
+
+        moe_layer.route, moe_layer.queue = route, queue
+        return self
+
+    def __exit__(self, *exc):
+        moe_layer.route, moe_layer.queue = self._route, self._queue
+
+    def flips(self, other: "RouteRecord") -> tuple[int, int]:
+        """(valid tokens whose top-k expert set differs from ``other``'s,
+        valid tokens), over the calls."""
+        check(len(self.top_e) == len(other.top_e),
+              "expert parallel: the two runs made different MoE calls")
+        n = d = 0
+        for a, b, v in zip(self.top_e, other.top_e, self.valid):
+            diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+            n += int((diff & v).sum())
+            d += int(v.sum())
+        return n, d
+
+
+def ep_agree(rec: RouteRecord, ax) -> bool:
+    """Every MoE call's ``top_e`` torch.equal on every rank of the model
+    axis ``ax``: rank 0's broadcast over the axis and compared."""
+    mine = torch.cat([t.reshape(-1) for t in rec.top_e])
+    first = mine.clone()
+    dist.broadcast(first, src=dist.get_global_rank(ax.group, 0),
+                   group=ax.group)
+    same = torch.tensor([int(torch.equal(first, mine))], device=mine.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=ax.group)
+    return bool(same.item())
+
+
+def phase_expert_parallel(cfg_full) -> dict:
+    """16a. Qwen3-30B-A3B at full width on a (data 1, model 2) mesh in a
+    world of 2 spawned from the script (``ep_rank``: NCCL where the
+    machine shows two devices, else gloo on the one card): the memory
+    reckoned and printed first, then each rank's rows (``ep_report``)."""
+    note, need = ep_reckoning(cfg_full)
+    free = torch.cuda.mem_get_info()[0]
+    log(f"expert parallel: {note}; {free / 1e9:.1f} GB free on the card")
+    check(need < free, "expert parallel: the reckoned memory does not fit")
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    out = Path(tempfile.mkdtemp(prefix="ep_out_"))
+    cfg = cfg_full.replace(n_layers=MOE_TRAIN_LAYERS)
+    store = dp_store()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=ep_rank, args=(r, 2, backend, store, cfg,
+                                               str(out))) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(EP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        alive = [p for p in procs if p.is_alive()]
+        check(not alive, f"expert parallel: {len(alive)} ranks still "
+                         f"running after {EP_TIMEOUT_S} s")
+        check(all(p.exitcode == 0 for p in procs), f"expert parallel: rank "
+              f"exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    res = [json.loads((out / f"rank{r}.json").read_text()) for r in (0, 1)]
+    return ep_report(res, backend, time.perf_counter() - t0)
+
+
+def ep_rank(rank: int, world: int, backend: str, store: str, cfg,
+            out: str) -> None:
+    """One rank of the expert parallel phase (a spawned process): joins
+    the group and runs ``ep_parts``; writes rank<r>.json to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=EP_TIMEOUT_S),
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    try:
+        res = ep_parts(rank, dev, cfg)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_parts(rank: int, dev, cfg) -> dict:
+    """The expert parallel phase on one rank: the EP_SHAPE mesh, 64 of the
+    128 experts and H 16/Kh 2 a rank.  For (a) ``cfg`` in f32 and (b) in
+    bf16: this rank's blocks drawn from seed 0 (``init_params`` under the
+    mesh) and world 1's full params from the same seed; for ``mp_plans``'
+    packed and wave plan, world 1's ``accumulate`` with its routing
+    recorded, then with sequence parallelism off and on one ``accumulate``
+    on the mesh (its launches counted around it, its routing recorded):
+    each rank's grad blocks against world 1's (``mp_block_rel``, combined
+    over the axis), the routing ``torch.equal`` across the axis
+    (``ep_agree``), the kept (token, slot) pairs against world 1's and
+    the near-tie flips counted.  Where (b) misses its bar, the mesh runs
+    again with world 1's routing pinned, and both figures are reported."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch.mesh import MeshDescriptor
+    mesh = MeshDescriptor("ep", EP_SHAPE, ("data", "model"),
+                          ("data",)).build(dev.type)
+    t0 = time.perf_counter()
+    packed, wave = mp_plans(cfg)
+    rows = []
+    for part, c in (("a", cfg.replace(dtype="float32")),
+                    ("b", cfg.replace(dtype="bfloat16"))):
+        with sh.use_mesh(None):
+            full = init_params(c, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+        with sh.use_mesh(mesh):
+            local = init_params(c, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+            experts = tuple(local["layer_stacks"][0]["moe"]["wi_up"].shape)
+        for name, plan in (("packed", packed), ("waves", wave)):
+            with sh.use_mesh(None), RouteRecord() as r1:
+                ref = TreeTrainEngine(c).accumulate(full, plan)
+            for sp in (False, True):
+                def run(pin=None):
+                    with sh.use_mesh(mesh, seq_parallel=sp), \
+                            RouteRecord(pin) as r2:
+                        reset_launches()
+                        torch.cuda.synchronize(dev)
+                        t1 = time.perf_counter()
+                        grads, scal = TreeTrainEngine(c).accumulate(local,
+                                                                    plan)
+                        torch.cuda.synchronize(dev)
+                        s = time.perf_counter() - t1
+                        counts = launch_counts()
+                        worst, leaf, num, den = mp_block_rel(
+                            grads, ref[0], rank == 0)
+                        ax = sh.model_axis()
+                        tot = torch.tensor([num, den], dtype=torch.float64,
+                                           device=dev)
+                        top = torch.tensor([worst], device=dev)
+                        dist.all_reduce(tot, group=ax.group)
+                        dist.all_reduce(top, op=dist.ReduceOp.MAX,
+                                        group=ax.group)
+                        agree = ep_agree(r2, ax)
+                    del grads
+                    return dict(
+                        launches=counts, s=round(s, 3), max_rel=float(top),
+                        leaf=leaf, rank_max_rel=worst,
+                        rel_l2=math.sqrt(float(tot[0]) / float(tot[1])),
+                        loss=float(scal[0]), agree=agree,
+                        kept_equal=all(torch.equal(a, b) for a, b in
+                                       zip(r2.keep, r1.keep))
+                        and len(r2.keep) == len(r1.keep),
+                        flips=r2.flips(r1), calls=len(r2.top_e))
+                row = dict(part=part, plan=name, sp=sp, experts=experts,
+                           want=plan_launches(c.n_layers, plan),
+                           loss1=float(ref[1][0]), **run())
+                if part == "b" and row["rel_l2"] > EP_BF16_L2:
+                    pinned = run(r1)
+                    row["pinned"] = {k: pinned[k] for k in (
+                        "rel_l2", "max_rel", "flips", "kept_equal")}
+                rows.append(row)
+            del ref
+        del full, local
+        torch.cuda.empty_cache()
+    return dict(rows=rows, wall_s=round(time.perf_counter() - t0, 3),
+                peak_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 3))
+
+
+def ep_report(res: list, backend: str, wall: float) -> dict:
+    """The expert parallel phase's prints and checks, from the ranks'
+    rows: (a) loss 1e-6 relative and the grad blocks 1e-4 max-rel of world
+    1's, the routing torch.equal across the ranks and the kept slots world
+    1's; (b) gradient relative L2 5e-2, or a miss the flips alone explain
+    (world 1's routing pinned: within the bar), reported as such; each
+    kernel ``plan_launches`` times by each rank."""
+    rows0, rows1 = res[0]["rows"], res[1]["rows"]
+    misses = []
+    for r0, r1 in zip(rows0, rows1):
+        tag = (f"expert parallel ({r0['part']}, {r0['plan']}, sequence "
+               f"parallelism {'on' if r0['sp'] else 'off'})")
+        rel = abs(r0["loss"] - r0["loss1"]) / max(abs(r0["loss1"]), 1e-12)
+        leaf = max((r0, r1), key=lambda r: r["rank_max_rel"])["leaf"]
+        pin = r0.get("pinned")
+        log(f"{tag}: mesh {EP_SHAPE} over {backend}, expert blocks "
+            f"{r0['experts']} a rank; loss {r0['loss']:.7f} vs world 1's "
+            f"{r0['loss1']:.7f} (rel {rel:.2e}); the ranks' grad blocks "
+            f"max-rel {r0['max_rel']:.3e} of world 1's (at {leaf}), "
+            f"relative L2 {r0['rel_l2']:.3e}; routing torch.equal across "
+            f"the ranks {r0['agree'] and r1['agree']} over {r0['calls']} "
+            f"MoE calls; kept (token, slot) pairs world 1's "
+            f"{r0['kept_equal']}; routing flips against world 1 "
+            f"{share(*r0['flips'])} valid tokens"
+            + (f"; with world 1's routing pinned: relative L2 "
+               f"{pin['rel_l2']:.3e}, max-rel {pin['max_rel']:.3e}"
+               if pin else "")
+            + f"; launches by rank {[r0['launches'], r1['launches']]} (want "
+            f"{r0['want']}); accumulate s by rank {[r0['s'], r1['s']]}")
+        check(r0["launches"] == r0["want"] and r1["launches"] == r0["want"],
+              f"{tag}: launches")
+        check(r0["agree"] and r1["agree"], f"{tag}: the ranks routed "
+                                           f"differently")
+        if r0["part"] == "a":
+            check(rel <= 1e-6 and r0["max_rel"] <= 1e-4, f"{tag}: loss "
+                  f"{rel:.2e} or grads {r0['max_rel']:.2e}")
+            check(r0["kept_equal"], f"{tag}: kept slots differ from world "
+                                    f"1's")
+        elif pin is not None:
+            check(r0["flips"][0] > 0 and pin["rel_l2"] <= EP_BF16_L2,
+                  f"{tag}: gradient relative L2 {r0['rel_l2']:.2e}, "
+                  f"{pin['rel_l2']:.2e} with the routing pinned")
+            misses.append(tag)
+            log(f"{tag}: MISS of the {EP_BF16_L2:g} bar that the routing "
+                f"flips alone "
+                f"explain (pinned {pin['rel_l2']:.3e}); see ROADMAP Queue C")
+    log(f"expert parallel: ranks' parts {res[0]['wall_s']:.1f} and "
+        f"{res[1]['wall_s']:.1f} s, peak device memory by rank "
+        f"{[r['peak_gb'] for r in res]} GB, wall {wall:.1f} s with the "
+        f"ranks' start-up")
+    return dict(wall_s=wall, misses=misses, backend=backend,
+                launches=[[r["launches"] for r in x["rows"]] for x in res],
                 rows=[(r["part"], r["plan"], r["sp"]) for r in rows0])
 
 
@@ -5279,6 +5595,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     timed("moe train parity", phase_moe_train_parity, mcfg)
+    torch.cuda.empty_cache()
+    ep = timed("expert parallel", phase_expert_parallel, mcfg)
     timing_moe = timed("moe timing T", phase_timing_train, kl_m, moe_step_s,
                        MOE_TRAIN_LAYERS, MOE_HEADS, "T_moe")
 
@@ -5421,6 +5739,15 @@ def main() -> int:
                   f"parallelism) {mp_['rows']}",
             launches_per_rank_per_accumulate=[
                 [c[name] for c in r] for r in mp_["launches"]])
+        e["expert_parallel"] = dict(
+            shape=f"{MOE_ARCH} on a (data 1, model 2) mesh over "
+                  f"{ep['backend']}, {MOE_TRAIN_LAYERS} layers, "
+                  f"{TRAIN_ROWS} rows of {MP_SEQ}: 64 of 128 experts and H "
+                  f"16 / Kh 2 a rank, hd 128; (a) f32, (b) bf16; one "
+                  f"accumulate each of (part, plan, sequence parallelism) "
+                  f"{ep['rows']}",
+            launches_per_rank_per_accumulate=[
+                [c[name] for c in r] for r in ep["launches"]])
         e["rl"] = dict(
             shape=f"rl loop: {RL_ARCH}, prompt {RL_PROMPT}, k {RL_K}, "
                   f"{rl['shape']['groups']} groups x "

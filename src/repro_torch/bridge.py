@@ -30,7 +30,8 @@ def _to_tensor(a, device) -> torch.Tensor:
 def params_from_jax(tree, device: DeviceLike, mesh=None) -> dict:
     """Nested dict/list of numpy arrays (the JAX layout) → the same tree of
     torch tensors on ``device``; with a ``mesh`` (a ``DeviceMesh``) this
-    rank's blocks of them (``sharding.local_params``)."""
+    rank's blocks of them (``sharding.local_params``: an MoE layer's
+    expert leaves its block along E)."""
     params = map_tree(lambda a: _to_tensor(a, device), tree)
     return params if mesh is None else local_params(params, mesh)
 

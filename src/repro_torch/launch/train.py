@@ -53,11 +53,12 @@ rank 0 prints and saves, and ``--resume`` loads on every rank:
 16 × 16 devices, two pods of 2 × 16 × 16; ``launch/mesh.
 production_descriptor``) when ``torchrun`` starts their 256 or 512
 ranks, as the reference's launcher does: the rows over the data axes, and
-the dense family's parameters over the model axis of 16 (Megatron tensor
-parallelism, ``sharding.py``).  On any other world they exit naming the
-ranks needed; a family the model axis does not run yet exits naming
-ROADMAP.md Queue A item 7e-ii.  Every rank saves (the model axis's
-gather), rank 0 writes.
+the dense and MoE families' parameters over the model axis of 16
+(Megatron tensor parallelism, ``sharding.py``; an MoE model's experts in
+blocks of E/16, ``models/moe.py``).  On any other world they exit naming
+the ranks needed; a family the model axis does not run yet, or a width
+it does not divide, exits naming ROADMAP.md Queue A item 7e-ii.  Every
+rank saves (the model axis's gather), rank 0 writes.
 """
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (host_descriptor, join_from_env,
                                      production_descriptor, world_size)
 from repro_torch.models.model import init_params
-from repro_torch.sharding import MODEL_AXIS_TODO, use_mesh
+from repro_torch.models.transformer import check_model_axis
+from repro_torch.sharding import use_mesh
 from repro_torch.train.checkpoint import (load_checkpoint, load_meta,
                                           save_checkpoint)
 from repro_torch.train.engine import TreeTrainEngine
@@ -164,7 +166,7 @@ def main(argv=None) -> None:
                          "starts (one process without torchrun); single, "
                          "multi: the production meshes (256 and 512 "
                          "ranks), their model axis of 16 for the dense "
-                         "family")
+                         "and MoE families")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None,
@@ -195,11 +197,12 @@ def main(argv=None) -> None:
                      f"{desc.device_count} ranks (torchrun "
                      f"--nproc-per-node ... with {desc.device_count} ranks "
                      f"in all), this world has {world_size()}")
-        cfg = get_config(args.arch, smoke=args.smoke)
-        if cfg.family != "dense":
+        try:
+            check_model_axis(get_config(args.arch, smoke=args.smoke),
+                             desc.axis_size(desc.model_axis))
+        except NotImplementedError as e:
             ap.error(f"--mesh {args.mesh} has a model axis of "
-                     f"{desc.axis_size(desc.model_axis)}: the {cfg.family} "
-                     f"family on a model axis is {MODEL_AXIS_TODO}")
+                     f"{desc.axis_size(desc.model_axis)}: {e}")
     dev = join_from_env(resolve_device(args.device))
     try:
         with use_mesh(desc.build(dev.type) if dist.is_initialized()

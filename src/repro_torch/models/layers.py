@@ -98,24 +98,38 @@ def deferred_draws():
         _DEFER.draws = old
 
 
-def _fill(out: torch.Tensor, draw, shape: tuple,
+def _fill(out: Optional[torch.Tensor], draw, shape: tuple,
           keep: Optional[tuple] = None) -> None:
     """``out[i] = draw(shape[1:])`` for each i < shape[0], or recursively
     into ``out[i]`` where that draw's fp32 copy would pass
     ``_DRAW_BYTES``; with ``keep`` = (dim, lo, hi) ``out`` holds only the
-    block [lo, hi) of ``dim`` (past the leading one) of the full
-    ``shape``."""
+    block [lo, hi) of ``dim`` of the full ``shape``.  A block of the
+    leading dim (a rank's experts of one layer, where that layer's draw
+    is made an expert at a time: one layer of Kimi K2's is 22.5 GB of
+    fp32) still draws every slice, so the generator advances as world 1's
+    does, and keeps its own; ``out`` None draws and keeps nothing."""
+    lead = None
     if keep is not None and keep[0] == 0:
-        raise NotImplementedError("a block of a stacked leaf's leading dim")
+        lead, keep = (keep[1], keep[2]), None
     sub = None if keep is None else (keep[0] - 1, keep[1], keep[2])
     for i in range(shape[0]):
+        dst = out
+        if out is not None and lead is not None:
+            dst = out[i - lead[0]] if lead[0] <= i < lead[1] else None
+        elif out is not None:
+            dst = out[i]
         if len(shape) > 3 and int(np.prod(shape[1:])) * 4 > _DRAW_BYTES:
-            _fill(out[i], draw, shape[1:], sub)
+            _fill(dst, draw, shape[1:], sub)
             continue
         # no name holds a draw past its copy: the next draw's fp32
         # temporaries may need its memory (Nemotron's cut fills 69 GB)
-        out[i] = draw(shape[1:]) if sub is None else \
-            draw(shape[1:]).narrow(sub[0], sub[1], sub[2] - sub[1])
+        if dst is None:
+            draw(shape[1:])
+        elif sub is None:
+            dst.copy_(draw(shape[1:]))
+        else:
+            dst.copy_(draw(shape[1:]).narrow(sub[0], sub[1],
+                                             sub[2] - sub[1]))
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None, lead=()) -> dict:

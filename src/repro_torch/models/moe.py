@@ -24,7 +24,24 @@ integers, one collective a layer), and the aux losses take the global
 counts and valid-token count, so the ranks' losses (each its tokens'
 share) sum to the whole batch's, as do their gradients.  A rank keeps
 exactly the (token, slot) pairs one process holding every row keeps.
-A model axis above 1 raises: expert parallelism is ROADMAP item 7e-ii.
+
+On a model axis of m ranks (expert parallelism, the reference's
+``P("M", None, None)`` on the expert dim) rank r holds experts
+[r·E/m, (r+1)·E/m) and the shared expert's column block
+(``shared_wi_*``) and row block (``shared_wo``); the router is
+replicated.  The layer's input is the block input every rank of the
+axis reads whole (``sharding.tp_in``), so every rank routes the same
+tokens and runs the whole routing and queue; it then dispatches into
+and runs only its own experts (``xb`` [E/m, C+1, D]: a slot of another
+rank's expert goes to the spill row, as a dropped slot does), and its
+combine reads zeros for those slots.  The routed and shared partial
+outputs are summed once a layer (``sharding.model_sum``: an all-reduce,
+or under sequence parallelism a reduce-scatter along S), where the
+reference's GSPMD moves the dispatch and combine through an all-to-all.
+The router's gradient is then this rank's experts' share of the
+combine's (``sharding.model_partial`` sums it), and the aux losses, which
+every rank computes whole, pass ``sharding.model_share``: their value
+whole, their gradient a 1/m share, so each enters the backward once.
 """
 from __future__ import annotations
 
@@ -36,7 +53,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.layers import _dense_init
-from repro_torch.sharding import DataAxis, data_axis, require_no_model_axis
+from repro_torch.sharding import (DataAxis, data_axis, model_block,
+                                  model_share, model_size, model_sum,
+                                  not_on_model_axis)
 
 
 def init_moe(generator, cfg: MoECfg, d_model: int, activation: str,
@@ -129,10 +148,14 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
     """x: [B, S, D]; valid: [B, S] bool.  Returns (y [B, S, D], aux) with
     aux = {"load_balance", "router_z"} f32 scalars (means over valid
     tokens, already weighted), or {} without ``with_aux``: decode discards
-    them, and a decode step is bound by its kernel launches."""
-    require_no_model_axis("the MoE layer (expert parallelism)")
+    them, and a decode step is bound by its kernel launches.  On a model
+    axis ``params`` are this rank's blocks and y is the summed output (the
+    rank's block of S under sequence parallelism)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    if E % model_size():
+        raise not_on_model_axis(f"{E} experts, which do not divide a model "
+                                f"axis of {model_size()},")
     N = B * S
     xf = x.reshape(N, D)
     vmask = valid.reshape(N)
@@ -143,17 +166,25 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
     counts, pos_c, keep = (queue(top_e, vmask, E, C) if axis is None
                            else queue(top_e, vmask, E, C, axis))
     e_flat = top_e.reshape(N * K)
+    # this rank's experts [lo, hi): a slot of another rank's expert goes
+    # to the spill row and reads zeros in the combine, as a dropped slot
+    lo, hi = model_block(E)
+    e_loc, pos_loc = e_flat, pos_c
+    if hi - lo < E:
+        mine = (e_flat >= lo) & (e_flat < hi)
+        e_loc = torch.where(mine, e_flat - lo, 0)
+        pos_loc = torch.where(mine, pos_c, C)
 
     # each token's row once per slot: an expand, not repeat_interleave,
     # whose CUDA backward is an atomic index_add (run-to-run different
     # sums); the expand's backward is a fixed-order sum over K
     src = xf[:, None].expand(N, K, D).reshape(N * K, D)     # [N·K, D]
-    # dispatch: [E, C+1, D], the last row the spill bucket; kept slots are
+    # dispatch: [E/m, C+1, D], the last row the spill bucket; kept slots are
     # unique, so only the discarded spill row ever sums (and on CUDA an
     # accumulating index_put sorts its indices: deterministic either way);
     # its backward is a gather
-    xb = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
-    xb = xb.index_put((e_flat, pos_c), src, accumulate=True)[:, :C]
+    xb = torch.zeros((hi - lo, C + 1, D), dtype=x.dtype, device=x.device)
+    xb = xb.index_put((e_loc, pos_loc), src, accumulate=True)[:, :C]
 
     # expert FFN over the stacked experts
     if "wi_gate" in params:
@@ -161,21 +192,23 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
             * torch.bmm(xb, params["wi_up"])
     else:
         h = _activate(torch.bmm(xb, params["wi_up"]), activation)
-    yb = torch.bmm(h, params["wo"])                          # [E, C, D]
+    yb = torch.bmm(h, params["wo"])                        # [E/m, C, D]
 
     # combine: gather each slot's row (the spill row reads zeros); its
     # backward is an accumulating index_put, deterministic on CUDA (sorted),
     # and only the cut-off spill row receives more than one cotangent
-    yb = torch.cat([yb, yb.new_zeros((E, 1, D))], dim=1)
-    gathered = yb[e_flat, pos_c]                              # [N·K, D]
+    yb = torch.cat([yb, yb.new_zeros((hi - lo, 1, D))], dim=1)
+    gathered = yb[e_loc, pos_loc]                             # [N·K, D]
     w = torch.where(keep, top_p.reshape(N * K), 0.0).to(x.dtype)
     y = (gathered * w[:, None]).reshape(N, K, D).sum(dim=1)
 
     if "shared_wi_up" in params:
         y = y + _act(params, xf, activation, "shared_") @ params["shared_wo"]
+    # the model axis's partial outputs summed, once a layer
+    y = model_sum(y.reshape(B, S, D))
 
     if not with_aux:
-        return y.reshape(B, S, D), {}
+        return y, {}
     # aux losses over valid tokens (each valid token has K slots, so the
     # counts give the batch's valid-token count, on a data axis too: this
     # rank's terms are its share over the whole batch's denominators)
@@ -186,4 +219,4 @@ def moe(params: dict, cfg: MoECfg, x: torch.Tensor, valid: torch.Tensor,
     aux = {"load_balance": E * torch.sum(frac * pmean)
            * cfg.router_aux_weight,
            "router_z": (z.sum() / nv) * cfg.router_z_weight}
-    return y.reshape(B, S, D), aux
+    return y, {k: model_share(v) for k, v in aux.items()}

@@ -23,15 +23,17 @@ in the backward (the reference's ``jax.checkpoint`` on its scan body,
 the hybrid's shared block, which the reference applies outside its scan.
 The reference's ``shard_activation`` follows every residual add, as
 there (``sharding.py``: the identity on a data axis, where each rank's
-rows are its block of the batch).  On a model axis the dense family runs
-Megatron's layout: each block's input passes ``sharding.tp_in`` (under
-sequence parallelism the all-gather of the residual stream's S blocks),
-its output projection ``tp_out_proj`` sums the ranks' partial products
-(under sequence parallelism a reduce-scatter back to S blocks), and the
-final hidden state passes ``tp_in`` on its way to the vocab-parallel
-loss; ``init_params`` draws every leaf as world 1 does and keeps this
-rank's block.  The other families refuse the model axis
-(``check_model_axis``: ROADMAP item 7e-ii).
+rows are its block of the batch).  On a model axis the dense and MoE families
+run Megatron's layout: each block's input passes ``sharding.tp_in``
+(under sequence parallelism the all-gather of the residual stream's S
+blocks), its output projection ``tp_out_proj`` sums the ranks' partial
+products (under sequence parallelism a reduce-scatter back to S blocks),
+and the final hidden state passes ``tp_in`` on its way to the
+vocab-parallel loss; an MoE layer runs the rank's block of the experts
+and sums its output the same way (``models/moe.py``); ``init_params``
+draws every leaf as world 1 does and keeps this rank's block.  The other
+families refuse the model axis (``check_model_axis``: ROADMAP item
+7e-ii).
 """
 from __future__ import annotations
 
@@ -133,19 +135,33 @@ def _init_layers(cfg: ModelConfig, kind: str, lead: tuple, generator, dtype,
     return p
 
 
-def check_model_axis(cfg: ModelConfig) -> None:
-    """Refuse a model axis above 1 where the port does not run it: any
-    family but the dense one (ROADMAP item 7e-ii), and a dense model whose
-    vocab, query, KV or FFN width does not divide the axis (the spec
-    would replicate that weight, which the port does not run)."""
-    m = model_size()
+# the families the port runs on a model axis above 1
+MODEL_AXIS_FAMILIES = ("dense", "moe")
+
+
+def check_model_axis(cfg: ModelConfig, m: Optional[int] = None) -> None:
+    """Refuse a model axis of ``m`` (the active mesh's by default) above 1
+    where the port does not run it: any family but the dense and MoE ones
+    and any frontend (ROADMAP item 7e-ii), and a model whose vocab, query,
+    KV or FFN width (the dense layers'), expert count or shared-expert
+    width does not divide the axis (the spec would replicate that weight,
+    which the port does not run)."""
+    m = model_size() if m is None else m
     if m == 1:
         return
-    if cfg.family != "dense" or cfg.frontend is not None:
+    if cfg.family not in MODEL_AXIS_FAMILIES or cfg.frontend is not None:
         raise not_on_model_axis(f"the {cfg.family} family ({cfg.name})")
     a = cfg.attn
-    for what, n in (("vocab", cfg.padded_vocab), ("query width", a.q_dim),
-                    ("KV width", a.kv_dim), ("FFN width", cfg.d_ff)):
+    widths = [("vocab", cfg.padded_vocab), ("query width", a.q_dim),
+              ("KV width", a.kv_dim)]
+    if "dense" in _layer_kinds(cfg):
+        widths.append(("FFN width", cfg.d_ff))
+    if cfg.family == "moe":
+        widths.append(("expert count", cfg.moe.num_experts))
+        if cfg.moe.num_shared_experts:
+            widths.append(("shared-expert width", cfg.moe.d_expert
+                           * cfg.moe.num_shared_experts))
+    for what, n in widths:
         if n % m:
             raise not_on_model_axis(f"{cfg.name}'s {what} {n}, which does "
                                     f"not divide a model axis of {m},")

@@ -34,11 +34,15 @@ collectives become explicit autograd functions:
 Where every rank computes a replicated leaf's whole gradient (a norm
 scale on the replicated residual stream without sequence parallelism)
 the engine takes it as it is; where each computes a share (the q/k norm
-scales, which see only the rank's heads; every replicated leaf under
-sequence parallelism, whose tokens are split) it sums it over the model
-axis (``model_partial``).  The dense family runs on a model axis
-(``models/transformer.check_model_axis``); the other families, serving
-and the RL loop raise ``not_on_model_axis``: ROADMAP item 7e-ii.
+scales, which see only the rank's heads; the MoE router, whose combine
+reads only the rank's experts; every replicated leaf under sequence
+parallelism, whose tokens are split) it sums it over the model axis
+(``model_partial``).  A value every rank computes whole and adds to the
+loss (the MoE aux losses) passes ``model_share``, so that its gradient
+enters the axis's sums once.  The dense and MoE families run on a model
+axis (``models/transformer.check_model_axis``; the MoE layer holds the
+rank's block of the experts, ``models/moe.py``); the other families,
+serving and the RL loop raise ``not_on_model_axis``: ROADMAP item 7e-ii.
 
 The mesh context is module state, not thread-local: the RL service's and
 the warm-up's threads see the mesh the launcher entered (the reference
@@ -59,9 +63,9 @@ import torch.distributed as dist
 from repro_torch.device import flatten_tree, unflatten_like
 
 MODEL_AXIS_TODO = ("ROADMAP.md Queue A item 7e-ii: the port runs the dense "
-                   "family's model axis; expert parallelism, FSDP, the SSM, "
-                   "hybrid, enc-dec and VLM rules, and serving and the RL "
-                   "loop on the axes are still to come")
+                   "and MoE families' model axis; FSDP, the SSM, hybrid, "
+                   "enc-dec and VLM rules, and serving and the RL loop on "
+                   "the axes are still to come")
 
 
 def not_on_model_axis(what: str) -> NotImplementedError:
@@ -276,6 +280,21 @@ class _Copy(torch.autograd.Function):
         return _sum(g, ctx.ax), None
 
 
+class _Share(torch.autograd.Function):
+    """The identity on a value every rank computes whole; backward: this
+    rank's 1/m share of the gradient, which the model axis's sums (the
+    ``model_partial`` leaves, ``tp_in``'s backward) count m times."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class _Gather(torch.autograd.Function):
     """All-gather along ``dim``; backward: a reduce-scatter."""
 
@@ -362,6 +381,16 @@ def model_sum(y):
     if y.dim() == 3 and seq_sharded(y.shape[1]):
         return _ReduceScatter.apply(y, 1, ax)
     return _Sum.apply(y, ax)
+
+
+def model_share(x):
+    """A value every rank of the model axis computes whole from replicated
+    inputs, on its way into the loss: its value as it is, its gradient
+    this rank's share (``_Share``), so the gradient enters once."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    return _Share.apply(x, ax.size)
 
 
 def tp_out_proj(h, w):
@@ -619,17 +648,19 @@ def model_dim(path, ndim: int) -> Optional[int]:
     return None
 
 
-# the replicated leaves a block applies to the model axis's own heads or
-# features: each rank's gradient of one is its share
-_INSIDE_BLOCK = re.compile(r"(^|/)(attn|mlp)/(?!bo$)")
+# the replicated leaves a block applies to the model axis's own heads,
+# features or experts: each rank's gradient of one is its share (the MoE
+# router's: its combine's gradient covers the rank's experts' slots)
+_INSIDE_BLOCK = re.compile(r"(^|/)(attn|mlp|moe)/(?!bo$)")
 
 
 def model_partial(path, ndim: int) -> bool:
     """Whether this rank's gradient of a replicated leaf is a share that
     the model axis sums: under sequence parallelism every replicated
     leaf's (its tokens are split); otherwise those a block applies to the
-    rank's heads (the q/k norm scales), since the residual stream's leaves
-    see every token on every rank."""
+    rank's heads (the q/k norm scales) or experts (the MoE router, whose
+    combine reads only the rank's experts' slots), since the residual
+    stream's leaves see every token on every rank."""
     if model_dim(path, ndim) is not None:
         return False
     return seq_parallel() or bool(_INSIDE_BLOCK.search(_ps(path)))

@@ -9,8 +9,9 @@ a typed array — and read back by a bit view.
 
 On a model axis (``sharding.py``) the trees hold this rank's blocks:
 ``save_checkpoint`` gathers the full leaves over the axis (every rank
-calls it; the process group's rank 0 writes), so the files are the ones
-world 1 writes, and ``load_checkpoint`` keeps this rank's block of each.
+calls it; the process group's rank 0 writes; an MoE layer's expert
+leaves and their moments along E), so the files are the ones world 1
+writes, and ``load_checkpoint`` keeps this rank's block of each.
 """
 from __future__ import annotations
 

@@ -40,13 +40,15 @@ cotangents routed onto them (reduce-scatter along rows, before its
 backward), so a child's parent may sit on any rank.  No collective reads
 a device value on the host: the step keeps its one host sync.
 
-On a model axis (the dense family, ``sharding.py``) every rank holds its
-blocks of the parameters, so the grad slots are its blocks' gradients.
+On a model axis (the dense and MoE families, ``sharding.py``) every rank
+holds its blocks of the parameters (an MoE layer's its block of the
+experts), so the grad slots are its blocks' gradients.
 The rows a rank runs are its data block (the model axis's ranks run the
 same rows), the captures and gateways hold the rank's KV heads, and the
-exchanges above stay on the data axis.  ``_reduce`` then also sums over
-the model axis the replicated leaves whose gradients are the ranks'
-shares (``sharding.model_partial``).
+exchanges above stay on the data axis, as does the MoE layer's count
+all-gather.  ``_reduce`` then also sums over the model axis the
+replicated leaves whose gradients are the ranks' shares
+(``sharding.model_partial``: the MoE router's among them).
 """
 from __future__ import annotations
 

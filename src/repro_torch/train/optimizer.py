@@ -56,8 +56,9 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree: Any) -> torch.Tensor:
     """The L2 norm of every leaf together.  On a model axis a tree of this
-    rank's blocks: the model-sharded leaves' squares are summed over the
-    axis (one all-reduce), the replicated leaves' counted once."""
+    rank's blocks: the model-sharded leaves' squares (an MoE layer's
+    expert blocks among them) are summed over the axis (one all-reduce),
+    the replicated leaves' counted once."""
     sq = lambda a: torch.sum(torch.square(a.float()))
     ax = model_axis()
     if ax is None:

@@ -32,6 +32,7 @@ from repro_torch.bridge import config_from_jax  # noqa: E402
 from repro_torch.device import flatten_tree  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.transformer import check_model_axis  # noqa: E402
 from repro_torch.serve.decode import _init_cache  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -318,10 +319,12 @@ class _FakeMesh:
 
 def test_constraints_are_the_identity_on_a_data_axis_and_raise_on_a_model_axis():
     """On a data axis the constraints are the identity.  On a model axis
-    they are the dense family's layout (the residual stream passes without
-    sequence parallelism, a 'model' dim keeps this rank's block; the
-    collectives themselves run in tests/test_torch_tp.py), and the
-    families the model axis does not run yet raise, naming item 7e-ii."""
+    they are the dense and MoE families' layout (the residual stream passes
+    without sequence parallelism, a 'model' dim keeps this rank's block;
+    the collectives themselves run in tests/test_torch_tp.py and
+    tests/test_torch_ep.py), and the families the model axis does not run
+    yet raise, naming item 7e-ii, as does an MoE model whose 4 experts do
+    not divide the axis (model 8)."""
     x, w = torch.randn(2, 3, 4), torch.randn(4, 5)
     assert sh.shard_activation(x) is x and sh.shard_logits(x) is x
     with sh.use_mesh(_FakeMesh((2, 1))):
@@ -339,6 +342,13 @@ def test_constraints_are_the_identity_on_a_data_axis_and_raise_on_a_model_axis()
         assert sh.shard_spec(x, "model", None, None).shape == (1, 3, 4)
         for fam in ("moe", "ssm_mamba2", "hybrid", "vlm", "audio"):
             cfg = config_from_jax(tiny_cfg(fam))
+            if fam == "moe":
+                check_model_axis(cfg)
+                with sh.use_mesh(_FakeMesh((1, 8))), pytest.raises(
+                        NotImplementedError, match="7e-ii"):
+                    init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+                continue
             with pytest.raises(NotImplementedError, match="7e-ii"):
                 init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")

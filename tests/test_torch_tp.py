@@ -24,7 +24,9 @@ model-2 checkpoint loads in world 1 and resumes bit-exactly on model 2.
 World 1 and the model-2 mesh run in a world of 2, the model-4 meshes in a
 world of 4 (``init_method="file://..."``, no port); both worlds run at
 once and write their results, which the tests read.  The families that
-the model axis does not run yet raise (a mesh stand-in, in process)."""
+the model axis does not run yet raise, as does an MoE model whose experts
+do not divide the axis (a mesh stand-in, in process; the MoE family's
+model axis runs in tests/test_torch_ep.py)."""
 import os
 import pickle
 import subprocess
@@ -51,7 +53,8 @@ from repro_torch.device import (flatten_tree, tree_leaves,  # noqa: E402
                                 unflatten_like)
 from repro_torch.launch.mesh import MeshDescriptor  # noqa: E402
 from repro_torch.models.model import batch_arrays, init_params  # noqa: E402
-from repro_torch.models.transformer import forward  # noqa: E402
+from repro_torch.models.transformer import (check_model_axis,  # noqa: E402
+                                            forward)
 from repro_torch.train.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.train.engine import ExecutionPlan, PackedExec  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,  # noqa: E402
@@ -522,13 +525,20 @@ class _FakeMesh:
 @pytest.mark.parametrize("family", ["moe", "ssm_mamba2", "ssm_rwkv6",
                                     "ssm_gdn", "hybrid", "audio", "vlm"])
 def test_families_not_ported_raise_on_a_model_axis(family):
+    """The families the model axis does not run raise at model 2; the MoE
+    family runs there and raises where its 4 experts do not divide the
+    axis (model 8: its widths divide)."""
     cfg = config_from_jax(tiny_cfg(family))
-    with sh.use_mesh(_FakeMesh((1, 2))):
+    m = 2
+    if family == "moe":
+        check_model_axis(cfg, 2)
+        m = 8
+    with sh.use_mesh(_FakeMesh((1, m))):
         with pytest.raises(NotImplementedError, match="7e-ii"):
             init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    with sh.use_mesh(_FakeMesh((1, 2))):
+    with sh.use_mesh(_FakeMesh((1, m))):
         with pytest.raises(NotImplementedError, match="7e-ii"):
             forward(cfg, params, batch)
 
@@ -536,8 +546,9 @@ def test_families_not_ported_raise_on_a_model_axis(family):
 @pytest.mark.parametrize("family", ["moe", "ssm_mamba2", "ssm_rwkv6",
                                     "ssm_gdn"])
 def test_moe_and_ssm_layers_raise_on_a_model_axis(family):
-    """The layers themselves refuse a model axis (not only the model's
-    entry points)."""
+    """The layers themselves refuse a model axis they do not run (not only
+    the model's entry points): the SSM layers any, the MoE layer one that
+    its 4 experts do not divide (model 8)."""
     from repro_torch.models import moe
     from repro_torch.models.ssm import gdn, mamba2, rwkv6
     cfg = config_from_jax(tiny_cfg(family))
@@ -552,19 +563,19 @@ def test_moe_and_ssm_layers_raise_on_a_model_axis(family):
         "ssm_rwkv6": lambda: rwkv6.rwkv6_timemix(
             {}, cfg.ssm, x, chunk_parent=None, prev_idx=None, valid=valid),
     }[family]
-    with sh.use_mesh(_FakeMesh((1, 2))):
+    with sh.use_mesh(_FakeMesh((1, 8 if family == "moe" else 2))):
         with pytest.raises(NotImplementedError, match="7e-ii"):
             call()
 
 
 def test_launcher_refuses_a_family_the_model_axis_does_not_run(capsys,
                                                                monkeypatch):
-    """On the production mesh's world, an MoE arch exits naming 7e-ii
-    before any process group is joined."""
+    """On the production mesh's world, a hybrid arch exits naming 7e-ii
+    before any process group is joined (the MoE family now runs there)."""
     from repro_torch.launch import train as train_launch
     monkeypatch.setenv("WORLD_SIZE", "256")
     with pytest.raises(SystemExit):
-        train_launch.main(["--arch", "qwen3_30b_a3b", "--smoke", "--steps",
+        train_launch.main(["--arch", "zamba2_1p2b", "--smoke", "--steps",
                            "1", "--device", "cpu", "--mesh", "single"])
     assert "7e-ii" in capsys.readouterr().err
 
